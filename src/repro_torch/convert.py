@@ -1,0 +1,55 @@
+"""Carry the reference's parameters into the port's layout.
+
+    params_np = jax.tree.map(np.asarray, lm.init(jax.random.PRNGKey(0)))
+    state = params_from_jax(params_np, device="cuda")
+
+The reference keeps its layers as ``prefix`` / ``scan`` / ``suffix``,
+the ``scan`` unit's parameters stacked along a leading layer dimension.
+The port keeps one parameter dict per layer in ``state["layers"]``, in
+model order: prefix, then the scanned unit unstacked repeat by repeat,
+then suffix.  Every other name maps one to one.  Takes numpy arrays, so
+it needs no jax.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.params import tree_map
+
+__all__ = ["params_from_jax"]
+
+
+def params_from_jax(tree: dict, device: torch.device | str = "cpu",
+                    dtype: torch.dtype | None = None) -> dict:
+    """Reference parameter tree of numpy arrays -> port state dict.
+
+    ``dtype`` casts every tensor (default: keep each array's dtype)."""
+    def leaf(a: Any) -> torch.Tensor:
+        t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    layers = list(tree.get("prefix", []))
+    unit = tree.get("scan", [])
+    if unit:
+        repeats = {int(np.shape(a)[0]) for u in unit
+                   for a in _leaves(u)}
+        if len(repeats) != 1:
+            raise ValueError(f"scan params disagree on the layer count "
+                             f"{sorted(repeats)}")
+        for r in range(repeats.pop()):
+            layers += [tree_map(lambda a, r=r: a[r], u) for u in unit]
+    layers += list(tree.get("suffix", []))
+    state = {k: v for k, v in tree.items()
+             if k not in ("prefix", "scan", "suffix")}
+    state["layers"] = layers
+    return tree_map(leaf, state)
+
+
+def _leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out

@@ -1,0 +1,99 @@
+"""Build and load the CUDA kernels of ``csrc/`` (nvcc -> .so -> ctypes).
+
+The shared library is compiled at first use from the sources in the
+checkout, for ``sm_90a``, into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``).  Its file name carries a hash of the sources
+and flags, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (_CSRC / "flash_attention.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: ``-Xptxas -v`` reports each kernel's registers and spills
+#: (:data:`last_build` keeps that output)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: (seconds, compiler output) of the build this process ran or None
+last_build: tuple[float, str] | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH): the CUDA "
+                           "kernels cannot be built on this host")
+    return found
+
+
+def _target() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; return the
+    library's path.  Compiles into a temporary file and renames it, so
+    a concurrent or interrupted build never leaves a torn library."""
+    global last_build
+    target = _target()
+    if target.is_file():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    last_build = (time.perf_counter() - t0, res.stdout + res.stderr)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use, with every entry
+    point's argument and result types declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.flash_attention_forward.argtypes = [
+                p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i,
+                p, p, p]
+            lib.flash_attention_forward.restype = i
+            lib.flash_attention_error_string.argtypes = [i]
+            lib.flash_attention_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

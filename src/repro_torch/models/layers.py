@@ -1,0 +1,304 @@
+"""Shared layer library, dense subset: norms, MLPs, RoPE, GQA attention
+(train/prefill through the flash kernel, one-token decode over a full
+KV cache).
+
+Plain functions on tensors; parameters arrive as dicts built from the
+ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
+(B, S, D).  The projections are ``torch.matmul`` (the reference leaves
+them to XLA); the attention core of prefill is one
+:func:`repro_torch.kernels.ops.flash_attention` dispatch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.params import ParamDef
+
+__all__ = [
+    "rmsnorm", "layernorm", "norm_defs", "apply_norm",
+    "linear", "mlp_defs", "apply_mlp",
+    "rope_angles", "apply_rope",
+    "attention_defs", "attention_train", "attention_decode",
+    "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
+]
+
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
+def norm_defs(d: int, kind: str) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d,), ("embed",), init="ones")}
+    return {"scale": ParamDef((d,), ("embed",), init="ones"),
+            "bias": ParamDef((d,), ("embed",), init="zeros")}
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"])
+    return layernorm(x, p["scale"], p["bias"])
+
+
+# ---------------------------------------------------------------------------
+# Linear / MLP
+# ---------------------------------------------------------------------------
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., in) @ (in, out) keeping leading dims."""
+    return torch.matmul(x, w)
+
+
+def mlp_defs(d: int, ff: int, kind: str) -> dict:
+    if kind in ("swiglu", "geglu"):
+        return {"wi": ParamDef((d, ff), ("embed", "ff")),
+                "wg": ParamDef((d, ff), ("embed", "ff")),
+                "wo": ParamDef((ff, d), ("ff", "embed"))}
+    return {"wi": ParamDef((d, ff), ("embed", "ff")),
+            "wo": ParamDef((ff, d), ("ff", "embed"))}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(p: dict, x: torch.Tensor, kind: str,
+              tuner=None) -> torch.Tensor:
+    m = 1
+    for dim in x.shape[:-1]:
+        m *= dim
+    d, ff = p["wi"].shape[-2], p["wi"].shape[-1]
+    n_in = 2 * ff if kind in ("swiglu", "geglu") else ff
+    ops.observe(m, d, n_in, tuner, site="mlp.in_proj")
+    ops.observe(m, ff, d, tuner, site="mlp.out_proj")
+    if kind == "swiglu":
+        return linear(F.silu(linear(x, p["wg"])) * linear(x, p["wi"]),
+                      p["wo"])
+    if kind == "geglu":
+        return linear(_gelu(linear(x, p["wg"])) * linear(x, p["wi"]),
+                      p["wo"])
+    return linear(_gelu(linear(x, p["wi"])), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, dim: int,
+                base: float = 10_000.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) of shape (..., dim/2) for integer positions."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    inv_freq = 1.0 / torch.pow(base, exps)
+    ang = positions.float()[..., None] * inv_freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+               fraction: float = 1.0) -> torch.Tensor:
+    """Rotate the first ``fraction`` of the head dim; x: (B, S, H, Dh),
+    sin/cos: (S, rot/2)."""
+    dh = x.shape[-1]
+    rot = int(dh * fraction)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2].float(), xr[..., rot // 2:].float()
+    sin_ = sin[None, :, None, : rot // 2].float()
+    cos_ = cos[None, :, None, : rot // 2].float()
+    out = torch.cat([x1 * cos_ - x2 * sin_, x2 * cos_ + x1 * sin_], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_fraction: float = 1.0
+    window: int | None = None
+    qk_norm: bool = False
+    causal: bool = True
+
+
+def attention_defs(s: AttnSpec) -> dict:
+    d, h, hk, hd = s.d_model, s.n_heads, s.n_kv_heads, s.head_dim
+    defs = {"wq": ParamDef((d, h * hd), ("embed", "heads")),
+            "wk": ParamDef((d, hk * hd), ("embed", "kv_heads")),
+            "wv": ParamDef((d, hk * hd), ("embed", "kv_heads")),
+            "wo": ParamDef((h * hd, d), ("heads", "embed"))}
+    if s.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones")
+    return defs
+
+
+def _project_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
+                 positions: torch.Tensor, tuner=None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, sq, d = x.shape
+    # the q/k/v projections are plain GEMMs; tag them so the recorded
+    # routine mix carries the dense dispatch volume
+    ops.observe(b * sq, d,
+                (s.n_heads + 2 * s.n_kv_heads) * s.head_dim, tuner,
+                site="attn.qkv_proj")
+    q = linear(x, p["wq"]).reshape(b, sq, s.n_heads, s.head_dim)
+    k = linear(x, p["wk"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
+    v = linear(x, p["wv"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
+    if s.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    if s.rope_fraction > 0:
+        sin, cos = rope_angles(positions, int(s.head_dim * s.rope_fraction))
+        frac = 1.0 if s.rope_fraction == 1.0 else s.rope_fraction
+        q = apply_rope(q, sin, cos, frac)
+        k = apply_rope(k, sin, cos, frac)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D) by repeating each KV head."""
+    hk = k.shape[2]
+    if hk == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // hk, dim=2)
+
+
+def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None
+                    ) -> tuple[torch.Tensor,
+                               tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence self-attention (prefill internals).
+
+    Returns (out, (k, v)) — the pre-repeat (B, S, Hkv, Dh) projections so
+    prefill can seed the decode cache without recomputation.  The
+    attention core is one :func:`ops.flash_attention` dispatch on the
+    flattened (B*H, Sq, Dh) heads: causal layers dispatch as
+    routine="attn" and the tuner resolves the flash blocks and the
+    dense vs block-sparse triangular KV walk.
+    """
+    b, sq, _ = x.shape
+    positions = torch.arange(sq, device=x.device)
+    q, k, v = _project_qkv(p, x, s, positions, tuner)
+    kr = _repeat_kv(k, s.n_heads)
+    vr = _repeat_kv(v, s.n_heads)
+    flat = (b * s.n_heads, sq, s.head_dim)
+    out = ops.flash_attention(
+        q.transpose(1, 2).reshape(flat).contiguous(),
+        kr.transpose(1, 2).reshape(flat).contiguous(),
+        vr.transpose(1, 2).reshape(flat).contiguous(),
+        causal=s.causal, window=s.window, tuner=tuner, site="attn.core")
+    out = out.reshape(b, s.n_heads, sq, s.head_dim).transpose(1, 2)
+    ops.observe(b * sq, s.n_heads * s.head_dim, x.shape[-1], tuner,
+                site="attn.out_proj")
+    out = linear(out.reshape(b, sq, s.n_heads * s.head_dim), p["wo"])
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """A full cache (capacity = max seq).  The reference's ring buffer
+    for sliding-window layers and its int8 variant are not ported yet."""
+    k: torch.Tensor            # (B, cap, Hkv, Dh)
+    v: torch.Tensor
+
+
+def _full_cache_only(windowed: bool, quantized: bool) -> None:
+    if windowed:
+        raise NotImplementedError(
+            "sliding-window (ring) KV cache is not ported yet")
+    if quantized:
+        raise NotImplementedError("int8 KV cache is not ported yet")
+
+
+def init_kv_cache(batch: int, capacity: int, n_kv_heads: int,
+                  head_dim: int, dtype: torch.dtype, *,
+                  device: torch.device | str = "cpu",
+                  windowed: bool = False,
+                  quantized: bool = False) -> KVCache:
+    _full_cache_only(windowed, quantized)
+    shape = (batch, capacity, n_kv_heads, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
+                  windowed: bool, quantized: bool = False) -> KVCache:
+    """Build the decode cache from prefill projections k/v (B, S, Hkv, D):
+    the first S slots filled, the rest zero."""
+    _full_cache_only(windowed, quantized)
+    b, sq, hk, hd = k.shape
+    if capacity < sq:
+        raise ValueError(f"prompt {sq} exceeds cache {capacity}")
+    cache = init_kv_cache(b, capacity, hk, hd, k.dtype, device=k.device)
+    cache.k[:, :sq] = k
+    cache.v[:, :sq] = v
+    return cache
+
+
+def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
+                     pos: int, tuner=None) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode: x (B, 1, D); ``pos`` = tokens so far.
+
+    The cache update is tagged routine="trsm" as in the reference (a
+    sequential append + triangular-prefix read).  Unlike the reference,
+    whose ``dynamic_update_slice`` returns a new array, the new row is
+    written into ``cache`` in place, and the same cache is returned.
+    """
+    b = x.shape[0]
+    positions = torch.full((1,), pos, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, s, positions, tuner)
+    cap = cache.k.shape[1]
+    ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
+                routine="trsm", site="attn.cache_update")
+    slot = min(int(pos), cap - 1)
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+
+    kk = _repeat_kv(cache.k, s.n_heads)
+    vv = _repeat_kv(cache.v, s.n_heads)
+    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
+                          kk.float()) * (s.head_dim ** -0.5)
+    valid = torch.arange(cap, device=x.device) <= pos
+    scores = torch.where(valid[None, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
+    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
+    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
+                site="attn.out_proj")
+    return linear(out, p["wo"]), cache

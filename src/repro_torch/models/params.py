@@ -1,0 +1,62 @@
+"""Parameter definition + initialisation on the target device.
+
+Every model declares its parameters as a tree (nested dicts and lists)
+of :class:`ParamDef` leaves, like the reference.  :func:`init_params`
+materialises it with one explicit ``torch.Generator`` on the target
+device, so a full-width model is drawn where it will live instead of
+being made on the host and copied.  The draws differ from the
+reference's ``jax.random`` ones; parity tests share weights through
+:func:`repro_torch.convert.params_from_jax` instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+__all__ = ["ParamDef", "init_params", "tree_map"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis per dim
+    init: str = "normal"                  # normal | zeros | ones
+    scale: float | None = None            # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """Apply ``fn`` to every leaf of a tree of dicts and lists, visiting
+    dict keys in sorted order (the order jax flattens them in)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _init_one(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    scale = d.scale if d.scale is not None else fan_in ** -0.5
+    w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def init_params(defs: Any, gen: torch.Generator,
+                dtype: torch.dtype = torch.float32) -> Any:
+    """Materialise a ParamDef tree on ``gen``'s device, leaf by leaf in
+    a fixed order (deterministic per seed and device)."""
+    return tree_map(lambda d: _init_one(d, gen, dtype, gen.device), defs)
+
