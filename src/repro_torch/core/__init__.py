@@ -91,3 +91,9 @@ __all__ = [
     "resolve_serving_artifact",
     "AdsalaTuner",
 ]
+
+# port-only begin: the device counterpart of MeasuredCPUBackend
+from repro_torch.core.timing import MeasuredCUDABackend  # noqa: E402
+
+__all__ += ["MeasuredCUDABackend"]
+# port-only end

@@ -348,6 +348,145 @@ class MeasuredCPUBackend:
         return self.time_routine(m, k, n, cfg, routine="gemm")
 
 
+# port-only begin: the device counterpart of MeasuredCPUBackend
+__all__.append("MeasuredCUDABackend")
+
+#: bytes written before every timed run to evict the H100's 50 MB L2
+L2_FLUSH_BYTES = 64 * 2**20
+
+
+@dataclasses.dataclass
+class MeasuredCUDABackend:
+    """CUDA-event timing of the port's own BLAS-3 kernels on the card.
+
+    Each sample runs :mod:`repro_torch.kernels.ops` on the CUDA backend
+    with the config's explicit tile (``cfg.tile``; ``cfg.flash_block``
+    and ``cfg.flash_grid`` for attn): ``warmup`` untimed executions,
+    then the **median** of ``repeats`` timed ones, each between a pair
+    of CUDA events after the L2 cache was flushed.  The time includes
+    the host's work between the events, so a TRSM's panel loop is
+    charged as its caller would see it.  cfg.n_chips and cfg.partition
+    are ignored (one card; the candidate set used with this backend
+    holds n_chips=1), as :class:`MeasuredCPUBackend` ignores them.
+
+    Operands are fp32 views into one pool on the card, filled from a
+    ``torch.Generator`` seeded with ``seed`` and regrown only when a
+    sample needs more, so memory holds one sample's operands however
+    many shapes are timed.  TRSM solves against a well-conditioned
+    lower-triangular operand (|diag| + m).  ``attn`` times causal
+    single-head flash attention on (Sq=m, Dh=k, Skv=n); Dh must be one
+    of the kernel's head dims.  Dims are clamped at ``max_dim``.
+
+    Building the object needs no card; the first timing call raises
+    ``RuntimeError`` without one.  There is no CPU fallback.
+    """
+
+    max_dim: int = 65536
+    seed: int = 0
+    #: timed executions per sample (median taken)
+    repeats: int = 1
+    #: untimed executions before the timed ones
+    warmup: int = 1
+
+    def __post_init__(self) -> None:
+        if self.repeats < 1:
+            raise ValueError(f"repeats={self.repeats} < 1")
+        if self.warmup < 0:
+            raise ValueError(f"warmup={self.warmup} < 0")
+        self._gen = None
+        self._pool = None
+        self._flush = None
+        self._tri = None              # (m, lower-triangular operand)
+
+    @staticmethod
+    def _torch():
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "MeasuredCUDABackend needs a CUDA device: it times the "
+                "port's kernels on the card and has no CPU fallback")
+        return torch
+
+    def _views(self, *shapes: tuple[int, int]) -> list:
+        torch = self._torch()
+        need = sum(r * c for r, c in shapes)
+        if self._pool is None or self._pool.numel() < need:
+            if self._gen is None:
+                self._gen = torch.Generator(device="cuda")
+                self._gen.manual_seed(self.seed)
+            self._pool = self._tri = None
+            self._pool = torch.randn(need, generator=self._gen,
+                                     device="cuda")
+        views, off = [], 0
+        for r, c in shapes:
+            views.append(self._pool[off:off + r * c].view(r, c))
+            off += r * c
+        return views
+
+    def _run(self, m: int, k: int, n: int, cfg: GemmConfig,
+             routine: str):
+        """A closure that runs the routine once on pooled operands."""
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+
+        tile = cfg.tile
+        if routine == "gemm":
+            a, b = self._views((m, k), (k, n))
+            return lambda: ops.matmul(a, b, tile=tile, backend="cuda")
+        if routine == "syrk":
+            a, = self._views((m, k))
+            return lambda: ops.syrk(a, tile=tile, backend="cuda")
+        if routine == "trsm":
+            src, b = self._views((m, m), (m, n))
+            if self._tri is None or self._tri[0] != m:
+                ell = self._torch().tril(src)
+                diag = ell.diagonal()
+                diag.copy_(diag.abs() + float(m))
+                self._tri = (m, ell)
+            ell = self._tri[1]
+            return lambda: ops.trsm(ell, b, tile=tile, backend="cuda")
+        if routine == "attn":
+            if k not in SUPPORTED_HEAD_DIMS:
+                raise ValueError(f"attn head dim {k} not in the kernel's "
+                                 f"{SUPPORTED_HEAD_DIMS}")
+            q, kk, v = (t[None] for t in self._views((m, k), (n, k),
+                                                      (n, k)))
+            bq, bkv = cfg.flash_block
+            return lambda: ops.flash_attention(
+                q, kk, v, causal=True, bq=bq, bkv=bkv,
+                grid=cfg.flash_grid, backend="cuda")
+        raise ValueError(f"unknown routine {routine!r}")
+
+    def time_routine(self, m: int, k: int, n: int, cfg: GemmConfig, *,
+                     routine: str = "gemm") -> float:
+        """Median of ``repeats`` timed executions (seconds) after
+        ``warmup`` untimed ones, the L2 flushed before each timed one."""
+        torch = self._torch()
+        m, k, n = (min(int(d), self.max_dim) for d in (m, k, n))
+        run = self._run(m, k, n, cfg, routine)
+        for _ in range(self.warmup):
+            run()
+        if self._flush is None:
+            self._flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+        events = []
+        for _ in range(self.repeats):
+            self._flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in events])) \
+            * 1e-3
+
+    def time_gemm(self, m: int, k: int, n: int, cfg: GemmConfig) -> float:
+        return self.time_routine(m, k, n, cfg, routine="gemm")
+# port-only end
+
+
 # ---------------------------------------------------------------------------
 # backend provenance (per-arch artifact registry)
 # ---------------------------------------------------------------------------
@@ -370,6 +509,12 @@ def describe_backend(backend: Any) -> dict:
         return {"kind": "measured-cpu", "max_dim": backend.max_dim,
                 "seed": backend.seed, "repeats": backend.repeats,
                 "warmup": backend.warmup}
+    # port-only begin
+    if isinstance(backend, MeasuredCUDABackend):
+        return {"kind": "measured-cuda", "max_dim": backend.max_dim,
+                "seed": backend.seed, "repeats": backend.repeats,
+                "warmup": backend.warmup}
+    # port-only end
     describe = getattr(backend, "describe", None)
     if callable(describe):
         return dict(describe())
@@ -391,6 +536,13 @@ def backend_from_dict(d: dict) -> "TimingBackend":
                                   seed=int(d.get("seed", 0)),
                                   repeats=int(d.get("repeats", 1)),
                                   warmup=int(d.get("warmup", 1)))
+    # port-only begin
+    if kind == "measured-cuda":
+        return MeasuredCUDABackend(max_dim=int(d.get("max_dim", 65536)),
+                                   seed=int(d.get("seed", 0)),
+                                   repeats=int(d.get("repeats", 1)),
+                                   warmup=int(d.get("warmup", 1)))
+    # port-only end
     raise ValueError(
         f"cannot reconstruct a timing backend of kind {kind!r} — "
         "pass one explicitly (backend=...)")

@@ -2,7 +2,8 @@
 
 The shared library is compiled at first use from the sources in the
 checkout, for ``sm_90a``, into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``).  Its file name carries a hash of the sources
+(listed in ``.gitignore``): one ``nvcc -c`` per source, all started
+together, then one link.  Its file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing here runs at import time.
 """
@@ -17,17 +18,18 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu",)
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: ``-Xptxas -v`` reports each kernel's registers and spills
 #: (:data:`last_build` keeps that output)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,29 +57,38 @@ def _target() -> Path:
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    return res.stdout + res.stderr
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; return the
-    library's path.  Compiles into a temporary file and renames it, so
-    a concurrent or interrupted build never leaves a torn library."""
+    library's path.  The sources compile in parallel (one ``nvcc`` each)
+    into a temporary directory and link into a temporary file that is
+    then renamed, so a concurrent or interrupted build never leaves a
+    torn library."""
     global last_build
     target = _target()
     if target.is_file():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    last_build = (time.perf_counter() - t0, res.stdout + res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                       for src, o in zip(SOURCES, objs)]))
+        lib = Path(tmp) / target.name
+        logs.append(_run([nvcc, "-shared", "-o", str(lib),
+                          *map(str, objs)]))
+        os.replace(lib, target)
+    last_build = (time.perf_counter() - t0, "".join(logs))
     return target
 
 
@@ -95,5 +106,11 @@ def library() -> ctypes.CDLL:
             lib.flash_attention_forward.restype = i
             lib.flash_attention_error_string.argtypes = [i]
             lib.flash_attention_error_string.restype = ctypes.c_char_p
+            ll = ctypes.c_longlong
+            lib.matmul_forward.argtypes = [
+                p, p, p, i, i, i, ll, ll, ll, ll, i, i, i, i, i, i, i, p]
+            lib.matmul_forward.restype = i
+            lib.matmul_error_string.argtypes = [i]
+            lib.matmul_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib

@@ -30,8 +30,16 @@
 //
 // Masking uses the finite -1e30, never -INFINITY: exp(-inf - -inf) is
 // NaN.  p is zeroed explicitly where the mask is false, so a row with no
-// visible key keeps l = 0 and outputs 0 (l is clamped at 1e-30, as in
-// the reference).
+// visible key keeps l = 0 through the main walk.  The reference gives
+// such a row p = exp(-1e30 - -1e30) = 1 on every column of every visible
+// logical tile (padded columns included, where v is zero): the uniform
+// average of v over those tiles, or 0 when no logical tile of the row's
+// Q block is visible.  That value is the same for every such row of a
+// logical Q block, so a block that holds one walks the visible logical
+// tiles once more after the main walk (whole tiles: the 64 x 64 sub-tile
+// skips do not apply) and sums v column by column.  Both walks visit
+// the same tiles in the same order, so this pass too is bitwise equal
+// between them.
 //
 // Bound.  At the serving path's shape (BH = 128, S = 1024, D = 64, fp32,
 // causal) the kernel does ~17.2 GFLOP (QK^T and PV over the causal
@@ -95,6 +103,15 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
+// the reference's _visible, on the logical tile (padded=True)
+__device__ __forceinline__ bool visible(const Params& p, int q_start,
+                                        int kv_start) {
+  bool vis = kv_start < p.skv;
+  if (p.causal) vis = vis && kv_start <= q_start + p.bq - 1;
+  if (p.window > 0) vis = vis && kv_start + p.bkv - 1 > q_start - p.window;
+  return vis;
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const Params p) {
@@ -144,12 +161,7 @@ flash_fwd_kernel(const Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     const int j = p.row_ptr != nullptr ? p.kv_list[first + t] : t;
     const int kv_start = j * p.bkv;
-    // the reference's _visible, on the logical tile (padded=True)
-    bool visible = kv_start < p.skv;
-    if (p.causal) visible = visible && kv_start <= q_start + p.bq - 1;
-    if (p.window > 0)
-      visible = visible && kv_start + p.bkv - 1 > q_start - p.window;
-    if (!visible) continue;
+    if (!visible(p, q_start, kv_start)) continue;
     const int tile_end = min(kv_start + p.bkv, p.skv);
 
     for (int c0 = kv_start; c0 < tile_end; c0 += BN) {
@@ -234,14 +246,44 @@ flash_fwd_kernel(const Params p) {
     }
   }
 
+  // rows with no visible key: the reference's uniform average over the
+  // visible logical tiles (see the header)
+  bool empty_row = false;
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+    empty_row |= row0 + ty * TM + a < row_end && l_i[a] == 0.f;
+  float* sVbar = sK;              // D floats, free after the main walk
+  const bool any_empty = __syncthreads_or(empty_row);
+  if (any_empty) {
+    if (tid < D) {
+      float vsum = 0.f;
+      int n_vis = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int j = p.row_ptr != nullptr ? p.kv_list[first + t] : t;
+        const int kv_start = j * p.bkv;
+        if (!visible(p, q_start, kv_start)) continue;
+        ++n_vis;
+        const int tile_end = min(kv_start + p.bkv, p.skv);
+        for (int c = kv_start; c < tile_end; ++c)
+          vsum += load_f32(v + (size_t)c * D + tid);
+      }
+      sVbar[tid] = n_vis > 0 ? vsum / (float)(n_vis * p.bkv) : 0.f;
+    }
+    __syncthreads();
+  }
+
 #pragma unroll
   for (int a = 0; a < TM; ++a) {
     const int qi = row0 + ty * TM + a;
     if (qi >= row_end) continue;
+    const bool empty = l_i[a] == 0.f;
     const float inv = fmaxf(l_i[a], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < TD; ++c)
-      store_f32(o + (size_t)qi * D + tx + 16 * c, acc[a][c] / inv);
+    for (int c = 0; c < TD; ++c) {
+      const int col = tx + 16 * c;
+      store_f32(o + (size_t)qi * D + col,
+                empty ? sVbar[col] : acc[a][c] / inv);
+    }
   }
 }
 

@@ -12,15 +12,16 @@ it on the H100 and how the TPU design was rethought.
   output, launches on the current stream, raises on a CUDA error, and
   counts its launches in ``flash_attention_cuda.launches``.
 * :func:`flash_attention_torch` — the plain version of the same
-  function (fp32 math, the same masks, rows with no visible key give 0).
+  function (fp32 math, the same masks, and the reference's value on a
+  row with no visible key: see :func:`_visible`).
 
 :func:`repro_torch.kernels.ops.flash_attention` picks between them:
 CUDA tensors launch the kernel (or raise), CPU tensors take the plain
 version, and there is no fallback from one to the other.
 
-The host helpers :func:`flash_tile_map`, :func:`flash_grid_counts` and
-``_clamp_blocks`` are the reference's, unchanged, so both packages build
-the same tile maps from the tuner's ``(bq, bkv)``.
+The host helpers :func:`flash_tile_map`, :func:`flash_grid_counts`,
+``_clamp_blocks`` and ``_visible`` are the reference's, unchanged, so
+both packages build the same tile maps from the tuner's ``(bq, bkv)``.
 """
 
 from __future__ import annotations
@@ -51,6 +52,20 @@ def _clamp_blocks(sq: int, skv: int, bq: int, bkv: int) -> tuple[int, int]:
     """The effective (bq, bkv) the kernels run: never larger than the
     (sublane-padded) sequence extents."""
     return min(bq, max(8, sq)), min(bkv, max(8, skv))
+
+
+def _visible(q_start, kv_start, *, bq: int, bkv: int, skv: int,
+             padded: bool, causal: bool, window: int | None):
+    """Does this logical tile intersect the mask at all?  Works on ints
+    and on numpy arrays of tile starts alike."""
+    visible = np.bool_(True)
+    if padded:
+        visible = visible & (kv_start < skv)
+    if causal:
+        visible = visible & (kv_start <= q_start + bq - 1)
+    if window is not None:
+        visible = visible & (kv_start + bkv - 1 > q_start - window)
+    return visible
 
 
 def flash_tile_map(sq: int, skv: int, bq: int, bkv: int, *,
@@ -132,10 +147,14 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
                           grid: str = "dense") -> torch.Tensor:
     """Plain PyTorch version of the kernel's function, on (BH, S, D).
 
-    Materialises the (BH, Sq, Skv) fp32 scores.  The blocks and the
-    grid do not change the result (the kernel's dense and tri walks are
-    bitwise equal); they are checked and otherwise unused.  Rows with
-    no visible key output 0, as the kernel's clamped denominator gives.
+    Materialises the (BH, Sq, Skv) fp32 scores.  The grid does not
+    change the result (the kernel's dense and tri walks are bitwise
+    equal).  The blocks matter only on a row with no visible key, where
+    the reference's online softmax (finite -1e30 mask, so p = exp(0) = 1
+    before any real score seeds the running max) averages ``v`` over
+    every column of every visible logical (bq, bkv) tile of the row's
+    Q block, padded columns (zero ``v``) included; a row whose logical
+    tiles are all invisible gives 0.
     """
     _check(q, k, v, grid)
     _, sq, d = q.shape
@@ -153,7 +172,22 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(mask, p, 0.0)
     out = torch.einsum("bqk,bkd->bqd", p, v.float())
-    return (out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    empty = ~mask.any(dim=-1)
+    if bool(empty.any()):
+        bq_, bkv_ = _clamp_blocks(sq, skv, bq, bkv)
+        gq, gkv = -(-sq // bq_), -(-skv // bkv_)
+        vis = _visible(np.arange(gq)[:, None] * bq_,
+                       np.arange(gkv)[None, :] * bkv_, bq=bq_, bkv=bkv_,
+                       skv=skv, padded=True, causal=causal, window=window)
+        vis = torch.from_numpy(np.asarray(vis)).to(q.device)
+        cols = vis[:, torch.arange(skv, device=q.device) // bkv_]
+        n_cols = vis.sum(dim=1).clamp_min(1) * bkv_          # (gq,)
+        vbar = torch.einsum("gk,bkd->bgd", cols.float(), v.float()) \
+            / n_cols[None, :, None]
+        rows = torch.nonzero(empty).squeeze(1)
+        out[:, rows] = vbar[:, rows // bq_]
+    return out.to(q.dtype)
 
 
 @functools.lru_cache(maxsize=64)

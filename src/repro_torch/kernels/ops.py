@@ -1,8 +1,9 @@
-"""Tuned kernel dispatch + ADSALA tuner integration (the serving slice).
+"""Tuned kernel dispatch + ADSALA tuner integration.
 
-``flash_attention`` is the entry point the model layers call; the
-``observe`` / ``dispatch_hint`` sites report the plain contractions the
-layers leave to ``torch.matmul``.  Backend selection:
+``matmul`` / ``syrk`` / ``trsm`` (the paper's BLAS-3 loop) and
+``flash_attention`` are the entry points; the ``observe`` /
+``dispatch_hint`` sites report the plain contractions the model layers
+leave to ``torch.matmul``.  Backend selection:
 
   * ``cuda``  — the hand-written Hopper kernels; a CPU tensor raises;
   * ``torch`` — the kernels' plain PyTorch versions, on any device;
@@ -12,11 +13,13 @@ layers leave to ``torch.matmul``.  Backend selection:
 
 When an :class:`~repro_torch.core.tuner.AdsalaTuner` is supplied, the
 call's (routine, m, k, n) is looked up per call (memoised inside the
-tuner) and the chosen worker configuration supplies the flash blocks
-and KV grid.  Every entry point reports its dispatch — the *resolved*
-routine, shape, chosen config and whether the tuner served it from
-cache — to any active :class:`~repro_torch.kernels.recorder.
-DispatchRecorder`, exactly as the reference does.
+tuner) and the chosen worker configuration supplies the GEMM tile, or
+the flash blocks and KV grid.  An explicit ``tile`` (or flash knob)
+skips the tuner.  Every entry point reports its dispatch — the
+*resolved* routine, shape, chosen config and whether the tuner served
+it from cache — to any active :class:`~repro_torch.kernels.recorder.
+DispatchRecorder`, exactly as the reference does; a routine the
+artifact carries no signal for falls back to gemm.
 """
 
 from __future__ import annotations
@@ -26,16 +29,26 @@ from typing import Literal
 
 import torch
 
-from repro_torch.core.costmodel import DEFAULT_ROUTINE, ROUTINES, GemmConfig
+from repro_torch.core.costmodel import (
+    DEFAULT_ROUTINE,
+    DEFAULT_TILES,
+    ROUTINES,
+    GemmConfig,
+)
 from repro_torch.core.tuner import AdsalaTuner
 from repro_torch.kernels import recorder
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_torch,
 )
+from repro_torch.kernels.matmul import (
+    check_gemm_shapes,
+    matmul_cuda,
+    matmul_torch,
+)
 
-__all__ = ["flash_attention", "dispatch_hint", "observe",
-           "resolve_backend", "supported_routine"]
+__all__ = ["matmul", "syrk", "trsm", "flash_attention", "dispatch_hint",
+           "observe", "resolve_backend", "supported_routine"]
 
 Backend = Literal["auto", "cuda", "torch"]
 
@@ -124,6 +137,126 @@ def observe(m: int, k: int, n: int,
         supported_routine(routine, tuner)   # still fail loudly on typos
         return
     dispatch_hint(m, k, n, tuner, routine, site, count)
+
+
+def _gemm(be: str):
+    return matmul_cuda if be == "cuda" else matmul_torch
+
+
+def _tile(tile: tuple[int, int, int] | None,
+          cfg: GemmConfig | None) -> tuple[int, int, int]:
+    return (tile if tile is not None
+            else cfg.tile if cfg is not None else DEFAULT_TILES[3])
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           tuner: AdsalaTuner | None = None,
+           tile: tuple[int, int, int] | None = None,
+           backend: Backend = "auto",
+           site: str = "", count: int = 1) -> torch.Tensor:
+    """Tuned GEMM C = A @ B: the tuner's tile for (gemm, m, k, n) (or an
+    explicit ``tile``, which skips the tuner) drives the kernel."""
+    check_gemm_shapes(a, b)
+    be = resolve_backend(backend, a.device)
+    m, k, n = int(a.shape[0]), int(a.shape[1]), int(b.shape[1])
+    # an explicit tile overrides the tuner entirely: don't consult it,
+    # and don't label the event with a config that was never dispatched
+    rt, cfg, hit = _select(m, k, n, DEFAULT_ROUTINE,
+                           tuner if tile is None else None,
+                           need_config=True)
+    recorder.record(rt, m, k, n, config=cfg, cache_hit=hit, site=site,
+                    count=count)
+    bm, bk, bn = _tile(tile, cfg)
+    return _gemm(be)(a, b, bm=bm, bk=bk, bn=bn)
+
+
+def syrk(a: torch.Tensor, b: torch.Tensor | None = None, *,
+         tuner: AdsalaTuner | None = None,
+         tile: tuple[int, int, int] | None = None,
+         lower: bool = True,
+         backend: Backend = "auto",
+         site: str = "", count: int = 1) -> torch.Tensor:
+    """Symmetric rank-k update C = tril/triu(A @ Aᵀ), A of shape (m, k).
+
+    With ``b`` (same shape as A) this is the SYRK-*shaped* product
+    C = tril/triu(A @ Bᵀ).  The kernel computes the full square in fp32
+    from A and a transposed view of B (no copy), then one triangle is
+    kept and cast to A's dtype.  Tuner lookups use routine="syrk" on the
+    (m, k, m) shape, degrading to gemm on artifacts without syrk signal.
+    """
+    if a.ndim != 2:
+        raise ValueError(f"bad SYRK operand shape {tuple(a.shape)}")
+    if b is not None and b.shape != a.shape:
+        raise ValueError(
+            f"bad SYRK-shaped operands {tuple(a.shape)} x "
+            f"{tuple(b.shape)}; B must match A (square output, shared k)")
+    m, k = int(a.shape[0]), int(a.shape[1])
+    be = resolve_backend(backend, a.device)
+    rt, cfg, hit = _select(m, k, m, "syrk",
+                           tuner if tile is None else None,
+                           need_config=True)
+    recorder.record(rt, m, k, m, config=cfg, cache_hit=hit, site=site,
+                    count=count)
+    bm, bk, bn = _tile(tile, cfg)
+    c = _gemm(be)(a, (a if b is None else b).T, bm=bm, bk=bk, bn=bn,
+                  out_dtype=torch.float32)
+    c = torch.tril(c) if lower else torch.triu(c)
+    return c.to(a.dtype)
+
+
+def trsm(a: torch.Tensor, b: torch.Tensor, *,
+         tuner: AdsalaTuner | None = None,
+         tile: tuple[int, int, int] | None = None,
+         lower: bool = True,
+         unit_diag: bool = False,
+         backend: Backend = "auto",
+         site: str = "", count: int = 1) -> torch.Tensor:
+    """Triangular solve A X = B (A (m, m) triangular, B (m, n)).
+
+    A blocked substitution, as in the reference: row panels of ``bm``
+    (from the tuned tile) retire in order; each one subtracts the
+    already-solved prefix (suffix when ``upper``) with one tuned GEMM
+    over the concatenated panels, then solves its diagonal block with
+    ``torch.linalg.solve_triangular``.  So the GEMM launches once per
+    panel after the first.  Tuner lookups use routine="trsm" on the
+    (m, m, n) shape, degrading to gemm on artifacts without trsm signal.
+    """
+    if a.ndim != 2 or a.shape[0] != a.shape[1] or b.ndim != 2 \
+            or b.shape[0] != a.shape[0]:
+        raise ValueError(f"bad TRSM shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    m = int(a.shape[0])
+    n = int(b.shape[1])
+    be = resolve_backend(backend, a.device)
+    rt, cfg, hit = _select(m, m, n, "trsm",
+                           tuner if tile is None else None,
+                           need_config=True)
+    recorder.record(rt, m, m, n, config=cfg, cache_hit=hit, site=site,
+                    count=count)
+    bm, bk, bn = _tile(tile, cfg)
+    gemm = _gemm(be)
+    a32 = a.float()
+    b32 = b.float()
+    starts = list(range(0, m, bm))
+    if not lower:                 # backward substitution: bottom-up
+        starts = starts[::-1]
+    blocks: dict[int, torch.Tensor] = {}
+    for i0 in starts:
+        i1 = min(i0 + bm, m)
+        rhs = b32[i0:i1]
+        # subtract the already-solved panels' contribution in one tuned
+        # GEMM over the concatenated prefix (suffix for upper)
+        done = sorted(j0 for j0 in blocks if (j0 < i0 if lower else j0 > i0))
+        if done:
+            cols = torch.cat(
+                [a32[i0:i1, j0:min(j0 + bm, m)] for j0 in done], dim=1)
+            solved = torch.cat([blocks[j0] for j0 in done], dim=0)
+            rhs = rhs - gemm(cols, solved, bm=bm, bk=bk, bn=bn)
+        blocks[i0] = torch.linalg.solve_triangular(
+            a32[i0:i1, i0:i1], rhs, upper=not lower, left=True,
+            unitriangular=unit_diag)
+    x = torch.cat([blocks[i0] for i0 in sorted(blocks)], dim=0)
+    return x.to(b.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

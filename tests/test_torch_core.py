@@ -15,6 +15,7 @@ install, and the artifacts whose picks are compared hold one model.
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -126,13 +127,38 @@ def test_artifact_round_trips_between_packages(artifacts, loader, maker):
                 _cfg_tuple(native.select(m, k, n, routine))
 
 
+#: core modules that carry port-only blocks (the CUDA timing backend)
+_PORT_ONLY_FILES = {"timing.py", "__init__.py"}
+
+
+def _strip_port_only(src: str) -> tuple[str, int]:
+    """``src`` without its ``# port-only begin`` .. ``# port-only end``
+    blocks (markers included), blank-line runs collapsed, and the number
+    of blocks removed."""
+    out, skip, blocks = [], False, 0
+    for line in src.splitlines(keepends=True):
+        mark = line.strip()
+        if mark.startswith("# port-only begin"):
+            assert not skip, "nested port-only block"
+            skip, blocks = True, blocks + 1
+        elif mark == "# port-only end":
+            assert skip, "port-only end without begin"
+            skip = False
+        elif not skip:
+            out.append(line)
+    assert not skip, "unterminated port-only block"
+    return re.sub(r"\n{3,}", "\n\n\n", "".join(out)).rstrip("\n"), blocks
+
+
 def test_core_modules_are_the_reference_modulo_imports():
     """The carried-over core is the reference's source with only the
-    import prefix changed."""
+    import prefix changed, apart from the marked port-only blocks that
+    add the CUDA timing backend (timing.py and the package's exports)."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     jroot = os.path.join(here, "src", "repro", "core")
     troot = os.path.join(here, "src", "repro_torch", "core")
     n = 0
+    with_blocks = set()
     for dirpath, _, files in os.walk(jroot):
         for f in files:
             if not f.endswith(".py"):
@@ -143,6 +169,11 @@ def test_core_modules_are_the_reference_modulo_imports():
             with open(os.path.join(troot, rel)) as fh:
                 got = fh.read()
             want = want.replace("from repro.", "from repro_torch.")
+            got, blocks = _strip_port_only(got)
+            want, _ = _strip_port_only(want)
+            if blocks:
+                with_blocks.add(rel)
             assert got == want, rel
             n += 1
     assert n >= 20
+    assert with_blocks == _PORT_ONLY_FILES

@@ -6,6 +6,8 @@
   interpret=True)`` in both grids on the cases of tests/test_flash.py
   and tests/test_kernels.py (2e-5 in fp32, 5e-2 in bf16, the bounds
   those tests hold the reference to);
+* on rows with no visible key it gives the reference's value: the
+  uniform average of v over the visible logical tiles, else 0;
 * ``ops.flash_attention`` records the same dispatch events as the
   reference's ``backend="pallas", interpret=True`` with one tuner loaded
   from one artifact;
@@ -182,15 +184,53 @@ def test_plain_matches_pallas_bf16(sq, d, same_qkv):
                                    atol=BF16_TOL, rtol=BF16_TOL)
 
 
+_FULLY_MASKED_CASES = [
+    # (bh, sq, skv, d, bq, bkv, window), non-causal: rows with no
+    # visible key inside a visible logical tile, and rows without one
+    (1, 96, 40, 16, 32, 16, 8),        # rows 47-63 average, 64-95 zero
+    (2, 64, 16, 16, 32, 16, 8),        # rows 23-31 average, 32-63 zero
+    (1, 40, 16, 16, 8, 8, 4),          # rows 19-23 average, 24-39 zero
+]
+
+
+def _fully_masked_parity(bh, sq, skv, d, bq, bkv, window, seed=2):
+    q, k, v = _qkv(sq, skv, d, bh, seed=seed)
+    kw = dict(bq=bq, bkv=bkv, causal=False, window=window)
+    got = F.flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), **kw).numpy()
+    for grid in F.FLASH_GRID_KINDS:
+        want = np.asarray(flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+            grid=grid, **kw))
+        np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+    return got
+
+
 def test_plain_fully_masked_rows_give_zero():
-    """A row with no visible key outputs 0 (the kernel's clamped
-    denominator): non-causal, window 4, Sq > Skv + window."""
-    q, k, v = _qkv(40, 16, 16, 1, seed=2)
-    out = F.flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
-                                  torch.from_numpy(v), causal=False,
-                                  window=4, bq=8, bkv=8).numpy()
-    assert np.all(out[:, 19:] == 0)
-    assert np.all(np.abs(out[:, :19]).sum(-1) > 0)
+    """Non-causal, window 4, Sq > Skv + window, blocks (8, 8): rows 19-23
+    see no key but lie in Q block 2, whose KV tile 1 is visible, so the
+    reference averages v over that tile's 8 columns; rows 24-39 lie in Q
+    blocks with no visible tile and give 0.  The plain version matches
+    the Pallas kernel in both walks."""
+    out = _fully_masked_parity(*_FULLY_MASKED_CASES[2])
+    assert np.all(out[:, 24:] == 0)
+    _, _, v = _qkv(40, 16, 16, 1, seed=2)
+    np.testing.assert_allclose(out[:, 19:24],
+                               np.broadcast_to(v[:, None, 8:16].mean(2),
+                                               (1, 5, 16)),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    assert np.all(np.abs(out[:, :24]).sum(-1) > 0)
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,bq,bkv,window", _FULLY_MASKED_CASES)
+def test_plain_fully_masked_rows_match_pallas(bh, sq, skv, d, bq, bkv,
+                                              window):
+    """Rows with no visible key take the reference's value in both
+    walks: the uniform average of v over every column of the visible
+    logical tiles (padded columns count, with v = 0), else 0."""
+    out = _fully_masked_parity(bh, sq, skv, d, bq, bkv, window)
+    first_empty = skv + window - 1
+    assert np.abs(out[:, first_empty:]).sum() > 0  # not all zero
 
 
 def test_plain_rejects_bad_shapes_and_grids():

@@ -53,6 +53,10 @@ def _qkv(bh, sq, skv, d, dtype, seed=0):
     (16, 1024, 1024, 64, torch.float32, True, None, 512, 512),
     (2, 64, 64, 16, torch.bfloat16, True, None, 32, 32),
     (2, 200, 150, 128, torch.bfloat16, False, None, 64, 64),
+    # rows with no visible key (the reference's average, or 0)
+    (1, 96, 40, 16, torch.float32, False, 8, 32, 16),
+    (2, 130, 37, 32, torch.float32, True, 5, 64, 16),
+    (2, 300, 40, 32, torch.float32, False, 16, 128, 64),
 ])
 def test_kernel_matches_plain_and_walks_are_bitwise_equal(
         gpu, bh, sq, skv, d, dtype, causal, window, bq, bkv):
