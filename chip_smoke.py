@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
    serving path's shape (dense and tri must be bitwise equal); then the
    GEMM kernel against its plain version on the reference's matmul
    cases in fp32 and bf16, ragged shapes, every DEFAULT_TILES entry, a
-   transposed-B view, syrk and trsm;
+   transposed-B view, syrk and trsm; then the grouped GEMM kernel on the
+   reference's grouped cases, every DEFAULT_TILES entry and ragged and
+   strided operands, in fp32 and bf16;
 4. install: a small ADSALA artifact on the simulated backend;
 5. serve: stablelm-1.6b at full width through ``repro_torch.launch.serve``
    with that artifact; the flash kernel's launch count must be one per
@@ -29,8 +31,17 @@ Phases (any failure exits non-zero):
    imply; tuned picks against the default tile and the best installed
    tile, each timed; the kernel against ``torch.matmul`` at 2048^3 and
    the largest cube;
-8. report: one ``{"adsala": {...}}`` line, one ``{"kernels": [...]}``
-   line, the card's line, and the ``{"ok": true, ...}`` last line.
+8. mixtral: mixtral-8x22b at full width, cut to 4 layers (fp32),
+   through ``serve.serve_config`` with the phase-4 artifact; the
+   grouped kernel's launch count must be 3 per MoE layer per forward
+   (prefill and each decode step), the flash kernel's one per layer,
+   the logits finite, and the same prefill on the plain backend must
+   agree; then the grouped kernel against its plain version and
+   ``torch.bmm`` at mixtral's prefill and decode buckets and at
+   deepseek-v2's expert shape;
+9. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+   line, one ``{"kernels": [...]}`` line, the card's line, and the
+   ``{"ok": true, ...}`` last line.
 
 Exits non-zero without a result when no CUDA device is present or when
 the repository's ``src/repro_torch`` is not beside this file.
@@ -86,6 +97,17 @@ CHECK_ELEMS = 2 ** 26
 #: two attention functions differ in summation order only (~1e-6 per
 #: layer), which the residual stream carries to the logits
 LOGITS_TOL = 1e-3
+
+#: mixtral-8x22b at full width, depth cut to fit one card in fp32
+MIX_ARCH, MIX_LAYERS = "mixtral-8x22b", 4
+#: the reference's grouped cases (tests/test_kernels.py), tile 32
+GROUPED_CASES = [(4, 64, 32, 48), (2, 100, 64, 64), (8, 16, 16, 96)]
+#: grouped GEMM timing shapes (name, E, C, d, f): mixtral's expert
+#: buckets in prefill (4 x 1024 tokens) and decode (4 tokens), and
+#: deepseek-v2's experts (160 of d_ff 1536) at 192 rows each
+GROUPED_SHAPES = [("mixtral_prefill", 8, 1280, 6144, 16384),
+                  ("mixtral_decode", 8, 8, 6144, 16384),
+                  ("deepseek_v2_experts", 160, 192, 5120, 1536)]
 
 
 def card_line() -> str:
@@ -229,7 +251,8 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     return t_bytes * 1e3, "bytes"
 
 
-def check_close(name, got, want, tol, torch, errs, *, normwise=False):
+def check_close(name, got, want, tol, torch, errs, *, normwise=False,
+                kind="gemm"):
     """Fail unless ``got`` is finite and within ``tol`` of ``want``
     (elementwise atol = rtol = tol; ``normwise``: max abs error within
     tol * max(1, max |want|), for long fp32 sums whose rounding grows
@@ -244,7 +267,7 @@ def check_close(name, got, want, tol, torch, errs, *, normwise=False):
     else:
         ok = not bool((~torch.isclose(got.float(), want.float(), atol=tol,
                                       rtol=tol)).any())
-    print(f"[chip_smoke] gemm {name:30s} {str(got.dtype):15s} "
+    print(f"[chip_smoke] {kind} {name:30s} {str(got.dtype):15s} "
           f"max_abs_err={err:.3e} tol={tol:g}"
           + (" (normwise)" if normwise else ""))
     if not ok or not bool(torch.isfinite(got).all()):
@@ -329,6 +352,46 @@ def phase_gemm_kernels(M, ops, torch) -> dict:
     return errs
 
 
+def phase_grouped_kernels(G, torch) -> dict:
+    """Phase 3, grouped GEMM: the kernel against its plain version."""
+    from repro_torch.core import DEFAULT_TILES
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def gmm(name, x, w, tile, tol):
+        bm, bk, bn = tile
+        check_close(name, G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
+                    G.grouped_matmul_torch(x, w, bm=bm, bk=bk, bn=bn), tol,
+                    torch, errs, kind="grouped")
+
+    errs: dict[str, float] = {}
+    for dt in (f32, bf16):
+        dname = str(dt).split(".")[-1]
+        for e, c, d, f in GROUPED_CASES:
+            gmm(f"case_{e}x{c}x{d}x{f}_{dname}", rand(e, c, d, dtype=dt),
+                rand(e, d, f, dtype=dt), (32, 32, 32), GEMM_TOL[dname])
+        for tid, tile in enumerate(DEFAULT_TILES):
+            gmm(f"tile{tid}_8x300x257x130_{dname}", rand(8, 300, 257,
+                                                         dtype=dt),
+                rand(8, 257, 130, dtype=dt), tile, GEMM_TOL[dname])
+        for e, c, d, f, tile in [(3, 33, 257, 65, (16, 128, 16)),
+                                 (5, 1, 1000, 3, DEFAULT_TILES[0]),
+                                 (2, 2049, 7, 1, DEFAULT_TILES[5]),
+                                 (160, 12, 40, 24, (64, 64, 64))]:
+            gmm(f"ragged_{e}x{c}x{d}x{f}_{dname}", rand(e, c, d, dtype=dt),
+                rand(e, d, f, dtype=dt), tile, GEMM_TOL[dname])
+    x, wt = rand(4, 96, 200), rand(4, 130, 200)
+    gmm("expert_transposed_w", x, wt.transpose(1, 2), DEFAULT_TILES[3],
+        GEMM_TOL["float32"])
+    gmm("strided_x_rows", x[:, ::2], wt.transpose(1, 2), DEFAULT_TILES[1],
+        GEMM_TOL["float32"])
+    return errs
+
+
 def phase_install(torch) -> Path:
     """Phase 4: a small artifact on the simulated backend."""
     from repro_torch.core import InstallConfig, SimulatedBackend, install
@@ -393,7 +456,7 @@ def largest_cube(limit: int) -> int:
     return d
 
 
-def phase_tuned_loop(art: Path, M, fa, torch) -> tuple[dict, dict]:
+def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     """Phase 7: serve the measured artifact through ops on held-out
     shapes; count the kernel's launches; time the picks."""
     import numpy as np
@@ -437,6 +500,7 @@ def phase_tuned_loop(art: Path, M, fa, torch) -> tuple[dict, dict]:
     # -- the main path: tuned calls, launches counted -----------------------
     M.matmul_cuda.launches = 0
     fa.flash_attention_cuda.launches = 0
+    G.grouped_matmul_cuda.launches = 0
     expected, checked = 0, 0
     picks: dict[str, list[int]] = {r: [] for r in ROUTINES3}
     errs: dict[str, float] = {}
@@ -469,7 +533,8 @@ def phase_tuned_loop(art: Path, M, fa, torch) -> tuple[dict, dict]:
           f"{len(ROUTINES3)} routines in {main_s:.1f}s ({checked} outputs "
           f"checked against the plain path); matmul kernel launches="
           f"{launches} (expected {expected}), flash launches="
-          f"{flash_launches}")
+          f"{flash_launches}, grouped launches="
+          f"{G.grouped_matmul_cuda.launches}")
     if launches != expected:
         raise SystemExit("[chip_smoke] FAIL: the tuned loop's GEMM launches "
                          "differ from the count its calls imply")
@@ -572,6 +637,161 @@ def phase_tuned_loop(art: Path, M, fa, torch) -> tuple[dict, dict]:
     return adsala, gemm_entry
 
 
+def grouped_bound_ms(e: int, c: int, d: int, f: int) -> tuple[float, str]:
+    """Least time for an fp32 grouped GEMM: 2ecdf flops at the CUDA-core
+    rate against X, W read and Y written once at the HBM rate."""
+    return _bound(2.0 * e * c * d * f, 4.0 * e * (c * d + d * f + c * f))
+
+
+def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
+    """Phase 8: serve mixtral-8x22b (full width, MIX_LAYERS layers, fp32)
+    through the port's serving code; count the grouped and flash
+    launches; check against the plain path; time the grouped kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.step import make_ctx
+
+    cfg = dataclasses.replace(get_config(MIX_ARCH), n_layers=MIX_LAYERS)
+    args = serve.parse_args([
+        "--requests", str(REQUESTS), "--prompt-len", str(PROMPT_LEN),
+        "--gen-tokens", str(GEN_TOKENS), "--artifact", str(art),
+        "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    G.grouped_matmul_cuda.launches = 0
+    fa.flash_attention_cuda.launches = 0
+    M.matmul_cuda.launches = 0
+    res = serve.serve_config(cfg, args)
+    launches = G.grouped_matmul_cuda.launches
+    flash_launches = fa.flash_attention_cuda.launches
+    gemm_launches = M.matmul_cuda.launches
+    moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
+    # one prefill and GEN_TOKENS - 1 decode steps, 3 expert GEMMs a layer
+    want = 3 * moe_layers * GEN_TOKENS
+    sizes: list[int] = []
+    tree_map(lambda t: sizes.append(t.numel()), res.params)
+    n_params = sum(sizes)
+    print(f"[chip_smoke] mixtral: {cfg.n_layers} layers x d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k} x "
+          f"d_ff {cfg.d_ff_expert}, window {cfg.window}: "
+          f"{n_params / 1e9:.3f} B parameters (fp32)")
+    print(f"[chip_smoke] mixtral serve: grouped kernel launches={launches} "
+          f"(expected 3 x {moe_layers} MoE layers x (1 prefill + "
+          f"{GEN_TOKENS - 1} decode steps) = {want}), flash launches="
+          f"{flash_launches} (expected {cfg.n_layers}), matmul launches="
+          f"{gemm_launches} (the projections go to torch.matmul)")
+    if launches != want or flash_launches != cfg.n_layers:
+        raise SystemExit("[chip_smoke] FAIL: the mixtral path did not run "
+                         "the grouped kernel 3 times per MoE layer per "
+                         "forward and the flash kernel once per layer")
+    if not torch.isfinite(res.prefill_logits).all():
+        raise SystemExit("[chip_smoke] FAIL: non-finite mixtral logits")
+    if tuple(res.tokens.shape) != (REQUESTS, GEN_TOKENS):
+        raise SystemExit(f"[chip_smoke] FAIL: generated {res.tokens.shape}")
+
+    ctx = make_ctx("prefill", cache_len=PROMPT_LEN + GEN_TOKENS,
+                   tuner=res.tuner)
+
+    def prefill_k():
+        return res.model.prefill(res.params, res.prompts, ctx)[0]
+
+    def prefill_t():
+        os.environ["ADSALA_BACKEND"] = "torch"
+        try:
+            return res.model.prefill(res.params, res.prompts, ctx)[0]
+        finally:
+            del os.environ["ADSALA_BACKEND"]
+
+    with torch.inference_mode():
+        logits_t = prefill_t()
+        lerr = (logits_t - res.prefill_logits).abs().max().item()
+        lscale = res.prefill_logits.abs().max().item()
+        same_tok = torch.equal(logits_t.argmax(-1),
+                               res.prefill_logits.argmax(-1))
+        print(f"[chip_smoke] mixtral prefill logits kernel vs plain: "
+              f"max_abs_err={lerr:.3e} (max |logit| {lscale:.3f}, tol "
+              f"{LOGITS_TOL:g}), same greedy token: {same_tok}")
+        if not (lerr <= LOGITS_TOL and same_tok):
+            raise SystemExit("[chip_smoke] FAIL: mixtral kernel and plain "
+                             "prefill disagree")
+        del logits_t
+        warm_k = cuda_ms(prefill_k, iters=2, warmup=1)
+        warm_t = cuda_ms(prefill_t, iters=2, warmup=1)
+        _, cache = res.model.prefill(res.params, res.prompts, ctx)
+        dctx = make_ctx("decode", cache_len=PROMPT_LEN + GEN_TOKENS,
+                        tuner=res.tuner)
+        steps = iter(range(10 ** 6))
+
+        def decode():
+            pos = PROMPT_LEN + next(steps) % (GEN_TOKENS - 1)
+            res.model.decode_step(res.params, res.tokens[:, :1], cache, pos,
+                                  dctx)
+
+        warm_d = cuda_ms(decode, iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[chip_smoke] mixtral warm prefill ({REQUESTS}x{PROMPT_LEN}): "
+          f"kernel path {warm_k:.1f} ms, plain path {warm_t:.1f} ms; warm "
+          f"decode step {warm_d:.2f} ms ({REQUESTS / warm_d * 1e3:.1f} "
+          f"tok/s); first call prefill {res.prefill_s * 1e3:.1f} ms, "
+          f"decode {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    tuner = res.tuner
+    mixtral = {"arch": MIX_ARCH, "n_layers": cfg.n_layers,
+               "dtype": "float32", "parameters": n_params,
+               "requests": REQUESTS, "prompt_len": PROMPT_LEN,
+               "gen_tokens": GEN_TOKENS, "grouped_launches": launches,
+               "expected_grouped_launches": want,
+               "flash_launches": flash_launches,
+               "matmul_launches": gemm_launches,
+               "logits_max_abs_err": lerr,
+               "first_prefill_ms": res.prefill_s * 1e3,
+               "first_decode_tok_per_s": res.tok_per_s,
+               "warm_prefill_ms": warm_k, "warm_prefill_plain_ms": warm_t,
+               "warm_decode_step_ms": warm_d,
+               "max_memory_allocated": peak}
+    del res, cache, ctx, dctx
+    torch.cuda.empty_cache()
+
+    # -- the kernel at the path's bucket shapes and deepseek-v2's ----------
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs: dict[str, float] = {}
+    shapes = {}
+    for name, e, c, d, f in GROUPED_SHAPES:
+        x = torch.randn((e, c, d), generator=gen, device="cuda")
+        w = torch.randn((e, d, f), generator=gen, device="cuda")
+        tile = tuner.select(c, d, f).tile
+        bm, bk, bn = tile
+        check_close(name, G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
+                    G.grouped_matmul_torch(x, w, bm=bm, bk=bk, bn=bn),
+                    RANDOM_TOL, torch, errs, normwise=True, kind="grouped")
+        bound, bound_by = grouped_bound_ms(e, c, d, f)
+        row = {
+            "shape": [e, c, d, f], "tile": list(tile),
+            "max_abs_err": errs[name],
+            "ms": cuda_ms(lambda: G.grouped_matmul_cuda(
+                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
+            "plain_ms": cuda_ms(lambda: G.grouped_matmul_torch(
+                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.bmm(x, w), iters=3,
+                                  warmup=1),
+            "bound_ms": bound, "bound_by": bound_by}
+        shapes[name] = row
+        print(f"[chip_smoke] grouped {name} {e}x{c}x{d}x{f} tile {tile}: "
+              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+              f"torch.bmm {row['library_ms']:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound_by})")
+        del x, w
+        torch.cuda.empty_cache()
+    main_row = shapes["mixtral_prefill"]
+    entry = {"launches": launches, "shapes": shapes,
+             **{k: main_row[k] for k in ("shape", "tile", "max_abs_err",
+                                         "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}}
+    return mixtral, entry
+
+
 def main() -> int:
     try:
         import torch
@@ -599,6 +819,7 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import matmul as mm
 
     t0 = time.perf_counter()
@@ -614,6 +835,7 @@ def main() -> int:
     # -- 3. kernels against plain --------------------------------------------
     errs = phase_kernels(fa, torch)
     gemm_errs = phase_gemm_kernels(mm, ops, torch)
+    grouped_errs = phase_grouped_kernels(gm, torch)
 
     # -- 4. install -------------------------------------------------------------
     art = phase_install(torch)
@@ -627,10 +849,13 @@ def main() -> int:
             str(GEN_TOKENS), "--artifact", str(art), "--device", "cuda"]
     fa.flash_attention_cuda.launches = 0
     mm.matmul_cuda.launches = 0
+    gm.grouped_matmul_cuda.launches = 0
     res = serve.run(argv)
     launches = fa.flash_attention_cuda.launches
     print(f"[chip_smoke] serve: matmul kernel launches="
-          f"{mm.matmul_cuda.launches} (the projections go to torch.matmul)")
+          f"{mm.matmul_cuda.launches} (the projections go to torch.matmul),"
+          f" grouped kernel launches={gm.grouped_matmul_cuda.launches} "
+          "(no MoE layer)")
     cfg = res.cfg
     want = cfg.n_layers * 1          # one prefill, one launch per layer
     print(f"[chip_smoke] serve: flash kernel launches={launches} "
@@ -727,10 +952,13 @@ def main() -> int:
     measured_art, install_info = phase_measured_install(torch)
 
     # -- 7. tuned loop -------------------------------------------------------------
-    adsala, gemm_entry = phase_tuned_loop(measured_art, mm, fa, torch)
+    adsala, gemm_entry = phase_tuned_loop(measured_art, mm, fa, gm, torch)
     adsala["install"] = install_info
 
-    # -- 8. report ---------------------------------------------------------------
+    # -- 8. mixtral ------------------------------------------------------------------
+    mixtral, grouped_entry = phase_mixtral(art, mm, fa, gm, torch)
+
+    # -- 9. report ---------------------------------------------------------------
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -766,8 +994,26 @@ def main() -> int:
         "tile": gemm_entry["tile"],
         "ms_by_tile": gemm_entry["ms_by_tile"],
         "case_max_abs_err": gemm_errs,
+    }, {
+        "name": "grouped_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+        "replaces": "src/repro/kernels/grouped_matmul.py:51",
+        "launches": grouped_entry["launches"],
+        "max_abs_err": grouped_entry["max_abs_err"],
+        "ms": grouped_entry["ms"],
+        "plain_ms": grouped_entry["plain_ms"],
+        "bound_ms": grouped_entry["bound_ms"],
+        "bound_by": grouped_entry["bound_by"],
+        "library_ms": grouped_entry["library_ms"],
+        "shape": grouped_entry["shape"],
+        "dtype": "float32",
+        "tile": grouped_entry["tile"],
+        "shapes": grouped_entry["shapes"],
+        "case_max_abs_err": grouped_errs,
     }]
     print(json.dumps({"adsala": adsala}))
+    print(json.dumps({"mixtral": mixtral}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

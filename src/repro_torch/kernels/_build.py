@@ -21,10 +21,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "build", "BUILD_DIR", "SOURCES"]
+__all__ = ["library", "build", "BUILD_DIR", "SOURCES", "HEADERS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu")
+SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu",
+           _CSRC / "grouped_matmul.cu")
+#: included by SOURCES: part of the build's hash
+HEADERS = (_CSRC / "gemm_tile.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: ``-Xptxas -v`` reports each kernel's registers and spills
 #: (:data:`last_build` keeps that output)
@@ -52,7 +55,7 @@ def _nvcc() -> str:
 
 def _target() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
 
@@ -112,5 +115,11 @@ def library() -> ctypes.CDLL:
             lib.matmul_forward.restype = i
             lib.matmul_error_string.argtypes = [i]
             lib.matmul_error_string.restype = ctypes.c_char_p
+            lib.grouped_matmul_forward.argtypes = [
+                p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i, i, i, i,
+                i, i, p]
+            lib.grouped_matmul_forward.restype = i
+            lib.grouped_matmul_error_string.argtypes = [i]
+            lib.grouped_matmul_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib

@@ -1,9 +1,10 @@
 """Tuned kernel dispatch + ADSALA tuner integration.
 
-``matmul`` / ``syrk`` / ``trsm`` (the paper's BLAS-3 loop) and
-``flash_attention`` are the entry points; the ``observe`` /
-``dispatch_hint`` sites report the plain contractions the model layers
-leave to ``torch.matmul``.  Backend selection:
+``matmul`` / ``syrk`` / ``trsm`` (the paper's BLAS-3 loop),
+``grouped_matmul`` (the MoE expert products) and ``flash_attention``
+are the entry points; the ``observe`` / ``dispatch_hint`` /
+``grouped_dispatch_hint`` sites report the plain contractions the model
+layers leave to ``torch.matmul``.  Backend selection:
 
   * ``cuda``  — the hand-written Hopper kernels; a CPU tensor raises;
   * ``torch`` — the kernels' plain PyTorch versions, on any device;
@@ -41,14 +42,20 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_torch,
 )
+from repro_torch.kernels.grouped_matmul import (
+    check_grouped_shapes,
+    grouped_matmul_cuda,
+    grouped_matmul_torch,
+)
 from repro_torch.kernels.matmul import (
     check_gemm_shapes,
     matmul_cuda,
     matmul_torch,
 )
 
-__all__ = ["matmul", "syrk", "trsm", "flash_attention", "dispatch_hint",
-           "observe", "resolve_backend", "supported_routine"]
+__all__ = ["matmul", "syrk", "trsm", "grouped_matmul", "flash_attention",
+           "dispatch_hint", "grouped_dispatch_hint", "observe",
+           "resolve_backend", "supported_routine"]
 
 Backend = Literal["auto", "cuda", "torch"]
 
@@ -137,6 +144,39 @@ def observe(m: int, k: int, n: int,
         supported_routine(routine, tuner)   # still fail loudly on typos
         return
     dispatch_hint(m, k, n, tuner, routine, site, count)
+
+
+def grouped_dispatch_hint(shapes: list[tuple[int, int, int]],
+                          tuner: AdsalaTuner | None, *,
+                          n_experts: int | None = None,
+                          routine: str = DEFAULT_ROUTINE,
+                          site: str = "grouped"
+                          ) -> list[GemmConfig] | None:
+    """Per-expert worker configurations for a grouped (MoE) dispatch.
+
+    All expert GEMMs go through ONE batched tuner lookup
+    (:meth:`AdsalaTuner.select_many`).  ``n_experts`` (when known)
+    guards against a shape list covering only a prefix of the experts.
+    One event per expert shape is reported to any active recorder.
+    """
+    shapes = list(shapes)
+    if n_experts is not None and len(shapes) != n_experts:
+        raise ValueError(
+            f"grouped dispatch got {len(shapes)} GEMM shapes for "
+            f"{n_experts} experts; every expert needs a shape")
+    routine = supported_routine(routine, tuner)
+    cfgs = None
+    if tuner is not None:
+        hits = [tuner.peek(m, k, n, routine) for m, k, n in shapes]
+        cfgs = tuner.select_many(shapes, routines=routine)
+    else:
+        hits = [False] * len(shapes)
+    if recorder.active():
+        for (m, k, n), hit, cfg in zip(
+                shapes, hits, cfgs or [None] * len(shapes)):
+            recorder.record(routine, m, k, n, config=cfg, cache_hit=hit,
+                            site=site)
+    return cfgs
 
 
 def _gemm(be: str):
@@ -257,6 +297,57 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *,
             unitriangular=unit_diag)
     x = torch.cat([blocks[i0] for i0 in sorted(blocks)], dim=0)
     return x.to(b.dtype)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   tuner: AdsalaTuner | None = None,
+                   tile: tuple[int, int, int] | None = None,
+                   group_sizes: list[int] | None = None,
+                   routine: str = DEFAULT_ROUTINE,
+                   site: str = "grouped",
+                   backend: Backend = "auto") -> torch.Tensor:
+    """Y[e] = X[e] @ W[e] with tuner-selected tiling, x (E, C, d), w
+    (E, d, f).
+
+    ``group_sizes`` (actual tokens routed per expert, <= capacity)
+    refines the per-expert GEMM shapes the tuner sees; with or without
+    it, all E experts resolve through a single batched ``select_many``
+    lookup.  Each per-expert shape is reported to any active recorder
+    as its own event.  One kernel tile serves every expert: the one
+    chosen for the cost-dominant expert (largest m*k*n), or
+    ``DEFAULT_TILES[3]`` without a tuner.  An explicit ``tile`` skips
+    the tuner.
+    """
+    check_grouped_shapes(x, w)
+    be = resolve_backend(backend, x.device)
+    e, c, d = (int(s) for s in x.shape)
+    f = int(w.shape[2])
+    if group_sizes is not None:
+        group_sizes = [int(g) for g in group_sizes]
+        if len(group_sizes) != e:
+            raise ValueError(
+                f"group_sizes has {len(group_sizes)} entries for {e} "
+                "experts; a prefix is not allowed — pass one size per "
+                "expert (0 for an idle expert)")
+        if any(g < 0 or g > c for g in group_sizes):
+            raise ValueError(
+                f"group_sizes {group_sizes} outside [0, capacity={c}]")
+    # an expert with zero routed tokens still runs its capacity bucket;
+    # query the tuner with at least one row so the shape stays sensible
+    shapes = ([(max(g, 1), d, f) for g in group_sizes]
+              if group_sizes is not None else [(c, d, f)] * e)
+    cfgs = grouped_dispatch_hint(shapes, tuner if tile is None else None,
+                                 routine=routine, site=site)
+    if tile is not None:
+        bm, bk, bn = tile
+    elif cfgs is not None:
+        big = max(range(len(shapes)),
+                  key=lambda i: shapes[i][0] * shapes[i][1] * shapes[i][2])
+        bm, bk, bn = cfgs[big].tile
+    else:
+        bm, bk, bn = DEFAULT_TILES[3]
+    fn = grouped_matmul_cuda if be == "cuda" else grouped_matmul_torch
+    return fn(x, w, bm=bm, bk=bk, bn=bn)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -33,6 +33,8 @@ from repro_torch.configs import (
     get_smoke_config,
 )
 from repro_torch.kernels.recorder import DispatchRecorder
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import _moe_spec
 from repro_torch.train.step import make_ctx
 
 #: total-variation distance between the serving routine mix and the
@@ -97,9 +99,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def run(argv: list[str] | None = None) -> ServeResult:
     """Parse ``argv``, serve one fixed batch, print the report."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = (get_config if args.scale == "full"
            else get_smoke_config)(args.arch)
+    return serve_config(cfg, args)
+
+
+def serve_config(cfg: ArchConfig, args: argparse.Namespace) -> ServeResult:
+    """Serve one fixed batch of ``cfg`` with the options of ``args`` (as
+    :func:`parse_args` makes them; ``--arch`` and ``--scale`` are not
+    read) and print the report."""
+    dev = resolve_device(args.device)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 
@@ -137,6 +146,11 @@ def run(argv: list[str] | None = None) -> ServeResult:
             d = cfg.d_model
             shapes = [(args.requests * args.prompt_len, d, d),  # qkv/o
                       (args.requests, d, cfg.vocab)]            # logits
+            if cfg.n_experts:                       # one expert bucket
+                spec = _moe_spec(cfg)
+                shapes.append((spec.capacity(args.requests
+                                             * args.prompt_len),
+                               d, spec.d_ff))
             for (m, k, n) in shapes:
                 c = tuner.select(m, k, n)
                 print(f"[serve] tuner GEMM {m}x{k}x{n} -> "

@@ -1,6 +1,6 @@
 """Shared layer library, dense subset: norms, MLPs, RoPE, GQA attention
 (train/prefill through the flash kernel, one-token decode over a full
-KV cache).
+or ring KV cache).
 
 Plain functions on tensors; parameters arrive as dicts built from the
 ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
@@ -232,16 +232,15 @@ def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None
 
 @dataclasses.dataclass
 class KVCache:
-    """A full cache (capacity = max seq).  The reference's ring buffer
-    for sliding-window layers and its int8 variant are not ported yet."""
+    """Either a full cache (capacity = max seq) or a ring buffer
+    (capacity = window) for sliding-window layers.  The reference's int8
+    variant is not ported yet."""
     k: torch.Tensor            # (B, cap, Hkv, Dh)
     v: torch.Tensor
+    windowed: bool = False
 
 
-def _full_cache_only(windowed: bool, quantized: bool) -> None:
-    if windowed:
-        raise NotImplementedError(
-            "sliding-window (ring) KV cache is not ported yet")
+def _no_int8(quantized: bool) -> None:
     if quantized:
         raise NotImplementedError("int8 KV cache is not ported yet")
 
@@ -251,21 +250,31 @@ def init_kv_cache(batch: int, capacity: int, n_kv_heads: int,
                   device: torch.device | str = "cpu",
                   windowed: bool = False,
                   quantized: bool = False) -> KVCache:
-    _full_cache_only(windowed, quantized)
+    _no_int8(quantized)
     shape = (batch, capacity, n_kv_heads, head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   windowed)
 
 
 def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
                   windowed: bool, quantized: bool = False) -> KVCache:
-    """Build the decode cache from prefill projections k/v (B, S, Hkv, D):
-    the first S slots filled, the rest zero."""
-    _full_cache_only(windowed, quantized)
+    """Build the decode cache from prefill projections k/v (B, S, Hkv, D).
+
+    Full cache: the first S slots filled, the rest zero.  Ring cache: the
+    last ``capacity`` positions land at slot = pos % capacity (a cyclic
+    roll), or, for a prompt shorter than the ring, the first S slots.
+    """
+    _no_int8(quantized)
     b, sq, hk, hd = k.shape
+    if windowed and sq >= capacity:
+        shift = sq % capacity
+        return KVCache(torch.roll(k[:, -capacity:], shift, dims=1),
+                       torch.roll(v[:, -capacity:], shift, dims=1), True)
     if capacity < sq:
         raise ValueError(f"prompt {sq} exceeds cache {capacity}")
-    cache = init_kv_cache(b, capacity, hk, hd, k.dtype, device=k.device)
+    cache = init_kv_cache(b, capacity, hk, hd, k.dtype, device=k.device,
+                          windowed=windowed)
     cache.k[:, :sq] = k
     cache.v[:, :sq] = v
     return cache
@@ -276,9 +285,11 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     """One-token decode: x (B, 1, D); ``pos`` = tokens so far.
 
     The cache update is tagged routine="trsm" as in the reference (a
-    sequential append + triangular-prefix read).  Unlike the reference,
-    whose ``dynamic_update_slice`` returns a new array, the new row is
-    written into ``cache`` in place, and the same cache is returned.
+    sequential append + triangular-prefix read).  A ring cache writes
+    slot ``pos % cap`` and reads the last ``min(pos + 1, cap)`` writes.
+    Unlike the reference, whose ``dynamic_update_slice`` returns a new
+    array, the new row is written into ``cache`` in place, and the same
+    cache is returned.
     """
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
@@ -286,7 +297,7 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     cap = cache.k.shape[1]
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
                 routine="trsm", site="attn.cache_update")
-    slot = min(int(pos), cap - 1)
+    slot = int(pos) % cap if cache.windowed else min(int(pos), cap - 1)
     cache.k[:, slot] = k_new[:, 0]
     cache.v[:, slot] = v_new[:, 0]
 
@@ -294,7 +305,12 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     vv = _repeat_kv(cache.v, s.n_heads)
     scores = torch.einsum("bohd,bkhd->bhk", q.float(),
                           kk.float()) * (s.head_dim ** -0.5)
-    valid = torch.arange(cap, device=x.device) <= pos
+    kv_ids = torch.arange(cap, device=x.device)
+    if cache.windowed:
+        # ring buffer: valid slots are the last min(pos+1, cap) writes
+        valid = (slot - kv_ids) % cap < min(int(pos) + 1, cap)
+    else:
+        valid = kv_ids <= pos
     scores = torch.where(valid[None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())

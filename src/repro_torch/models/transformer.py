@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense slice: attention + MLP layers.
+"""Decoder-only LM: GQA attention layers (full or sliding-window KV
+cache) with a dense MLP or an MoE block.
 
 The reference groups layers into prefix / scanned unit / suffix and
 runs the unit under ``jax.lax.scan`` over stacked parameters.  Here the
@@ -8,7 +9,9 @@ layers are a plain Python loop over per-layer parameter dicts
 scan parameters into that list.
 
 The same layer-apply code serves prefill (returns caches) and decode
-(consumes caches), as in the reference.
+(consumes caches), as in the reference.  MoE layers take the
+reference's single-device path (its ``_moe_apply`` without a mesh);
+MLA, recurrent and xLSTM layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params
 
@@ -64,21 +68,32 @@ def _attn_spec(cfg: ArchConfig, kind: str) -> L.AttnSpec:
         qk_norm=cfg.qk_norm)
 
 
-def _check_dense(cfg: ArchConfig, spec: LayerSpec) -> None:
+def _moe_spec(cfg: ArchConfig) -> MOE.MoESpec:
+    return MOE.MoESpec(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff=cfg.d_ff_expert or cfg.d_ff, n_shared=cfg.n_shared_experts)
+
+
+def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
     if spec.kind != "attn" or cfg.attn_kind != "gqa" \
-            or spec.mlp != "mlp":
+            or spec.mlp not in ("mlp", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: layer kind={spec.kind!r} attn={cfg.attn_kind!r} "
-            f"mlp={spec.mlp!r} is not ported yet (attn + mlp layers only)")
+            f"mlp={spec.mlp!r} is not ported yet (GQA attention with an "
+            "MLP or MoE block only)")
 
 
 def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
-    _check_dense(cfg, spec)
+    _check_ported(cfg, spec)
     d = cfg.d_model
-    return {"ln1": L.norm_defs(d, cfg.norm_kind),
+    defs = {"ln1": L.norm_defs(d, cfg.norm_kind),
             "mixer": L.attention_defs(_attn_spec(cfg, spec.kind)),
-            "ln2": L.norm_defs(d, cfg.norm_kind),
-            "mlp": L.mlp_defs(d, spec.d_ff, cfg.mlp_kind)}
+            "ln2": L.norm_defs(d, cfg.norm_kind)}
+    if spec.mlp == "moe":
+        defs["moe"] = MOE.moe_defs(_moe_spec(cfg))
+    else:
+        defs["mlp"] = L.mlp_defs(d, spec.d_ff, cfg.mlp_kind)
+    return defs
 
 
 # ---------------------------------------------------------------------------
@@ -95,29 +110,51 @@ class Ctx:
                                    # just untuned)
 
 
+def _cache_shape(cfg: ArchConfig, spec: LayerSpec, ctx: Ctx
+                 ) -> tuple[L.AttnSpec, int, bool]:
+    """(attention spec, capacity, windowed): a sliding-window layer keeps
+    a ring of min(cache_len, window) slots."""
+    a = _attn_spec(cfg, spec.kind)
+    windowed = a.window is not None
+    cap = min(ctx.cache_len, a.window) if windowed else ctx.cache_len
+    return a, cap, windowed
+
+
 def _seed_cache(raw: Any, cfg: ArchConfig, spec: LayerSpec,
                 ctx: Ctx) -> L.KVCache:
     """Convert the attention's prefill projections into a decode cache."""
-    a = _attn_spec(cfg, spec.kind)
+    _, cap, windowed = _cache_shape(cfg, spec, ctx)
     k, v = raw
-    return L.seed_kv_cache(k, v, ctx.cache_len,
-                           windowed=a.window is not None)
+    return L.seed_kv_cache(k, v, cap, windowed=windowed)
+
+
+def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
+               spec: LayerSpec, ctx: Ctx
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The layer's MLP or MoE block on the residual stream x: returns
+    (x + block(ln2(x)), the MoE's auxiliary loss or None)."""
+    h = L.apply_norm(p["ln2"], x, cfg.norm_kind)
+    if spec.mlp == "moe":
+        out, aux = MOE.apply_moe(p["moe"], h, _moe_spec(cfg),
+                                 tuner=ctx.tuner)
+        return x + out, aux
+    return x + L.apply_mlp(p["mlp"], h, cfg.mlp_kind, tuner=ctx.tuner), None
 
 
 def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
                        spec: LayerSpec, ctx: Ctx
-                       ) -> tuple[torch.Tensor, L.KVCache | None]:
-    """Full-sequence layer application.  Returns (x, cache) — cache is
-    decode-format when ctx.mode == 'prefill', else None."""
+                       ) -> tuple[torch.Tensor, torch.Tensor | None,
+                                  L.KVCache | None]:
+    """Full-sequence layer application.  Returns (x, aux_loss, cache):
+    aux_loss is None for an MLP layer, cache is decode-format when
+    ctx.mode == 'prefill', else None."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     mix, raw = L.attention_train(p["mixer"], h, _attn_spec(cfg, spec.kind),
                                  tuner=ctx.tuner)
     cache = _seed_cache(raw, cfg, spec, ctx) if ctx.mode == "prefill" \
         else None
-    x = x + mix
-    x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg.norm_kind),
-                        cfg.mlp_kind, tuner=ctx.tuner)
-    return x, cache
+    x, aux = _apply_ffn(p, x + mix, cfg, spec, ctx)
+    return x, aux, cache
 
 
 def _apply_layer_decode(p: dict, x: torch.Tensor, cache: L.KVCache,
@@ -127,9 +164,7 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: L.KVCache,
     mix, cache = L.attention_decode(p["mixer"], h,
                                     _attn_spec(cfg, spec.kind), cache, pos,
                                     tuner=ctx.tuner)
-    x = x + mix
-    x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg.norm_kind),
-                        cfg.mlp_kind, tuner=ctx.tuner)
+    x, _ = _apply_ffn(p, x + mix, cfg, spec, ctx)
     return x, cache
 
 
@@ -170,17 +205,21 @@ class LM:
         return params["unembed"]
 
     def forward(self, params: dict, tokens: torch.Tensor, ctx: Ctx
-                ) -> tuple[torch.Tensor, list[L.KVCache] | None]:
-        """(B, S) tokens -> (hidden (B, S, D), caches|None).  Dense layers
-        carry no auxiliary loss, so the reference's aux term is absent."""
+                ) -> tuple[torch.Tensor, torch.Tensor,
+                           list[L.KVCache] | None]:
+        """(B, S) tokens -> (hidden (B, S, D), total aux loss of the MoE
+        layers (fp32 scalar), caches|None)."""
         cfg = self.cfg
         x = params["embed"][tokens]
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for p, s in zip(params["layers"], self.plan):
-            x, c = _apply_layer_train(p, x, cfg, s, ctx)
+            x, aux, c = _apply_layer_train(p, x, cfg, s, ctx)
+            if aux is not None:
+                aux_total = aux_total + aux
             caches.append(c)
         x = L.apply_norm(params["ln_f"], x, cfg.norm_kind)
-        return x, caches if ctx.mode == "prefill" else None
+        return x, aux_total, caches if ctx.mode == "prefill" else None
 
     def logits_last(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return x[:, -1] @ self._unembed_weight(params)
@@ -188,19 +227,18 @@ class LM:
     def init_cache(self, batch: int, ctx: Ctx,
                    dtype: torch.dtype = torch.float32,
                    device: torch.device | str = "cpu") -> list[L.KVCache]:
-        cfg = self.cfg
         caches = []
         for s in self.plan:
-            a = _attn_spec(cfg, s.kind)
+            a, cap, windowed = _cache_shape(self.cfg, s, ctx)
             caches.append(L.init_kv_cache(
-                batch, ctx.cache_len, a.n_kv_heads, a.head_dim, dtype,
-                device=device, windowed=a.window is not None))
+                batch, cap, a.n_kv_heads, a.head_dim, dtype,
+                device=device, windowed=windowed))
         return caches
 
     def prefill(self, params: dict, tokens: torch.Tensor, ctx: Ctx
                 ) -> tuple[torch.Tensor, list[L.KVCache]]:
         """Run the full prompt; return (last-token logits, decode caches)."""
-        x, caches = self.forward(params, tokens, ctx)
+        x, _, caches = self.forward(params, tokens, ctx)
         return self.logits_last(params, x), caches
 
     def decode_step(self, params: dict, token: torch.Tensor,

@@ -1,10 +1,11 @@
-"""Port vs reference: the dense LM slice on the CPU, with shared weights.
+"""Port vs reference: the decoder LM on the CPU, with shared weights.
 
 The reference's ``init`` parameters go through
 :func:`repro_torch.convert.params_from_jax`; inputs are made with numpy
 from a seed.  Smoke configs of stablelm-1.6b (MHA, layernorm, partial
-RoPE) and the GQA configs granite-8b (rmsnorm, swiglu) and
-starcoder2-3b (layernorm, gelu).  Everything is fp32: single layers are
+RoPE), the GQA configs granite-8b (rmsnorm, swiglu) and starcoder2-3b
+(layernorm, gelu), and mixtral-8x22b (MoE, sliding window; its ring
+cache past the window is tested in tests/test_torch_moe.py).  Everything is fp32: single layers are
 held to 1e-5, logits after the whole stack to 1e-4.
 """
 
@@ -32,7 +33,7 @@ torch.set_num_threads(1)
 
 LAYER_TOL = 1e-5
 LOGIT_TOL = 1e-4
-ARCHS = ["stablelm-1.6b", "granite-8b", "starcoder2-3b"]
+ARCHS = ["stablelm-1.6b", "granite-8b", "starcoder2-3b", "mixtral-8x22b"]
 
 
 def _np(tree):
@@ -108,18 +109,20 @@ def test_attention_train_matches_reference(n_kv, fraction):
 
 def test_unported_paths_raise(monkeypatch):
     k = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        L.seed_kv_cache(k, k, 8, windowed=True)
+    with pytest.raises(NotImplementedError, match="int8"):
+        L.seed_kv_cache(k, k, 8, windowed=False, quantized=True)
     with pytest.raises(NotImplementedError, match="int8"):
         L.init_kv_cache(1, 8, 2, 8, torch.float32, quantized=True)
     monkeypatch.setenv("ADSALA_KV_INT8", "1")
     with pytest.raises(NotImplementedError, match="ADSALA_KV_INT8"):
         make_ctx("prefill", cache_len=8)
     monkeypatch.delenv("ADSALA_KV_INT8")
-    for arch in ("mixtral-8x22b", "whisper-tiny", "xlstm-125m",
-                 "recurrentgemma-2b", "deepseek-v2-236b", "chameleon-34b"):
+    for arch in ("whisper-tiny", "xlstm-125m", "recurrentgemma-2b",
+                 "deepseek-v2-236b", "chameleon-34b"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(get_smoke_config(arch))
+    with pytest.raises(NotImplementedError, match="MLA"):
+        build_model(get_smoke_config("deepseek-v2-236b"))
 
 
 # ---------------------------------------------------------------------------

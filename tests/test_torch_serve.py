@@ -88,6 +88,32 @@ def test_serve_run_reports_and_records(port_artifact):
     assert sites.count("attn.cache_update") == res.cfg.n_layers
 
 
+def test_serve_config_serves_a_depth_cut_moe_config(port_artifact, capsys):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.moe import MoESpec
+
+    cfg = dataclasses.replace(get_smoke_config("mixtral-8x22b"),
+                              n_layers=1)
+    args = serve.parse_args(["--device", "cpu", "--requests", "2",
+                             "--prompt-len", "40", "--gen-tokens", "3",
+                             "--artifact", port_artifact])
+    res = serve.serve_config(cfg, args)
+    assert res.cfg is cfg and tuple(res.tokens.shape) == (2, 3)
+    assert torch.isfinite(res.prefill_logits).all()
+    cap = MoESpec(cfg.d_model, cfg.n_experts, cfg.top_k,
+                  cfg.d_ff_expert).capacity(80)
+    out = capsys.readouterr().out
+    assert f"tuner GEMM {cap}x{cfg.d_model}x{cfg.d_ff_expert} ->" in out
+    assert "mixtral-8x22b: 2 requests, prefill 40 toks" in out
+    for phase in ("prefill", "decode"):
+        sites = [e.site for e in res.recs[phase].events]
+        for site in ("moe.wi", "moe.wg", "moe.wo"):
+            assert sites.count(site) == cfg.n_experts
+
+
 def test_cuda_device_without_gpu_raises():
     from repro_torch.launch import serve
 
