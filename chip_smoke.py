@@ -8,16 +8,21 @@ Phases (any failure exits non-zero):
 
 1. environment: the card's name and power limit; TF32 off;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, in parallel);
+   (one nvcc per compile unit, in parallel: the GEMM sources once per
+   operand type);
 3. kernels against plain: the flash-attention kernel in both KV walks
    against its plain PyTorch version on causal, windowed, non-causal,
    padded ragged, fully masked, GQA-broadcast and bf16 cases and at the
    serving path's shape (dense and tri must be bitwise equal); then the
    GEMM kernel against its plain version on the reference's matmul
    cases in fp32 and bf16, ragged shapes, every DEFAULT_TILES entry, a
-   transposed-B view, syrk and trsm; then the grouped GEMM kernel on the
-   reference's grouped cases, every DEFAULT_TILES entry and ragged and
-   strided operands, in fp32 and bf16;
+   transposed-B view, syrk and trsm, and its bits on 10 launch shapes
+   (equal: no split-K); then the grouped GEMM kernel on the reference's
+   grouped cases, every DEFAULT_TILES entry and ragged and strided
+   operands, in fp32 and bf16, then thin buckets (C of 1, 3, 8, 16 and
+   17, ragged d and f, a split-K shape) in fp32 and bf16, an
+   expert-transposed W, strided X rows, split-K on a transposed W, and
+   two launches bitwise equal (thin, split-K and tiled);
 4. install: a small ADSALA artifact on the simulated backend;
 5. serve: stablelm-1.6b at full width through ``repro_torch.launch.serve``
    with that artifact; the flash kernel's launch count must be one per
@@ -34,14 +39,18 @@ Phases (any failure exits non-zero):
 8. mixtral: mixtral-8x22b at full width, cut to 4 layers (fp32),
    through ``serve.serve_config`` with the phase-4 artifact; the
    grouped kernel's launch count must be 3 per MoE layer per forward
-   (prefill and each decode step), the flash kernel's one per layer,
+   (prefill on the tiled body, each decode step on the thin one), the
+   flash kernel's one per layer,
    the logits finite, and the same prefill on the plain backend must
    agree; then the grouped kernel against its plain version and
    ``torch.bmm`` at mixtral's prefill and decode buckets and at
    deepseek-v2's expert shape;
 9. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
-   line, one ``{"kernels": [...]}`` line, the card's line, and the
-   ``{"ok": true, ...}`` last line.
+   line, one ``{"kernels": [...]}`` line (one entry per measured shape:
+   flash attention; the GEMM at 2048^3 and the largest cube; the grouped
+   GEMM at mixtral's decode and prefill buckets and deepseek-v2's
+   experts; each with its body, ring stages and split count), the card's
+   line, and the ``{"ok": true, ...}`` last line.
 
 Exits non-zero without a result when no CUDA device is present or when
 the repository's ``src/repro_torch`` is not beside this file.
@@ -105,6 +114,12 @@ GROUPED_CASES = [(4, 64, 32, 48), (2, 100, 64, 64), (8, 16, 16, 96)]
 #: grouped GEMM timing shapes (name, E, C, d, f): mixtral's expert
 #: buckets in prefill (4 x 1024 tokens) and decode (4 tokens), and
 #: deepseek-v2's experts (160 of d_ff 1536) at 192 rows each
+#: thin buckets (C <= 16: the weight-streaming body; 17: the tiled one),
+#: ragged d and f, and a shape whose planner splits K (E, C, d, f)
+SPLIT_CASE = (2, 8, 4096, 300)
+THIN_CASES = [(8, 1, 300, 130), (8, 3, 300, 130), (8, 8, 300, 130),
+              (8, 16, 300, 130), (8, 17, 300, 130), (4, 8, 257, 513),
+              (3, 5, 1000, 3), SPLIT_CASE]
 GROUPED_SHAPES = [("mixtral_prefill", 8, 1280, 6144, 16384),
                   ("mixtral_decode", 8, 8, 6144, 16384),
                   ("deepseek_v2_experts", 160, 192, 5120, 1536)]
@@ -116,6 +131,50 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) for every kernel in an
+    ``nvcc -Xptxas -v`` log, named by its template arguments as the
+    mangled name holds them (e.g. ``gemm_kernel<f32,128,128,16,4,plain>``).
+    """
+    import re
+
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spills = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            k = re.search(r"(gemm_kernel|thin_kernel|split_sum_kernel|"
+                          r"flash\w*?kernel)(I.*?EE)?", name)
+            short = name if k is None else (
+                k.group(1) + (f"<{_targs(k.group(2))}>" if k.group(2)
+                              else ""))
+            out.append((short, int(m.group(1)), spills))
+            name = None
+    return out
+
+
+def _targs(mangled: str) -> str:
+    """Template arguments of a mangled kernel name, comma separated."""
+    import re
+
+    args = []
+    for tok in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb(\d)E|f", mangled):
+        if tok.group(0) == "13__nv_bfloat16":
+            args.append("bf16")
+        elif tok.group(0) == "f":
+            args.append("f32")
+        elif tok.group(1) is not None:
+            args.append(tok.group(1))
+        else:
+            args.append("grouped" if tok.group(2) == "1" else "plain")
+    return ",".join(args)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -314,6 +373,17 @@ def phase_gemm_kernels(M, ops, torch) -> dict:
             dname = str(dt).split(".")[-1]
             mm(f"tile{tid}_1024x512x768_{dname}", rand(1024, 512, dtype=dt),
                rand(512, 768, dtype=dt), tile, GEMM_TOL[dname])
+    # no split-K: every launch shape gives the same bits, run after run
+    a, b = rand(700, 1500), rand(1500, 900)
+    outs = [M.matmul_cuda(a, b, bm=t[0], bk=t[1], bn=t[2])
+            for t in list(DEFAULT_TILES) + [(64, 64, 64), DEFAULT_TILES[0]]]
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, outs[0]) for o in outs)
+    print(f"[chip_smoke] gemm 700x1500x900 on {len(outs)} launch shapes: "
+          f"bitwise equal: {same}")
+    if not same:
+        raise SystemExit("[chip_smoke] FAIL: the GEMM's bits depend on the "
+                         "launch shape")
     a, base = rand(200, 96), rand(300, 96)
     mm("transposed_b_view", a, base.T, DEFAULT_TILES[3], GEMM_TOL["float32"])
     mm("transposed_a_view", rand(96, 200).T, base.T, DEFAULT_TILES[1],
@@ -389,6 +459,40 @@ def phase_grouped_kernels(G, torch) -> dict:
         GEMM_TOL["float32"])
     gmm("strided_x_rows", x[:, ::2], wt.transpose(1, 2), DEFAULT_TILES[1],
         GEMM_TOL["float32"])
+    # thin buckets (the weight-streaming body) and split-K
+    tile = DEFAULT_TILES[3]
+    for dt in (f32, bf16):
+        dname = str(dt).split(".")[-1]
+        for e, c, d, f in THIN_CASES:
+            plan = G.grouped_launch(e, c, d, f, *tile)
+            gmm(f"{plan.variant}_s{plan.splits}_{e}x{c}x{d}x{f}_{dname}",
+                rand(e, c, d, dtype=dt), rand(e, d, f, dtype=dt), tile,
+                GEMM_TOL[dname])
+    x, wt = rand(4, 16, 600), rand(4, 300, 600)
+    gmm("thin_expert_transposed_w", x[:, :8], wt.transpose(1, 2), tile,
+        GEMM_TOL["float32"])
+    gmm("thin_strided_x_rows", x[:, ::2], rand(4, 600, 300), tile,
+        GEMM_TOL["float32"])
+    x, wt = rand(2, 8, 4096), rand(2, 200, 4096)
+    if G.grouped_launch(2, 8, 4096, 200, *tile).splits < 2:
+        raise SystemExit("[chip_smoke] FAIL: the split-K case does not "
+                         "split")
+    gmm("thin_split_k_transposed_w", x, wt.transpose(1, 2), tile,
+        GEMM_TOL["float32"])
+    # two launches on the same inputs give the same bits, split-K too
+    for e, c, d, f in [(8, 8, 6144, 2048), SPLIT_CASE, (4, 192, 1024, 384)]:
+        x, w = rand(e, c, d), rand(e, d, f)
+        plan = G.grouped_launch(e, c, d, f, *tile)
+        one = G.grouped_matmul_cuda(x, w, bm=tile[0], bk=tile[1], bn=tile[2])
+        two = G.grouped_matmul_cuda(x, w, bm=tile[0], bk=tile[1], bn=tile[2])
+        torch.cuda.synchronize()
+        same = torch.equal(one, two)
+        print(f"[chip_smoke] grouped determinism {e}x{c}x{d}x{f} "
+              f"{plan.variant} splits={plan.splits}: two launches bitwise "
+              f"equal: {same}")
+        if not same:
+            raise SystemExit("[chip_smoke] FAIL: two grouped launches on "
+                             "the same inputs differ")
     return errs
 
 
@@ -563,18 +667,22 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
             "picks": {str(tid): picks[r].count(tid) for tid in INSTALL_TILES},
             "best": {str(tid): int((t.argmin(axis=1) == col[tid]).sum())
                      for tid in INSTALL_TILES},
+            "tile_s": {str(tid): float(t[:, col[tid]].sum())
+                       for tid in INSTALL_TILES},
         }
         print(f"[chip_smoke] {r}: tuned {tuned.sum() * 1e3:.3f} ms vs "
               f"default tile {DEFAULT_TILE_ID} {default.sum() * 1e3:.3f} ms "
               f"(x{routines[r]['speedup_vs_default']:.3f}), best installed "
               f"{best.sum() * 1e3:.3f} ms (regret "
               f"{routines[r]['regret_vs_best']:.3%}); picks "
-              f"{routines[r]['picks']}, best {routines[r]['best']}")
+              f"{routines[r]['picks']}, best {routines[r]['best']}; ms by "
+              "tile " + json.dumps({k: round(v * 1e3, 3) for k, v in
+                                    routines[r]["tile_s"].items()}))
     del truth
     torch.cuda.empty_cache()
 
     # -- 2048^3 and the largest cube: kernel, plain, library, bound ---------
-    gemm_entry = {}
+    gemm_shapes: dict[str, dict] = {}
     for r in ROUTINES3:
         routines[r]["large"] = {}
         for d in (LARGE_CUBE, cube):
@@ -608,22 +716,28 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
                   f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
                   f"library {row['library_ms']:.3f} ms, bound "
                   f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
-            if r == "gemm" and d == LARGE_CUBE:
+            if r == "gemm":
                 bm, bk, bn = tile
                 got = M.matmul_cuda(a, b, bm=bm, bk=bk, bn=bn)
-                check_close("path", got, M.matmul_torch(
+                check_close(f"path_{d}", got, M.matmul_torch(
                     a, b, bm=bm, bk=bk, bn=bn), RANDOM_TOL, torch, errs,
                     normwise=True)
-                gemm_entry = {
+                del got
+                cta_m, cta_n, k_step, stages, gm_, gn_ = M.launch_shape(
+                    bm, bk, bn)
+                gemm_shapes[f"gemm_{d}"] = {
                     "shape": [d, d, d], "tile": list(tile),
-                    "max_abs_err": errs["path"],
-                    "ms": row["ms"], "plain_ms": row["plain_ms"],
-                    "library_ms": row["library_ms"],
-                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "ms_by_tile": {str(i): cuda_ms(
-                        lambda t=t: M.matmul_cuda(a, b, bm=t[0], bk=t[1],
-                                                  bn=t[2]), iters=5, warmup=1)
-                        for i, t in enumerate(DEFAULT_TILES)}}
+                    "variant": "tiled", "stages": stages, "splits": 1,
+                    "cta": [cta_m, cta_n], "k_step": k_step,
+                    "group": [gm_, gn_],
+                    "max_abs_err": errs[f"path_{d}"],
+                    **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by")}}
+            if r == "gemm" and d == LARGE_CUBE:
+                gemm_shapes[f"gemm_{d}"]["ms_by_tile"] = {str(i): cuda_ms(
+                    lambda t=t: M.matmul_cuda(a, b, bm=t[0], bk=t[1],
+                                              bn=t[2]), iters=5, warmup=1)
+                    for i, t in enumerate(DEFAULT_TILES)}
             del args
             torch.cuda.empty_cache()
     adsala = {"held_out": {"per_routine": HELD_OUT, "seed": 1,
@@ -633,8 +747,7 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
                             "flash_launches": flash_launches,
                             "outputs_checked": checked},
               "routines": routines}
-    gemm_entry["launches"] = launches
-    return adsala, gemm_entry
+    return adsala, {"launches": launches, "shapes": gemm_shapes}
 
 
 def grouped_bound_ms(e: int, c: int, d: int, f: int) -> tuple[float, str]:
@@ -661,10 +774,12 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
         "--device", "cuda"])
     torch.cuda.reset_peak_memory_stats()
     G.grouped_matmul_cuda.launches = 0
+    G.grouped_matmul_cuda.launches_by_variant = {"thin": 0, "tiled": 0}
     fa.flash_attention_cuda.launches = 0
     M.matmul_cuda.launches = 0
     res = serve.serve_config(cfg, args)
     launches = G.grouped_matmul_cuda.launches
+    by_variant = dict(G.grouped_matmul_cuda.launches_by_variant)
     flash_launches = fa.flash_attention_cuda.launches
     gemm_launches = M.matmul_cuda.launches
     moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
@@ -682,10 +797,17 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
           f"{GEN_TOKENS - 1} decode steps) = {want}), flash launches="
           f"{flash_launches} (expected {cfg.n_layers}), matmul launches="
           f"{gemm_launches} (the projections go to torch.matmul)")
-    if launches != want or flash_launches != cfg.n_layers:
+    # prefill buckets are tiled, decode buckets (8 rows) stream
+    want_variant = {"tiled": 3 * moe_layers,
+                    "thin": 3 * moe_layers * (GEN_TOKENS - 1)}
+    print(f"[chip_smoke] mixtral serve: grouped launches by body "
+          f"{by_variant} (expected {want_variant})")
+    if launches != want or flash_launches != cfg.n_layers or \
+            by_variant != want_variant:
         raise SystemExit("[chip_smoke] FAIL: the mixtral path did not run "
                          "the grouped kernel 3 times per MoE layer per "
-                         "forward and the flash kernel once per layer")
+                         "forward (tiled in prefill, thin in decode) and "
+                         "the flash kernel once per layer")
     if not torch.isfinite(res.prefill_logits).all():
         raise SystemExit("[chip_smoke] FAIL: non-finite mixtral logits")
     if tuple(res.tokens.shape) != (REQUESTS, GEN_TOKENS):
@@ -743,6 +865,7 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
                "requests": REQUESTS, "prompt_len": PROMPT_LEN,
                "gen_tokens": GEN_TOKENS, "grouped_launches": launches,
                "expected_grouped_launches": want,
+               "grouped_launches_by_variant": by_variant,
                "flash_launches": flash_launches,
                "matmul_launches": gemm_launches,
                "logits_max_abs_err": lerr,
@@ -763,13 +886,16 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
         w = torch.randn((e, d, f), generator=gen, device="cuda")
         tile = tuner.select(c, d, f).tile
         bm, bk, bn = tile
+        plan = G.grouped_launch(e, c, d, f, bm, bk, bn)
         check_close(name, G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
                     G.grouped_matmul_torch(x, w, bm=bm, bk=bk, bn=bn),
                     RANDOM_TOL, torch, errs, normwise=True, kind="grouped")
         bound, bound_by = grouped_bound_ms(e, c, d, f)
         row = {
             "shape": [e, c, d, f], "tile": list(tile),
-            "max_abs_err": errs[name],
+            "variant": plan.variant, "stages": plan.stages,
+            "splits": plan.splits, "cta": [plan.cta_m, plan.cta_n],
+            "k_step": plan.k_step, "max_abs_err": errs[name],
             "ms": cuda_ms(lambda: G.grouped_matmul_cuda(
                 x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
             "plain_ms": cuda_ms(lambda: G.grouped_matmul_torch(
@@ -778,17 +904,17 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
                                   warmup=1),
             "bound_ms": bound, "bound_by": bound_by}
         shapes[name] = row
-        print(f"[chip_smoke] grouped {name} {e}x{c}x{d}x{f} tile {tile}: "
-              f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        print(f"[chip_smoke] grouped {name} {e}x{c}x{d}x{f} tile {tile} "
+              f"({plan.variant}, CTA {plan.cta_m}x{plan.cta_n}, K step "
+              f"{plan.k_step}, {plan.stages} stages, {plan.splits} "
+              f"splits): kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, "
               f"torch.bmm {row['library_ms']:.3f} ms, bound "
               f"{bound:.3f} ms ({bound_by})")
         del x, w
         torch.cuda.empty_cache()
-    main_row = shapes["mixtral_prefill"]
-    entry = {"launches": launches, "shapes": shapes,
-             **{k: main_row[k] for k in ("shape", "tile", "max_abs_err",
-                                         "ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")}}
+    entry = {"launches": launches, "launches_by_variant": by_variant,
+             "shapes": shapes}
     return mixtral, entry
 
 
@@ -828,9 +954,9 @@ def main() -> int:
     took = time.perf_counter() - t0
     print(f"[chip_smoke] build: {lib_path.name} in {took:.1f}s")
     if _build.last_build is not None:
-        for line in _build.last_build[1].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[chip_smoke] ptxas: {line.strip()}")
+        for name, regs, spills in ptxas_report(_build.last_build[1]):
+            print(f"[chip_smoke] ptxas: {name}: {regs} registers, {spills} "
+                  "bytes spill stores")
 
     # -- 3. kernels against plain --------------------------------------------
     errs = phase_kernels(fa, torch)
@@ -977,41 +1103,36 @@ def main() -> int:
         "dtype": "float32",
         "ms_by_grid": times,
         "case_max_abs_err": errs,
-    }, {
-        "name": "matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/matmul.cu",
-        "replaces": "src/repro/kernels/matmul.py:57",
-        "launches": gemm_entry["launches"],
-        "max_abs_err": gemm_entry["max_abs_err"],
-        "ms": gemm_entry["ms"],
-        "plain_ms": gemm_entry["plain_ms"],
-        "bound_ms": gemm_entry["bound_ms"],
-        "bound_by": gemm_entry["bound_by"],
-        "library_ms": gemm_entry["library_ms"],
-        "shape": gemm_entry["shape"],
-        "dtype": "float32",
-        "tile": gemm_entry["tile"],
-        "ms_by_tile": gemm_entry["ms_by_tile"],
-        "case_max_abs_err": gemm_errs,
-    }, {
-        "name": "grouped_matmul",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
-        "replaces": "src/repro/kernels/grouped_matmul.py:51",
-        "launches": grouped_entry["launches"],
-        "max_abs_err": grouped_entry["max_abs_err"],
-        "ms": grouped_entry["ms"],
-        "plain_ms": grouped_entry["plain_ms"],
-        "bound_ms": grouped_entry["bound_ms"],
-        "bound_by": grouped_entry["bound_by"],
-        "library_ms": grouped_entry["library_ms"],
-        "shape": grouped_entry["shape"],
-        "dtype": "float32",
-        "tile": grouped_entry["tile"],
-        "shapes": grouped_entry["shapes"],
-        "case_max_abs_err": grouped_errs,
     }]
+    # one entry per measured shape: the tiled GEMM at 2048^3 (the main
+    # entry) and the largest cube, the grouped kernel at mixtral's decode
+    # bucket (the main entry: 180 of its 192 launches) and prefill bucket
+    # and at deepseek-v2's experts
+    for name, source, replaces, entry, errs_, main in (
+            ("matmul", "matmul.cu", "src/repro/kernels/matmul.py:57",
+             gemm_entry, gemm_errs, f"gemm_{LARGE_CUBE}"),
+            ("grouped_matmul", "grouped_matmul.cu",
+             "src/repro/kernels/grouped_matmul.py:51", grouped_entry,
+             grouped_errs, "mixtral_decode")):
+        order = [main] + [k for k in entry["shapes"] if k != main]
+        for key in order:
+            row = entry["shapes"][key]
+            kernels.append({
+                "name": name if key == main else f"{name}@{key}",
+                "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces,
+                "launches": entry["launches"],
+                **{k: row[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "variant", "stages", "splits", "shape",
+                    "tile")},
+                "dtype": "float32",
+                **({"launches_by_variant": entry["launches_by_variant"]}
+                   if "launches_by_variant" in entry else {}),
+                **({"case_max_abs_err": errs_} if key == main else {}),
+                **{k: v for k, v in row.items()
+                   if k in ("cta", "k_step", "group", "ms_by_tile")}})
     print(json.dumps({"adsala": adsala}))
     print(json.dumps({"mixtral": mixtral}))
     print(json.dumps({"kernels": kernels}))

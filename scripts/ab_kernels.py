@@ -12,9 +12,25 @@ list and then its reverse).  One JSON line per timed run, then one line
 of medians per tree.  Times are CUDA events over warm launches, fp32:
 
 * ``gemm2048``: the tiled GEMM at 2048^3 on each of the 8 DEFAULT_TILES;
+* ``gemm2048_acol``: the same on tile 3 with A column-major (a
+  transposed view), so A takes 16-byte copies instead of the 4-byte
+  transposing copies of a row-major A;
 * ``trsm{2048,2956}_tile{3,5}``: ``ops.trsm`` (square right-hand side);
-* ``grouped_decode``: the grouped GEMM at mixtral's decode bucket
-  (8, 8, 6144) x (8, 6144, 16384), tile 3, where the tree has it;
+* ``gemm2956``: the tiled GEMM at 2956^3 (the largest fp32 cube within
+  100 MB) on tile 3;
+* ``grouped_decode``, ``grouped_prefill``, ``grouped_deepseek``: the
+  grouped GEMM, tile 3, at mixtral's decode bucket (8, 8, 6144) x
+  (8, 6144, 16384), its prefill bucket (8, 1280, 6144) x
+  (8, 6144, 16384) and deepseek-v2's experts (160, 192, 5120) x
+  (160, 5120, 1536), where the tree has it; ``grouped_prefill_xcol``:
+  the prefill bucket with each expert's X column-major (a transposed
+  view), as ``gemm2048_acol``;
+* ``longk_MxKxN_tile{3,5}``: the tiled GEMM at the three held-out
+  shapes of ``chip_smoke.py``'s tuned loop that launch the fewest CTAs
+  over the longest K (4, 12 and 24 CTAs of 128 x 128), which take most
+  of that loop's time; ``longk_160x22380x645_acol``: the one whose
+  column-major A rows are 16-byte aligned, on tile 3, as
+  ``gemm2048_acol``;
 * ``gemm_sum``: the sum of one 2048^3 product, to show equal results.
 
 Needs a CUDA device.
@@ -67,6 +83,26 @@ def measure(tree: str) -> dict:
                                                 bn=t[2]), 10)
         for i, t in enumerate(DEFAULT_TILES)}}
     out["gemm_sum"] = float(M.matmul_cuda(a, b).double().sum())
+    bm, bk, bn = DEFAULT_TILES[3]
+    a_col = rand(2048, 2048).T
+    out["gemm2048_acol"] = _time(lambda: M.matmul_cuda(a_col, b, bm=bm,
+                                                       bk=bk, bn=bn), 10)
+    del a_col
+    a, b = rand(2956, 2956), rand(2956, 2956)
+    out["gemm2956"] = _time(lambda: M.matmul_cuda(a, b, bm=bm, bk=bk,
+                                                  bn=bn), 10)
+    del a, b
+    for m, k, n in ((198, 51748, 135), (160, 22380, 645), (962, 20214, 290)):
+        a, b = rand(m, k), rand(k, n)
+        for tid in (3, 5):
+            t = DEFAULT_TILES[tid]
+            out[f"longk_{m}x{k}x{n}_tile{tid}"] = _time(
+                lambda: M.matmul_cuda(a, b, bm=t[0], bk=t[1], bn=t[2]), 10)
+        if m == 160:
+            a = rand(k, m).T
+            out[f"longk_{m}x{k}x{n}_acol"] = _time(
+                lambda: M.matmul_cuda(a, b, bm=bm, bk=bk, bn=bn), 10)
+    del a, b
     for d in (2048, 2956):
         ell = rand(d, d).tril_()
         ell.diagonal().copy_(ell.diagonal().abs() + d)
@@ -78,10 +114,20 @@ def measure(tree: str) -> dict:
         from repro_torch.kernels import grouped_matmul as G
     except ImportError:
         return out
-    x, w = rand(8, 8, 6144), rand(8, 6144, 16384)
-    bm, bk, bn = DEFAULT_TILES[3]
-    out["grouped_decode"] = _time(
-        lambda: G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn), 5)
+    for name, (e, c, d, f), iters in (
+            ("grouped_decode", (8, 8, 6144, 16384), 10),
+            ("grouped_prefill", (8, 1280, 6144, 16384), 3),
+            ("grouped_deepseek", (160, 192, 5120, 1536), 5)):
+        x, w = rand(e, c, d), rand(e, d, f)
+        out[name] = _time(
+            lambda: G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn), iters)
+        if name == "grouped_prefill":
+            x = rand(e, d, c).transpose(1, 2)
+            out[name + "_xcol"] = _time(
+                lambda: G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
+                iters)
+        del x, w
+        torch.cuda.empty_cache()
     return out
 
 

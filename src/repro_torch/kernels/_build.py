@@ -2,8 +2,10 @@
 
 The shared library is compiled at first use from the sources in the
 checkout, for ``sm_90a``, into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``): one ``nvcc -c`` per source, all started
-together, then one link.  Its file name carries a hash of the sources
+(listed in ``.gitignore``): one ``nvcc -c`` per compile unit, all started
+together, then one link.  The two GEMM sources compile once per operand
+type (``-DGEMM_DTYPE=0`` float32, ``1`` bfloat16), so their halves build
+in parallel.  Its file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing here runs at import time.
 """
@@ -21,13 +23,17 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "build", "BUILD_DIR", "SOURCES", "HEADERS"]
+__all__ = ["library", "build", "BUILD_DIR", "SOURCES", "HEADERS", "UNITS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu",
            _CSRC / "grouped_matmul.cu")
+#: (source, extra nvcc flags, object name): one ``nvcc -c`` each
+UNITS = ((SOURCES[0], (), "flash_attention"),
+         *((src, (f"-DGEMM_DTYPE={t}",), f"{src.stem}_{name}")
+           for src in SOURCES[1:] for t, name in ((0, "f32"), (1, "bf16"))))
 #: included by SOURCES: part of the build's hash
-HEADERS = (_CSRC / "gemm_tile.cuh",)
+HEADERS = (_CSRC / "gemm_tile.cuh", _CSRC / "gemm_thin.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: ``-Xptxas -v`` reports each kernel's registers and spills
 #: (:data:`last_build` keeps that output)
@@ -55,6 +61,7 @@ def _nvcc() -> str:
 
 def _target() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr([(str(u[0].name), u[1]) for u in UNITS]).encode())
     for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -82,11 +89,12 @@ def build() -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
+        objs = [Path(tmp) / f"{name}.o" for _, _, name in UNITS]
+        with ThreadPoolExecutor(len(UNITS)) as pool:
             logs = list(pool.map(
-                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                       for src, o in zip(SOURCES, objs)]))
+                _run, [[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
+                        str(src)]
+                       for (src, flags, _), o in zip(UNITS, objs)]))
         lib = Path(tmp) / target.name
         logs.append(_run([nvcc, "-shared", "-o", str(lib),
                           *map(str, objs)]))
@@ -111,13 +119,13 @@ def library() -> ctypes.CDLL:
             lib.flash_attention_error_string.restype = ctypes.c_char_p
             ll = ctypes.c_longlong
             lib.matmul_forward.argtypes = [
-                p, p, p, i, i, i, ll, ll, ll, ll, i, i, i, i, i, i, i, p]
+                p, p, p, i, i, i, ll, ll, ll, ll, i, i, i, i, i, i, i, i, p]
             lib.matmul_forward.restype = i
             lib.matmul_error_string.argtypes = [i]
             lib.matmul_error_string.restype = ctypes.c_char_p
             lib.grouped_matmul_forward.argtypes = [
                 p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i, i, i, i, i,
-                i, i, p]
+                i, i, p, i, i, p]
             lib.grouped_matmul_forward.restype = i
             lib.grouped_matmul_error_string.argtypes = [i]
             lib.grouped_matmul_error_string.restype = ctypes.c_char_p

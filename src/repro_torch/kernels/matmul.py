@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["matmul_cuda", "matmul_torch", "launch_shape",
-           "check_gemm_shapes"]
+           "ring_stages", "check_gemm_shapes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -46,18 +46,42 @@ def _check_tile(bm: int, bk: int, bn: int) -> None:
         raise ValueError(f"bad GEMM tile {(bm, bk, bn)}")
 
 
+#: shared memory a block may use on the H100 (232,448 bytes), and the
+#: share that leaves room for two blocks an SM
+SMEM_MAX = 232448
+SMEM_TWO_CTAS = SMEM_MAX // 2
+
+
+def stage_bytes(cta_m: int, cta_n: int, k_step: int, itemsize: int = 4
+                ) -> int:
+    """Bytes of one K step of the CTA tile in shared memory: A as
+    [k_step][cta_m] and B as [k_step][cta_n], rows padded by 16 bytes."""
+    pad = 16 // itemsize
+    return k_step * (cta_m + pad + cta_n + pad) * itemsize
+
+
+def ring_stages(cta_m: int, cta_n: int, k_step: int) -> int:
+    """Depth of the cp.async ring: 4 when four fp32 K steps fit in half
+    of the shared memory (two CTAs an SM), else 3."""
+    return 4 if 4 * stage_bytes(cta_m, cta_n, k_step) <= SMEM_TWO_CTAS \
+        else 3
+
+
 def launch_shape(bm: int, bk: int, bn: int
-                 ) -> tuple[int, int, int, int, int]:
+                 ) -> tuple[int, int, int, int, int, int]:
     """The kernel's launch shape for the tuner's logical tile:
-    ``(cta_m, cta_n, k_step, group_m, group_n)`` (the table in
-    ``csrc/matmul.cu``).  The CTA tile is 128 a side from a logical
-    side of 128 up, else 64; the K step grows with ``bk``; the logical
+    ``(cta_m, cta_n, k_step, stages, group_m, group_n)`` (the table in
+    ``csrc/gemm_tile.cuh``'s header).  The CTA tile is 128 a side from a
+    logical side of 128 up, else 64; the K step grows with ``bk``; the
+    ring's depth follows from the CTA tile and the K step
+    (:func:`ring_stages`; the kernel refuses any other depth); the logical
     (bm, bn) tile is the raster group of CTAs that run together."""
     _check_tile(bm, bk, bn)
     cta_m = 128 if bm >= 128 else 64
     cta_n = 128 if bn >= 128 else 64
     k_step = 8 if bk <= 128 else 16 if bk <= 256 else 32
-    return cta_m, cta_n, k_step, max(1, bm // cta_m), max(1, bn // cta_n)
+    return (cta_m, cta_n, k_step, ring_stages(cta_m, cta_n, k_step),
+            max(1, bm // cta_m), max(1, bn // cta_n))
 
 
 def matmul_torch(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
@@ -105,7 +129,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if min(m, k, n) <= 0 or max(m, k, n) >= 2 ** 31:
         raise ValueError(f"matmul_cuda: unsupported extents m={m} k={k} "
                          f"n={n}")
-    cta_m, cta_n, k_step, group_m, group_n = launch_shape(bm, bk, bn)
+    cta_m, cta_n, k_step, stages, group_m, group_n = launch_shape(bm, bk,
+                                                                   bn)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = _build.library()
     with torch.cuda.device(a.device):
@@ -113,7 +138,8 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     err = lib.matmul_forward(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-        cta_m, cta_n, k_step, group_m, group_n, _DTYPE_CODES[a.dtype],
+        cta_m, cta_n, k_step, stages, group_m, group_n,
+        _DTYPE_CODES[a.dtype],
         _DTYPE_CODES[out_dtype], stream)
     if err != 0:
         raise RuntimeError(

@@ -13,6 +13,11 @@
   gives equal results and equal recorder events (the gemm fallback on a
   gemm-only artifact included);
 * bad shapes and a CUDA backend on CPU tensors raise;
+* the launch tables: the tuner's 8 DEFAULT_TILES stay 8 launches whose
+  cp.async ring fits two CTAs an SM, and the grouped kernel's planner
+  (``grouped_launch``) streams thin decode buckets, splits K only where
+  the card would idle and covers K exactly once, and fits the CTA rows
+  to the bucket;
 * ``MeasuredCUDABackend`` round-trips through ``describe_backend`` /
   ``backend_from_dict`` and refuses to time without a card.
 
@@ -43,6 +48,7 @@ from repro_torch.core import (
     backend_from_dict,
     describe_backend,
 )
+from repro_torch.kernels import grouped_matmul as G
 from repro_torch.kernels import matmul as M
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.recorder import DispatchRecorder
@@ -311,13 +317,116 @@ def test_cuda_backend_on_cpu_tensors_raises(monkeypatch):
 def test_launch_shapes_of_the_default_tiles_are_all_different():
     shapes = [M.launch_shape(*t) for t in DEFAULT_TILES]
     assert len(set(shapes)) == len(DEFAULT_TILES) == 8
-    assert shapes[0] == (128, 128, 8, 1, 1)
-    assert shapes[3] == (128, 128, 16, 2, 2)
-    assert shapes[5] == (128, 128, 32, 4, 4)
-    for cta_m, cta_n, k_step, _, _ in shapes + [M.launch_shape(16, 64, 32)]:
-        # two K-step buffers of A and B, padded rows, within 227 KB
-        assert 4 * 2 * k_step * (cta_m + 4 + cta_n + 4) <= 227 * 1024
-    assert M.launch_shape(16, 64, 32) == (64, 64, 8, 1, 1)
+    # (cta_m, cta_n, k_step, stages, group_m, group_n)
+    assert shapes[0] == (128, 128, 8, 4, 1, 1)
+    assert shapes[3] == (128, 128, 16, 4, 2, 2)
+    assert shapes[5] == (128, 128, 32, 3, 4, 4)
+    for cta_m, cta_n, k_step, stages, _, _ in \
+            shapes + [M.launch_shape(16, 64, 32)]:
+        # the ring of fp32 K steps, padded rows, within 227 KB, and
+        # within half of it so that two CTAs fit an SM
+        ring = stages * 4 * k_step * (cta_m + 4 + cta_n + 4)
+        assert stages in (3, 4) and ring <= 232448 // 2
+        assert ring <= 227 * 1024
+    assert M.launch_shape(16, 64, 32) == (64, 64, 8, 4, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the grouped kernel's launch planner (grouped_matmul.grouped_launch)
+# ---------------------------------------------------------------------------
+
+#: mixtral-8x22b's expert products (E, C, d, f) in decode (4 tokens top-2
+#: over 8 experts: 8-row buckets) and prefill (4 x 1024 tokens: 1280)
+_MIXTRAL_DECODE = {"wi": (8, 8, 6144, 16384), "wo": (8, 8, 16384, 6144)}
+_MIXTRAL_PREFILL = {"wi": (8, 1280, 6144, 16384),
+                    "wo": (8, 1280, 16384, 6144)}
+
+
+@pytest.mark.parametrize("tile", DEFAULT_TILES)
+@pytest.mark.parametrize("site", sorted(_MIXTRAL_DECODE))
+def test_grouped_plan_streams_mixtral_decode_buckets(tile, site):
+    e, c, d, f = _MIXTRAL_DECODE[site]
+    plan = G.grouped_launch(e, c, d, f, *tile)
+    assert plan.variant == "thin" and plan.cta_m == 8
+    assert (plan.cta_n, plan.k_step) == (G.THIN_BN, G.THIN_BK)
+    # one wave of 132 SMs at least, without split-K
+    assert plan.ctas(e, c, f) >= G.SMS
+    assert plan.splits == 1 and plan.workspace == 0
+
+
+@pytest.mark.parametrize("tile", DEFAULT_TILES)
+@pytest.mark.parametrize("site", sorted(_MIXTRAL_PREFILL))
+def test_grouped_plan_tiles_mixtral_prefill_buckets(tile, site):
+    e, c, d, f = _MIXTRAL_PREFILL[site]
+    plan = G.grouped_launch(e, c, d, f, *tile)
+    cta_m, cta_n, k_step, stages, group_m, group_n = M.launch_shape(*tile)
+    assert plan.variant == "tiled" and plan.splits == 1
+    assert plan == (  # 1280 rows fill 10 CTA rows of 128
+        "tiled", cta_m, cta_n, k_step, stages, group_m, group_n, 1, d, 0)
+
+
+@pytest.mark.parametrize("c,rows", [(1, 8), (8, 8), (9, 16), (16, 16)])
+def test_grouped_plan_thin_rows_cover_the_bucket(c, rows):
+    plan = G.grouped_launch(8, c, 6144, 16384, 256, 256, 256)
+    assert plan.variant == "thin" and plan.cta_m == rows >= c
+
+
+@pytest.mark.parametrize("e,c,d,f", [
+    (2, 8, 4096, 300), (5, 1, 1000, 3), (1, 16, 257, 1), (3, 3, 130, 700),
+    (8, 8, 16384, 6144), (1, 4, 16, 256), (4, 12, 100000, 20),
+])
+def test_grouped_plan_splits_cover_k_exactly_once(e, c, d, f):
+    plan = G.grouped_launch(e, c, d, f, 256, 256, 256)
+    assert plan.k_split % plan.k_step == 0
+    bounds = [(s * plan.k_split, min(d, (s + 1) * plan.k_split))
+              for s in range(plan.splits)]
+    # contiguous, in order, none empty, the last ends at d
+    assert bounds[0][0] == 0 and bounds[-1][1] == d
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert 1 <= plan.splits <= G.MAX_SPLITS
+    if plan.splits > 1:
+        assert plan.k_split >= G.MIN_SPLIT_STEPS * plan.k_step
+        # split only where the N tiles alone would not fill the card
+        assert e * -(-f // plan.cta_n) < G.SMS
+    assert plan.workspace == (plan.splits * e * c * f
+                              if plan.splits > 1 else 0)
+
+
+def test_grouped_plan_splits_k_where_the_card_would_idle():
+    plan = G.grouped_launch(2, 8, 4096, 300, 256, 256, 256)
+    assert plan.variant == "thin" and plan.splits > 1
+    assert plan.workspace == plan.splits * 2 * 8 * 300
+    assert plan.ctas(2, 8, 300) > 2 * 2
+
+
+@pytest.mark.parametrize("tile", DEFAULT_TILES)
+def test_grouped_plan_fits_cta_rows_to_deepseek_buckets(tile):
+    # deepseek-v2: 160 experts of d_ff 1536, 192-row buckets
+    e, c, d, f = 160, 192, 5120, 1536
+    plan = G.grouped_launch(e, c, d, f, *tile)
+    assert plan.variant == "tiled"
+    assert c % plan.cta_m == 0            # no dead CTA row block
+    assert plan.cta_m == 96 and plan.cta_m <= M.launch_shape(*tile)[0]
+    assert plan.stages == M.ring_stages(96, plan.cta_n, plan.k_step)
+
+
+@pytest.mark.parametrize("c,rows", [(17, 64), (64, 64), (100, 128),
+                                    (128, 128), (192, 96), (200, 128),
+                                    (288, 96), (320, 64), (1280, 128)])
+def test_grouped_plan_rows_leave_the_fewest_dead_rows(c, rows):
+    plan = G.grouped_launch(4, c, 512, 512, 256, 256, 256)
+    assert plan.cta_m == rows
+    best = min(-(-c // r) * r for r in G.GROUPED_CTA_ROWS)
+    assert -(-c // rows) * rows == best
+
+
+def test_grouped_plan_keeps_a_small_tiles_cta_rows():
+    # the tuner's bm below 128 keeps 64-row CTAs whatever the bucket
+    plan = G.grouped_launch(4, 192, 512, 512, 64, 64, 64)
+    assert (plan.variant, plan.cta_m, plan.cta_n) == ("tiled", 64, 64)
+    with pytest.raises(ValueError, match="bad grouped extents"):
+        G.grouped_launch(0, 8, 8, 8, 64, 64, 64)
 
 
 # ---------------------------------------------------------------------------

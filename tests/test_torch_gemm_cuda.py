@@ -62,6 +62,22 @@ def test_kernel_matches_plain_on_every_default_tile(gpu, tile, dtype, m, k,
                                rtol=TOL[dtype])
 
 
+def test_bits_do_not_depend_on_the_tile_or_the_run(gpu):
+    # every thread sums over k in order (no split-K): each launch shape
+    # gives the same bits, and a second launch repeats them
+    a, b = _rand(700, 1500), _rand(1500, 900, seed=1)
+    first = M.matmul_cuda(a, b, bm=128, bk=128, bn=128)
+    torch.cuda.synchronize()
+    for bm, bk, bn in list(DEFAULT_TILES) + [(64, 64, 64), (64, 512, 128),
+                                             (128, 256, 64)]:
+        got = M.matmul_cuda(a, b, bm=bm, bk=bk, bn=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(got, first), (bm, bk, bn)
+    # the same on a transposed B (the copies transpose, not the sums)
+    bt = b.T.contiguous().T
+    assert torch.equal(M.matmul_cuda(a, bt, bm=256, bk=256, bn=256), first)
+
+
 @pytest.mark.parametrize("m,k,n,tile", [
     (64, 64, 64, (64, 64, 64)), (100, 130, 70, (32, 64, 32)),
     (8, 8, 8, (32, 32, 32)), (33, 257, 65, (16, 128, 16)),
@@ -130,6 +146,27 @@ def test_launch_counter_and_wrapper_checks(gpu):
         M.matmul_cuda(a.cpu(), a)
     with pytest.raises(ValueError, match="bad GEMM shapes"):
         M.matmul_cuda(a, a[:3])
+
+
+def test_c_entry_refuses_a_ring_depth_it_does_not_compile(gpu):
+    """The ring's depth is planned in Python (launch_shape) and compiled
+    in C: the C entry takes the planner's value and refuses any other."""
+    from repro_torch.kernels import _build
+
+    a, b = _rand(64, 64), _rand(64, 64, seed=1)
+    c = torch.empty(64, 64, device="cuda")
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for tile in DEFAULT_TILES:
+        cta_m, cta_n, k_step, stages, gm, gn = M.launch_shape(*tile)
+        codes = [lib.matmul_forward(
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), 64, 64, 64, 64, 1, 64,
+            1, cta_m, cta_n, k_step, st, gm, gn, 0, 0, stream)
+            for st in (stages, stages - 1, stages + 1)]
+        assert codes[0] == 0 and codes[1] != 0 and codes[2] != 0, tile
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c, M.matmul_torch(a, b), atol=TOL[
+        torch.float32], rtol=TOL[torch.float32])
 
 
 def test_short_measured_install_serves_a_tuner(gpu, tmp_path):

@@ -5,7 +5,10 @@ it runs on a GPU host that has only torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_grouped_cuda.py
 
-The plain version is itself held to the JAX reference on the CPU by
+Thin buckets (at most 16 rows: the weight-streaming body) and split-K
+launches are held to the plain version as the tiled body is, and two
+launches on the same inputs must give the same bits.  The plain version
+is itself held to the JAX reference on the CPU by
 tests/test_torch_moe.py.  Tolerances are the reference's
 (tests/test_kernels.py): 5e-5 in fp32 (TF32 off) and 1e-1 in bf16.
 """
@@ -70,6 +73,64 @@ def test_kernel_on_ragged_shapes(gpu, e, c, d, f, tile, dtype):
            tile, dtype)
 
 
+#: thin buckets (C <= 16) and shapes whose planner splits K
+THIN_CASES = [
+    # e, c, d, f
+    (8, 1, 300, 130), (8, 3, 300, 130), (8, 8, 300, 130),
+    (8, 16, 300, 130), (8, 17, 300, 130),       # 17: the tiled body
+    (4, 8, 257, 513), (3, 5, 1000, 3),          # ragged d and f
+    (2, 8, 4096, 300), (1, 16, 2000, 256),      # split-K
+]
+
+
+@pytest.mark.parametrize("e,c,d,f", THIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_on_thin_buckets_and_split_k(gpu, e, c, d, f, dtype):
+    plan = G.grouped_launch(e, c, d, f, 256, 256, 256)
+    assert plan.variant == ("thin" if c <= G.THIN_ROWS else "tiled")
+    _check(_rand(e, c, d, dtype=dtype), _rand(e, d, f, dtype=dtype, seed=1),
+           (256, 256, 256), dtype)
+
+
+def test_thin_kernel_reads_strided_operands_without_a_copy(gpu):
+    x = _rand(4, 16, 600)
+    wt = _rand(4, 300, 600, seed=1)               # (E, f, d) storage
+    for xs, ws in [(x[:, :8], wt.transpose(1, 2)),   # expert-transposed W
+                   (x[:, ::2], _rand(4, 600, 300, seed=2)),  # strided rows
+                   (x[:, ::2], wt.transpose(1, 2))]:
+        assert G.grouped_launch(4, xs.shape[1], 600, 300, 256, 256,
+                                256).variant == "thin"
+        _check(xs, ws, (256, 256, 256))
+    # split-K with an expert-transposed W
+    x, wt = _rand(2, 8, 4096), _rand(2, 200, 4096, seed=3)
+    assert G.grouped_launch(2, 8, 4096, 200, 256, 256, 256).splits > 1
+    _check(x, wt.transpose(1, 2), (256, 256, 256))
+
+
+@pytest.mark.parametrize("e,c,d,f", [(8, 8, 6144, 2048), (2, 8, 4096, 300),
+                                     (4, 192, 1024, 384)])
+def test_two_launches_give_the_same_bits(gpu, e, c, d, f):
+    x, w = _rand(e, c, d), _rand(e, d, f, seed=1)
+    first = G.grouped_matmul_cuda(x, w, bm=256, bk=256, bn=256)
+    second = G.grouped_matmul_cuda(x, w, bm=256, bk=256, bn=256)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_thin_launch_without_split_gives_the_tiled_bits(gpu):
+    # both bodies sum over k in order with fmaf: the same bits, whether
+    # the 8-row bucket streams (thin) or sits in a 128-row tile (tiled)
+    # 8 experts x 17 N tiles of 256 fill the card without split-K
+    x, w = _rand(8, 8, 1000), _rand(8, 1000, 4352, seed=1)
+    assert G.grouped_launch(8, 8, 1000, 4352, 256, 256, 256).splits == 1
+    thin = G.grouped_matmul_cuda(x, w, bm=256, bk=256, bn=256)
+    pad = torch.zeros(8, 17, 1000, device="cuda")
+    pad[:, :8] = x
+    tiled = G.grouped_matmul_cuda(pad, w, bm=256, bk=256, bn=256)[:, :8]
+    torch.cuda.synchronize()
+    assert torch.equal(thin, tiled)
+
+
 def test_kernel_reads_strided_operands_without_a_copy(gpu):
     x = _rand(4, 96, 200)
     wt = _rand(4, 130, 200, seed=1)               # (E, f, d) storage
@@ -104,6 +165,38 @@ def test_launch_counter_and_wrapper_checks(gpu):
         G.grouped_matmul_cuda(x.cpu(), w)
     with pytest.raises(ValueError, match="bad grouped shapes"):
         G.grouped_matmul_cuda(x, w[:2])
+
+
+@pytest.mark.parametrize("c", [8, 40])
+def test_c_entry_refuses_a_launch_it_does_not_compile(gpu, c):
+    """The planner's copies of the kernels' constants (the ring's depth,
+    the thin body's K step and columns) are checked by the C entry."""
+    from repro_torch.kernels import _build
+
+    x, w = _rand(2, c, 64), _rand(2, 64, 300, seed=1)
+    y = torch.empty(2, c, 300, device="cuda")
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = G.grouped_launch(2, c, 64, 300, 128, 128, 128)
+    assert plan.variant == ("thin" if c <= G.THIN_ROWS else "tiled")
+
+    def launch(**change):
+        p = plan._replace(**change)
+        return lib.grouped_matmul_forward(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), 2, c, 64, 300,
+            *x.stride(), *w.stride(), p.cta_m, p.cta_n, p.k_step, p.stages,
+            p.group_m, p.group_n, p.splits, None, 0, 0, stream)
+
+    assert launch() == 0
+    assert launch(stages=plan.stages + 1) != 0
+    assert launch(stages=plan.stages - 1) != 0
+    if plan.variant == "thin":
+        assert launch(k_step=2 * plan.k_step) != 0
+        assert launch(cta_n=plan.cta_n // 2) != 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, G.grouped_matmul_torch(x, w),
+                               atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
 
 
 def test_moe_layer_through_the_kernel(gpu, monkeypatch):
