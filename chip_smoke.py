@@ -12,8 +12,11 @@ Phases (any failure exits non-zero):
    operand type);
 3. kernels against plain: the flash-attention kernel in both KV walks
    against its plain PyTorch version on causal, windowed, non-causal,
-   padded ragged, fully masked, GQA-broadcast and bf16 cases and at the
-   serving path's shape (dense and tri must be bitwise equal); then the
+   padded ragged, fully masked, GQA-broadcast and bf16 cases, every head
+   dim in both dtypes, rows not a multiple of the CTA's, fewer CTA rows
+   (bq 32, 64, Sq 12), windows starting mid-ring, and at the serving
+   path's shape (dense and tri must be bitwise equal, and two launches
+   too); then the
    GEMM kernel against its plain version on the reference's matmul
    cases in fp32 and bf16, ragged shapes, every DEFAULT_TILES entry, a
    transposed-B view, syrk and trsm, and its bits on 10 launch shapes
@@ -44,10 +47,13 @@ Phases (any failure exits non-zero):
    the logits finite, and the same prefill on the plain backend must
    agree; then the grouped kernel against its plain version and
    ``torch.bmm`` at mixtral's prefill and decode buckets and at
-   deepseek-v2's expert shape;
+   deepseek-v2's expert shape, and the flash kernel against its plain
+   version and SDPA at mixtral's attention shape (192, 1024, 128) with
+   the tuner's block;
 9. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
    line, one ``{"kernels": [...]}`` line (one entry per measured shape:
-   flash attention; the GEMM at 2048^3 and the largest cube; the grouped
+   flash attention at stablelm's and mixtral's prefill shapes, each with
+   its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
    experts; each with its body, ring stages and split count), the card's
    line, and the ``{"ok": true, ...}`` last line.
@@ -245,6 +251,27 @@ def phase_kernels(fa, torch) -> dict:
         ("fully_masked_noncausal", 1, 96, 40, 16, f32, False, 8, 32, 16),
         ("fully_masked_causal", 2, 130, 37, 32, f32, True, 5, 64, 16),
         ("fully_masked_bq128", 2, 300, 40, 32, f32, False, 16, 128, 64),
+        # the redesigned body's edges: rows not a multiple of the CTA's
+        # 128, fewer CTA rows (bq 32, 64; Sq 12: 16), windows that start
+        # mid-tile and mid-ring, every head dim in both dtypes, and
+        # sub-tiles rejected above the diagonal mid-tile (bkv 512)
+        ("ragged_rows_bq256", 2, 300, 300, 64, f32, True, None, 256, 128),
+        ("ragged_rows_clamped", 3, 200, 200, 64, f32, True, None, 1024,
+         512),
+        ("cta_rows32_d64", 2, 256, 256, 64, f32, True, None, 32, 64),
+        ("cta_rows64_d128", 2, 256, 256, 128, f32, True, None, 64, 128),
+        ("cta_rows16_sq12", 2, 12, 12, 64, f32, True, None, 512, 512),
+        ("window_mid_ring", 2, 1024, 1024, 64, f32, True, 300, 512, 512),
+        ("window_d128_bq256", 2, 1024, 1024, 128, f32, True, 200, 256,
+         512),
+        ("d16_bkv512", 4, 600, 600, 16, f32, True, None, 128, 512),
+        ("d32_window", 2, 700, 700, 32, f32, True, 333, 256, 256),
+        ("bf16_d16_window", 2, 300, 300, 16, bf16, True, 50, 32, 512),
+        ("bf16_d32_bkv512", 4, 600, 600, 32, bf16, True, None, 128, 512),
+        ("bf16_d64_bkv512_bq128", 8, 1024, 1024, 64, bf16, True, None, 128,
+         512),
+        ("bf16_d128_window", 2, 1024, 1024, 128, bf16, True, 700, 512,
+         512),
     ]
     errs = {}
     for (name, bh, sq, skv, d, dt, causal, window, bq, bkv) in cases:
@@ -254,6 +281,7 @@ def phase_kernels(fa, torch) -> dict:
         want = fa.flash_attention_torch(q, k, v, **kw)
         got = {g: fa.flash_attention_cuda(q, k, v, grid=g, **kw)
                for g in fa.FLASH_GRID_KINDS}
+        got["again"] = fa.flash_attention_cuda(q, k, v, grid="tri", **kw)
         torch.cuda.synchronize()
         check_case(name, got, want, dt, torch, errs)
     # GQA: 8 query heads sharing 2 KV heads, broadcast before the call
@@ -264,6 +292,8 @@ def phase_kernels(fa, torch) -> dict:
     want = fa.flash_attention_torch(q, k, v, bq=32, bkv=32)
     got = {g: fa.flash_attention_cuda(q, k, v, bq=32, bkv=32, grid=g)
            for g in fa.FLASH_GRID_KINDS}
+    got["again"] = fa.flash_attention_cuda(q, k, v, bq=32, bkv=32,
+                                           grid="tri")
     torch.cuda.synchronize()
     check_case("gqa_broadcast", got, want, f32, torch, errs)
     return errs
@@ -274,16 +304,72 @@ def check_case(name, got, want, dt, torch, errs) -> None:
     if not torch.equal(got["dense"], got["tri"]):
         raise SystemExit(f"[chip_smoke] FAIL {name}: dense and tri "
                          "outputs are not bitwise equal")
+    if not torch.equal(got["tri"], got["again"]):
+        raise SystemExit(f"[chip_smoke] FAIL {name}: two launches are not "
+                         "bitwise equal")
     err = (got["tri"].float() - want.float()).abs().max().item()
     bad = ~torch.isclose(got["tri"].float(), want.float(), atol=tol,
                          rtol=tol)
     errs[name] = err
     print(f"[chip_smoke] kernel {name:24s} {str(dt):15s} "
-          f"max_abs_err={err:.3e} tol={tol:g} dense==tri bitwise")
+          f"max_abs_err={err:.3e} tol={tol:g} dense==tri==again bitwise")
     if bool(bad.any()) or not torch.isfinite(got["tri"]).all():
         raise SystemExit(f"[chip_smoke] FAIL {name}: kernel disagrees "
                          f"with the plain version (max_abs_err={err:.3e}, "
                          f"tol={tol:g})")
+
+
+def time_flash(fa, torch, bh: int, s: int, d: int, bq: int, bkv: int,
+               grid: str, window, seed: int) -> dict:
+    """The flash kernel at one causal fp32 shape and block: checked
+    against its plain version, then the kernel in both walks, the plain
+    version and SDPA timed, beside the bound and the launch plan."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(bq=bq, bkv=bkv, causal=True, window=window)
+    got = fa.flash_attention_cuda(q, k, v, grid=grid, **kw)
+    ref = fa.flash_attention_torch(q, k, v, **kw)
+    err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, atol=TOL["float32"],
+                          rtol=TOL["float32"]):
+        raise SystemExit("[chip_smoke] FAIL: flash kernel disagrees at "
+                         f"{(bh, s, d)} ({err:.3e})")
+    del got, ref
+    times = {g: cuda_ms(lambda g=g: fa.flash_attention_cuda(
+        q, k, v, grid=g, **kw)) for g in fa.FLASH_GRID_KINDS}
+    plain_ms = cuda_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
+                       iters=3, warmup=1)
+    # a window of at least S leaves the causal mask: SDPA's is_causal is
+    # then the same function
+    assert window is None or window >= s
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.
+                      scaled_dot_product_attention(q, k, v, is_causal=True))
+    bound, bound_by = flash_bound_ms(bh, s, s, d, True, 4)
+    plan = fa.flash_launch(s, s, d, bq, bkv, dtype=torch.float32,
+                           grid=grid)
+    print(f"[chip_smoke] flash {(bh, s, d)} fp32 causal window {window} "
+          f"block ({bq},{bkv}) plan {plan.cta_rows} rows x "
+          f"{plan.sub_cols} cols, {plan.stages} stages, {plan.smem} B: "
+          f"dense {times['dense']:.3f} ms, tri {times['tri']:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, sdpa {sdpa_ms:.3f} ms, bound "
+          f"{bound:.3f} ms ({bound_by}), max_abs_err {err:.3e}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": [bh, s, d], "block": [bq, bkv], "grid": grid,
+            "window": window, "max_abs_err": err, "ms": times[grid],
+            "ms_by_grid": times, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "plan": {"cta_rows": plan.cta_rows, "sub_cols": plan.sub_cols,
+                     "stages": plan.stages, "smem": plan.smem}}
+
+
+def flash_entry(name: str, row: dict, launches: int, **extra) -> dict:
+    """One flash entry of the ``{"kernels": [...]}`` line."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:244",
+            "launches": launches, "dtype": "float32", **row, **extra}
 
 
 def gemm_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
@@ -913,6 +999,12 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
               f"{bound:.3f} ms ({bound_by})")
         del x, w
         torch.cuda.empty_cache()
+    # the flash kernel at mixtral's attention shape and the tuner's block
+    hd = cfg.resolved_head_dim
+    choice = tuner.select(PROMPT_LEN, hd, PROMPT_LEN, "attn")
+    mixtral["flash"] = time_flash(
+        fa, torch, REQUESTS * cfg.n_heads, PROMPT_LEN, hd,
+        *choice.flash_block, choice.flash_grid, cfg.window, seed=7)
     entry = {"launches": launches, "launches_by_variant": by_variant,
              "shapes": shapes}
     return mixtral, entry
@@ -1048,32 +1140,11 @@ def main() -> int:
           f"step {warm_d:.2f} ms ({REQUESTS / warm_d * 1e3:.1f} tok/s)")
 
     # the kernel at the serving path's shape and the tuner's config
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    shape = (REQUESTS * cfg.n_heads, PROMPT_LEN, hd)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-               for _ in range(3))
-    kw = dict(bq=bq, bkv=bkv, causal=True)
-    got = fa.flash_attention_cuda(q, k, v, grid=choice.flash_grid, **kw)
-    ref = fa.flash_attention_torch(q, k, v, **kw)
-    path_err = (got - ref).abs().max().item()
-    if not torch.allclose(got, ref, atol=TOL["float32"],
-                          rtol=TOL["float32"]):
-        raise SystemExit("[chip_smoke] FAIL: kernel disagrees at the "
-                         f"serving path's shape ({path_err:.3e})")
-    times = {g: cuda_ms(lambda g=g: fa.flash_attention_cuda(
-        q, k, v, grid=g, **kw)) for g in fa.FLASH_GRID_KINDS}
-    plain_ms = cuda_ms(lambda: fa.flash_attention_torch(q, k, v, **kw))
-    sdpa_ms = cuda_ms(lambda: torch.nn.functional.
-                      scaled_dot_product_attention(q, k, v, is_causal=True))
-    bound_ms, bound_by = flash_bound_ms(shape[0], PROMPT_LEN,
-                                        PROMPT_LEN, hd, True, 4)
-    print(f"[chip_smoke] flash {shape} fp32 causal block ({bq},{bkv}): "
-          f"dense {times['dense']:.3f} ms, tri {times['tri']:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, sdpa {sdpa_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms ({bound_by}), max_abs_err {path_err:.3e}")
+    flash_row = time_flash(fa, torch, REQUESTS * cfg.n_heads, PROMPT_LEN,
+                           hd, bq, bkv, choice.flash_grid, None, seed=1)
 
     # -- 6. measured install ----------------------------------------------------
-    del res, cache, ctx, dctx, logits_t, q, k, v, got, ref
+    del res, cache, ctx, dctx, logits_t
     torch.cuda.empty_cache()
     measured_art, install_info = phase_measured_install(torch)
 
@@ -1085,25 +1156,10 @@ def main() -> int:
     mixtral, grouped_entry = phase_mixtral(art, mm, fa, gm, torch)
 
     # -- 9. report ---------------------------------------------------------------
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:244",
-        "launches": launches,
-        "max_abs_err": path_err,
-        "ms": times[choice.flash_grid],
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": sdpa_ms,
-        "grid": choice.flash_grid,
-        "block": [bq, bkv],
-        "shape": list(shape),
-        "dtype": "float32",
-        "ms_by_grid": times,
-        "case_max_abs_err": errs,
-    }]
+    kernels = [flash_entry("flash_attention", flash_row, launches,
+                           case_max_abs_err=errs),
+               flash_entry("flash_attention@mixtral_prefill",
+                           mixtral["flash"], mixtral["flash_launches"])]
     # one entry per measured shape: the tiled GEMM at 2048^3 (the main
     # entry) and the largest cube, the grouped kernel at mixtral's decode
     # bucket (the main entry: 180 of its 192 launches) and prefill bucket

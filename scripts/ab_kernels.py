@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's GEMM kernels from two or more source trees on one
-card, in turns, to compare commits.
+"""Time the port's kernels (GEMM, grouped GEMM, flash attention) from
+two or more source trees on one card, in turns, to compare commits.
 
     git archive PARENT src | tar -x -C build/ab/parent   # a tree to compare
     python3 scripts/ab_kernels.py build/ab/parent .
@@ -31,6 +31,14 @@ of medians per tree.  Times are CUDA events over warm launches, fp32:
   of that loop's time; ``longk_160x22380x645_acol``: the one whose
   column-major A rows are 16-byte aligned, on tile 3, as
   ``gemm2048_acol``;
+* ``flash_stablelm_dense``, ``flash_stablelm_tri``: flash attention at
+  stablelm-1.6b's prefill shape (128, 1024, 64), causal, block
+  (1024, 512) (the tuner's), in each KV walk; ``flash_mixtral``: at
+  mixtral-8x22b's (192, 1024, 128), causal, window 4096, block
+  (1024, 512), dense walk; ``flash_stablelm_bf16``,
+  ``flash_mixtral_bf16``: the same two shapes in bfloat16 (no served
+  path runs them); ``flash_sum``: the sum of one stablelm-shape fp32
+  output, to compare results (the trees may sum in another order);
 * ``gemm_sum``: the sum of one 2048^3 product, to show equal results.
 
 Needs a CUDA device.
@@ -68,6 +76,7 @@ def measure(tree: str) -> dict:
     import torch
 
     from repro_torch.core import DEFAULT_TILES
+    from repro_torch.kernels import flash_attention as F
     from repro_torch.kernels import matmul as M
     from repro_torch.kernels import ops
 
@@ -77,11 +86,28 @@ def measure(tree: str) -> dict:
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
+    out: dict = {"tree": tree}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for name, bh, d, window, grids, dtype in (
+            ("flash_stablelm", 128, 64, None, ("dense", "tri"), f32),
+            ("flash_mixtral", 192, 128, 4096, ("dense",), f32),
+            ("flash_stablelm_bf16", 128, 64, None, ("dense",), bf16),
+            ("flash_mixtral_bf16", 192, 128, 4096, ("dense",), bf16)):
+        q, k, v = (rand(bh, 1024, d).to(dtype) for _ in range(3))
+        for grid in grids:
+            key = f"{name}_{grid}" if len(grids) > 1 else name
+            out[key] = _time(lambda: F.flash_attention_cuda(
+                q, k, v, bq=1024, bkv=512, causal=True, window=window,
+                grid=grid), 10)
+        if name == "flash_stablelm":
+            out["flash_sum"] = float(F.flash_attention_cuda(
+                q, k, v, bq=1024, bkv=512).double().sum())
+        del q, k, v
     a, b = rand(2048, 2048), rand(2048, 2048)
-    out: dict = {"tree": tree, "gemm2048": {
+    out.update({"gemm2048": {
         str(i): _time(lambda t=t: M.matmul_cuda(a, b, bm=t[0], bk=t[1],
                                                 bn=t[2]), 10)
-        for i, t in enumerate(DEFAULT_TILES)}}
+        for i, t in enumerate(DEFAULT_TILES)}})
     out["gemm_sum"] = float(M.matmul_cuda(a, b).double().sum())
     bm, bk, bn = DEFAULT_TILES[3]
     a_col = rand(2048, 2048).T

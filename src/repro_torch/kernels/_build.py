@@ -3,9 +3,9 @@
 The shared library is compiled at first use from the sources in the
 checkout, for ``sm_90a``, into ``build/kernels/`` at the repository root
 (listed in ``.gitignore``): one ``nvcc -c`` per compile unit, all started
-together, then one link.  The two GEMM sources compile once per operand
-type (``-DGEMM_DTYPE=0`` float32, ``1`` bfloat16), so their halves build
-in parallel.  Its file name carries a hash of the sources
+together, then one link.  Every source compiles once per operand type
+(``-DFLASH_DTYPE`` / ``-DGEMM_DTYPE``: 0 float32, 1 bfloat16), so the
+halves build in parallel.  Its file name carries a hash of the sources
 and flags, so an edited source is rebuilt and a stale library is never
 loaded.  Nothing here runs at import time.
 """
@@ -29,9 +29,10 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu",
            _CSRC / "grouped_matmul.cu")
 #: (source, extra nvcc flags, object name): one ``nvcc -c`` each
-UNITS = ((SOURCES[0], (), "flash_attention"),
-         *((src, (f"-DGEMM_DTYPE={t}",), f"{src.stem}_{name}")
-           for src in SOURCES[1:] for t, name in ((0, "f32"), (1, "bf16"))))
+UNITS = tuple(
+    (src, (f"-D{'FLASH' if src is SOURCES[0] else 'GEMM'}_DTYPE={t}",),
+     f"{src.stem}_{name}")
+    for src in SOURCES for t, name in ((0, "f32"), (1, "bf16")))
 #: included by SOURCES: part of the build's hash
 HEADERS = (_CSRC / "gemm_tile.cuh", _CSRC / "gemm_thin.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -113,7 +114,7 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.flash_attention_forward.argtypes = [
                 p, p, p, p, i, i, i, i, i, i, i, i, ctypes.c_float, i,
-                p, p, p]
+                p, p, i, i, i, p]
             lib.flash_attention_forward.restype = i
             lib.flash_attention_error_string.argtypes = [i]
             lib.flash_attention_error_string.restype = ctypes.c_char_p

@@ -1,16 +1,25 @@
-"""Blocked (flash) attention: the Hopper kernel, its wrapper and its
-plain PyTorch version.
+"""Blocked (flash) attention: the Hopper kernel, its launch planner, its
+wrapper and its plain PyTorch version.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas`` (both
 of its KV grids).  The kernel is CUDA C++ for ``sm_90a`` in
 ``csrc/flash_attention.cu``, compiled with ``nvcc`` into a shared
 library at first use and bound through ``ctypes`` (see
-:mod:`repro_torch.kernels._build`); its header comment says what bounds
-it on the H100 and how the TPU design was rethought.
+:mod:`repro_torch.kernels._build`).  Its header comment gives the
+design: a cp.async ring of K/V sub-tiles, CTAs of up to 128 query rows
+(16 a warp), register-tiled fp32 products read along d, P through a
+per-warp slice of shared memory, exp2 with the scale folded in, and
+causal launches heaviest row block first.  fp32 on the CUDA cores bounds
+it: at the serving shape (128, 1024, 64), causal, 17.2 GFLOP take
+0.257 ms at 67 TFLOP/s; the rate at which shared memory feeds the
+register tiles is what keeps it from that bound.
 
-* :func:`flash_attention_cuda` — the wrapper: checks, allocates the
-  output, launches on the current stream, raises on a CUDA error, and
-  counts its launches in ``flash_attention_cuda.launches``.
+* :func:`flash_launch` — the launch plan: CTA rows, sub-tile columns,
+  ring stages and shared bytes, for a head dim, dtype and the tuner's
+  (bq, bkv).  The C entry refuses any plan it does not compile.
+* :func:`flash_attention_cuda` — the wrapper: checks, plans, allocates
+  the output, launches on the current stream, raises on a CUDA error,
+  and counts its launches in ``flash_attention_cuda.launches``.
 * :func:`flash_attention_torch` — the plain version of the same
   function (fp32 math, the same masks, and the reference's value on a
   row with no visible key: see :func:`_visible`).
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,8 +45,8 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_torch",
-           "flash_tile_map", "flash_grid_counts", "FLASH_GRID_KINDS",
-           "SUPPORTED_HEAD_DIMS"]
+           "flash_tile_map", "flash_grid_counts", "flash_launch",
+           "FlashLaunch", "FLASH_GRID_KINDS", "SUPPORTED_HEAD_DIMS"]
 
 _NEG_INF = -1e30
 
@@ -46,6 +56,61 @@ FLASH_GRID_KINDS = ("dense", "tri")
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: CTA rows the kernel compiles (16 a warp), largest first
+FLASH_CTA_ROWS = (128, 64, 32, 16)
+#: (dtype, head dim) -> (sub-tile columns, ring stages, most CTA rows):
+#: the table in ``csrc/flash_attention.cu``'s header, whose C entry
+#: refuses any other plan
+FLASH_PLANS = {
+    (torch.float32, 16): (64, 3, 128), (torch.float32, 32): (64, 3, 128),
+    (torch.float32, 64): (32, 3, 128), (torch.float32, 128): (32, 2, 64),
+    (torch.bfloat16, 16): (64, 3, 128), (torch.bfloat16, 32): (64, 3, 128),
+    (torch.bfloat16, 64): (64, 3, 128), (torch.bfloat16, 128): (64, 2, 64),
+}
+
+
+class FlashLaunch(NamedTuple):
+    """One flash launch: the clamped logical blocks, the CTA's query rows
+    (16 a warp), the KV sub-tile's columns, the K/V ring's depth and the
+    CTA's shared memory in bytes."""
+    bq: int
+    bkv: int
+    cta_rows: int
+    sub_cols: int
+    stages: int
+    smem: int
+
+
+def flash_launch(sq: int, skv: int, d: int, bq: int, bkv: int, *,
+                 dtype: torch.dtype = torch.float32,
+                 grid: str = "dense") -> FlashLaunch:
+    """The kernel's launch for (Sq, Skv, D) under the tuner's (bq, bkv).
+
+    The blocks are clamped as in the reference.  A CTA takes the largest
+    of :data:`FLASH_CTA_ROWS` that is at most the clamped bq and the
+    plan's most rows (16 when bq is below 16); the sub-tile, ring depth
+    and most rows come from :data:`FLASH_PLANS`.  Both walks get the same
+    plan: their bitwise equality rests on it."""
+    if grid not in FLASH_GRID_KINDS:
+        raise ValueError(f"unknown flash grid {grid!r}; "
+                         f"expected one of {FLASH_GRID_KINDS}")
+    if (dtype, d) not in FLASH_PLANS:
+        raise ValueError(f"no flash plan for dtype {dtype}, head dim {d} "
+                         f"(head dims {SUPPORTED_HEAD_DIMS}; float32, "
+                         "bfloat16)")
+    if min(sq, skv, bq, bkv) <= 0:
+        raise ValueError(f"bad flash extents sq={sq} skv={skv} bq={bq} "
+                         f"bkv={bkv}")
+    bq_, bkv_ = _clamp_blocks(sq, skv, bq, bkv)
+    sub_cols, stages, most = FLASH_PLANS[dtype, d]
+    rows = next((r for r in FLASH_CTA_ROWS if r <= min(bq_, most)),
+                FLASH_CTA_ROWS[-1])
+    es = torch.empty((), dtype=dtype).element_size()
+    pad = 16 // es
+    smem = (es * (rows + 2 * stages * sub_cols) * (d + pad)
+            + 4 * rows * (sub_cols + 8 + 1))
+    return FlashLaunch(bq_, bkv_, rows, sub_cols, stages, smem)
 
 
 def _clamp_blocks(sq: int, skv: int, bq: int, bkv: int) -> tuple[int, int]:
@@ -214,9 +279,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors: q (BH, Sq, D), k/v (BH, Skv, D), contiguous, one dtype
     (float32 or bfloat16), D in :data:`SUPPORTED_HEAD_DIMS`.
 
-    ``bq``/``bkv`` are the tuner's logical blocks (clamped as in the
-    reference); ``grid`` picks the dense or tri KV walk.  Raises on any
-    input the kernel does not take and on a failed launch.
+    ``bq``/``bkv`` are the tuner's logical blocks, planned by
+    :func:`flash_launch`; ``grid`` picks the dense or tri KV walk.
+    Raises on any input the kernel does not take and on a failed launch.
     """
     _check(q, k, v, grid)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -232,6 +297,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda: {name} is not "
                              "contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} is not "
+                             "16-byte aligned")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not "
                          "supported (float32, bfloat16)")
@@ -246,22 +314,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_cuda: window {window} <= 0")
     sm_scale = sm_scale if sm_scale is not None else float(d) ** -0.5
-    bq_, bkv_ = _clamp_blocks(sq, skv, bq, bkv)
+    plan = flash_launch(sq, skv, d, bq, bkv, dtype=q.dtype, grid=grid)
+    if -(-sq // plan.bq) * -(-plan.bq // plan.cta_rows) > 65535:
+        raise ValueError(f"flash_attention_cuda: Sq={sq} needs more than "
+                         "65535 row blocks")
     row_ptr = kv_list = None
     if grid == "tri":
-        row_ptr, kv_list = _tri_walk(sq, skv, bq_, bkv_, bool(causal),
-                                     window, q.device)
+        row_ptr, kv_list = _tri_walk(sq, skv, plan.bq, plan.bkv,
+                                     bool(causal), window, q.device)
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, sq, skv, d, bq_, bkv_, int(bool(causal)),
+        bh, sq, skv, d, plan.bq, plan.bkv, int(bool(causal)),
         0 if window is None else int(window), ctypes.c_float(sm_scale),
         _DTYPE_CODES[q.dtype],
         None if row_ptr is None else row_ptr.data_ptr(),
-        None if kv_list is None else kv_list.data_ptr(), stream)
+        None if kv_list is None else kv_list.data_ptr(), plan.cta_rows,
+        plan.sub_cols, plan.stages, stream)
     if err != 0:
         raise RuntimeError(
             "flash_attention_cuda launch failed: "

@@ -11,7 +11,11 @@
 * ``ops.flash_attention`` records the same dispatch events as the
   reference's ``backend="pallas", interpret=True`` with one tuner loaded
   from one artifact;
-* a CUDA backend on CPU tensors raises.
+* a CUDA backend on CPU tensors raises;
+* the launch planner ``flash_launch``: every plan fits shared memory,
+  CTA rows never exceed the clamped bq, both walks get one plan, the
+  tuner's blocks give 128-row CTAs at D <= 64, and ``FLASH_PLANS`` is
+  the table the kernel compiles.
 
 The CUDA kernel itself is tested on the card by
 tests/test_torch_flash_cuda.py.  Inputs are made with numpy from a
@@ -19,6 +23,8 @@ seed and handed to both packages.
 """
 
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -34,6 +40,7 @@ from repro.kernels.flash_attention import (
 )
 from repro.kernels.recorder import DispatchRecorder as JaxRecorder
 from repro_torch.core import AdsalaTuner
+from repro_torch.core.costmodel import FLASH_BLOCKS
 from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.recorder import DispatchRecorder
@@ -371,3 +378,95 @@ def test_oracles_match_reference(name):
     tol = 1e-3 if name == "trsm" else 1e-4
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=tol,
                                rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the launch planner (flash_launch) and the C table it mirrors
+# ---------------------------------------------------------------------------
+
+_PLAN_KEYS = sorted(F.FLASH_PLANS, key=lambda k: (str(k[0]), k[1]))
+#: shared memory a block may use on the H100 (bytes)
+SMEM_MAX = 232448
+_CU = (pathlib.Path(F.__file__).parent / "csrc" / "flash_attention.cu"
+       ).read_text()
+
+
+@pytest.mark.parametrize("dtype,d", _PLAN_KEYS)
+def test_flash_plan_fits_shared_memory(dtype, d):
+    """Every plan, at its largest CTA, fits the 232,448 bytes a block may
+    take, and two such CTAs fit an SM (half of it, as the C entry
+    asserts)."""
+    for bq in (16, 32, 64, 128, 256, 512, 1024):
+        plan = F.flash_launch(1024, 1024, d, bq, 512, dtype=dtype)
+        assert plan.smem <= SMEM_MAX // 2 <= SMEM_MAX, (bq, plan)
+
+
+@pytest.mark.parametrize("sq,bq", [(1024, 1024), (1024, 512), (300, 512),
+                                   (200, 1024), (256, 96), (256, 64),
+                                   (256, 32), (40, 512), (12, 512),
+                                   (5, 512)])
+@pytest.mark.parametrize("dtype,d", _PLAN_KEYS)
+def test_flash_plan_rows_never_exceed_the_clamped_block(dtype, d, sq, bq):
+    plan = F.flash_launch(sq, sq, d, bq, 512, dtype=dtype)
+    assert (plan.bq, plan.bkv) == F._clamp_blocks(sq, sq, bq, 512)
+    assert plan.cta_rows in F.FLASH_CTA_ROWS
+    assert plan.cta_rows % 16 == 0                # whole warps
+    if plan.bq >= 16:
+        assert plan.cta_rows <= plan.bq
+    else:                                         # one warp is the least
+        assert plan.cta_rows == 16
+    # the largest that fits: twice the rows would exceed bq or the plan
+    assert 2 * plan.cta_rows > min(plan.bq, F.FLASH_PLANS[dtype, d][2]) \
+        or plan.cta_rows == 128
+
+
+@pytest.mark.parametrize("dtype,d", _PLAN_KEYS)
+def test_flash_plan_is_the_same_for_both_walks(dtype, d):
+    for sq, bq, bkv in ((1024, 1024, 512), (777, 256, 128), (96, 32, 32)):
+        plans = {g: F.flash_launch(sq, sq, d, bq, bkv, dtype=dtype, grid=g)
+                 for g in F.FLASH_GRID_KINDS}
+        assert plans["dense"] == plans["tri"]
+
+
+@pytest.mark.parametrize("block", FLASH_BLOCKS)
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tuner_blocks_give_128_row_ctas(block, d, dtype):
+    plan = F.flash_launch(1024, 1024, d, *block, dtype=dtype)
+    assert plan.cta_rows == 128
+    # mixtral's head dim: 64 rows keep two CTAs an SM (64 accumulators a
+    # lane cap 128-row CTAs at 128 registers)
+    assert F.flash_launch(1024, 1024, 128, *block,
+                          dtype=dtype).cta_rows == 64
+
+
+@pytest.mark.parametrize("dtype,d", _PLAN_KEYS)
+def test_flash_plan_table_matches_the_kernel(dtype, d):
+    """FLASH_PLANS is the table the C entry compiles (Plan<D> in each
+    dtype's half of flash_attention.cu), and the header's shared bytes
+    are the planner's."""
+    table = _CU.split("struct Plan;\n#if FLASH_DTYPE == 0\n")[1]
+    f32, bf16 = table.split("#endif")[0].split("#else")
+    src = f32 if dtype == torch.float32 else bf16
+    m = re.search(rf"Plan<{d}> {{ static constexpr int BN = (\d+), "
+                  rf"STAGES = (\d+), ROWS = (\d+); }}", src)
+    assert m is not None
+    assert tuple(map(int, m.groups())) == F.FLASH_PLANS[dtype, d]
+    name = "fp32" if dtype == torch.float32 else "bf16"
+    bn, stages, rows = F.FLASH_PLANS[dtype, d]
+    plan = F.flash_launch(1024, 1024, d, 1024, 512, dtype=dtype)
+    row = re.search(rf"//   {name}\s+{d}\s+{bn}\s+{stages}\s+{rows}\s+"
+                    r"([\d,]+) B", _CU)
+    assert row is not None and int(row.group(1).replace(",", "")) == \
+        plan.smem
+
+
+def test_flash_planner_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="no flash plan"):
+        F.flash_launch(64, 64, 48, 32, 32)
+    with pytest.raises(ValueError, match="no flash plan"):
+        F.flash_launch(64, 64, 64, 32, 32, dtype=torch.float16)
+    with pytest.raises(ValueError, match="unknown flash grid"):
+        F.flash_launch(64, 64, 64, 32, 32, grid="diag")
+    with pytest.raises(ValueError, match="bad flash extents"):
+        F.flash_launch(0, 64, 64, 32, 32)
