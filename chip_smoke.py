@@ -50,9 +50,29 @@ Phases (any failure exits non-zero):
    deepseek-v2's expert shape, and the flash kernel against its plain
    version and SDPA at mixtral's attention shape (192, 1024, 128) with
    the tuner's block;
-9. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
-   line, one ``{"kernels": [...]}`` line (one entry per measured shape:
-   flash attention at stablelm's and mixtral's prefill shapes, each with
+9. queue: stablelm-1.6b at full width served as a ragged trace of 8
+   requests through ``launch.serve --queue`` (continuous batching over
+   a paged KV pool, 4 slots, pages of 16 tokens), untuned; the flash
+   kernel's launch count must be one per layer per admitted request,
+   the allocator clean at the end, and every request must decode like
+   the fixed-batch path at batch 1 (logits within ``LOGITS_TOL`` at
+   every step; a token may differ only where the fixed-batch top-2
+   logit gap is below that tolerance); then the flash kernel at the
+   trace's longest prefill with the untuned block and tri walk the
+   trace ran;
+10. closed loop: a serving profile recorded from the smoke config on
+   the card, a measured install weighted by it (``launch.profile
+   --install --backend measured``, the port's kernels timed by
+   ``MeasuredCUDABackend``), then the full-width trace served with
+   ``--queue --reinstall``: the drift must cross the threshold, the
+   background re-install must run on the card's backend, fire, swap
+   and end without error, and the allocator must be clean; decode
+   steps are timed while the install runs and after it;
+11. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+   line, one ``{"serving": {...}}`` line, one ``{"kernels": [...]}``
+   line (one entry per measured shape:
+   flash attention at stablelm's and mixtral's prefill shapes and at
+   the queue trace's longest prefill, each with
    its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
    experts; each with its body, ring stages and split count), the card's
@@ -112,6 +132,21 @@ CHECK_ELEMS = 2 ** 26
 #: two attention functions differ in summation order only (~1e-6 per
 #: layer), which the residual stream carries to the logits
 LOGITS_TOL = 1e-3
+
+#: the continuous-batching trace (phases 9 and 10): requests with
+#: prompt lengths in [QUEUE_PROMPT // 4, QUEUE_PROMPT] and outputs in
+#: [QUEUE_GEN // 4, QUEUE_GEN], drawn by the launcher from
+#: numpy.random.default_rng(1), over a pool of 2 x slots x the worst
+#: case's pages
+QUEUE_REQUESTS, QUEUE_PROMPT, QUEUE_GEN = 8, 1024, 32
+QUEUE_SLOTS, QUEUE_PAGE = 4, 16
+#: the closed loop: the smoke serving run whose profile weights the
+#: measured install, that install's budget, the re-install's budget
+#: and the drift threshold (the reference launcher's default)
+LOOP_PROFILE_ARGS = ["--requests", "4", "--prompt-len", "64",
+                     "--gen-tokens", "8"]
+LOOP_SAMPLES, LOOP_BUDGET, REINSTALL_BUDGET = 48, 160, 160
+REINSTALL_THRESHOLD = 0.25
 
 #: mixtral-8x22b at full width, depth cut to fit one card in fp32
 MIX_ARCH, MIX_LAYERS = "mixtral-8x22b", 4
@@ -1010,6 +1045,239 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     return mixtral, entry
 
 
+def queue_argv(*extra: str) -> list[str]:
+    return ["--arch", ARCH, "--scale", "full", "--queue", "--requests",
+            str(QUEUE_REQUESTS), "--prompt-len", str(QUEUE_PROMPT),
+            "--gen-tokens", str(QUEUE_GEN), "--slots", str(QUEUE_SLOTS),
+            "--page-size", str(QUEUE_PAGE), "--device", "cuda", *extra]
+
+
+def step_stats(steps) -> dict:
+    """Mean decode step (ms) and slot occupancy over ``(seconds, active,
+    ...)`` rows; the first step records dispatches, so it is left out
+    when there are others."""
+    rows = steps[1:] if len(steps) > 1 else steps
+    if not rows:
+        return {"steps": 0, "mean_ms": None, "median_ms": None,
+                "mean_active": None}
+    ms = sorted(1e3 * r[0] for r in rows)
+    return {"steps": len(rows), "mean_ms": sum(ms) / len(ms),
+            "median_ms": ms[len(ms) // 2],
+            "mean_active": sum(r[1] for r in rows) / len(rows)}
+
+
+def fixed_batch_parity(res, torch) -> dict:
+    """Every request of a queue run against the fixed-batch path at
+    batch 1 and the scheduler's ``cap`` (prefill at the exact prompt
+    length, then greedy decode): logits within LOGITS_TOL at every step,
+    tokens equal up to a near-tie (the fixed-batch top-2 gap below
+    LOGITS_TOL), after which the two runs no longer see the same
+    inputs."""
+    from repro_torch.train.step import make_ctx
+
+    sched, model, params = res.sched, res.model, res.params
+    pctx = make_ctx("prefill", cache_len=sched.cap)
+    dctx = make_ctx("decode", cache_len=sched.cap)
+    worst, ties, compared = 0.0, [], 0
+    for rid, fin in sorted(sched.finished.items()):
+        got = sched.logits[rid]
+        with torch.inference_mode():
+            logits, cache = model.prefill(
+                params, torch.tensor([fin.prompt], device="cuda"), pctx)
+            for i in range(len(fin.tokens)):
+                if i:
+                    logits, cache = model.decode_step(
+                        params, torch.tensor([[fin.tokens[i - 1]]],
+                                             device="cuda"),
+                        cache, len(fin.prompt) + i - 1, dctx)
+                want = logits[0].float().cpu()
+                err = (got[i] - want).abs().max().item()
+                worst = max(worst, err)
+                compared += 1
+                if err > LOGITS_TOL:
+                    raise SystemExit(
+                        f"[chip_smoke] FAIL: request {rid} step {i}: "
+                        f"scheduler logits differ from the fixed-batch "
+                        f"path by {err:.3e} > {LOGITS_TOL:g}")
+                tok = int(want.argmax())
+                if tok != fin.tokens[i]:
+                    top2 = want.topk(2).values
+                    gap = (top2[0] - top2[1]).item()
+                    print(f"[chip_smoke] queue parity: request {rid} step "
+                          f"{i}: token {fin.tokens[i]} vs fixed-batch "
+                          f"{tok}, fixed-batch top-2 gap {gap:.3e}")
+                    if gap >= LOGITS_TOL:
+                        raise SystemExit(
+                            f"[chip_smoke] FAIL: request {rid} step {i}: "
+                            "token differs where the fixed-batch top-2 "
+                            f"gap {gap:.3e} >= {LOGITS_TOL:g}")
+                    ties.append({"rid": rid, "step": i, "gap": gap})
+                    break
+        del cache
+    return {"logits_max_abs_err": worst, "steps_compared": compared,
+            "near_tie_divergences": ties,
+            "token_identical_requests": len(sched.finished) - len(ties)}
+
+
+def phase_queue(M, fa, G, torch) -> dict:
+    """Phase 9: the full-width ragged trace through the port's queue
+    path, untuned; launch counts, allocator, golden parity."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(queue_argv())
+    fa.flash_attention_cuda.launches = 0
+    M.matmul_cuda.launches = 0
+    G.grouped_matmul_cuda.launches = 0
+    res = serve.serve_config(get_config(ARCH), args, keep_logits=True)
+    launches = fa.flash_attention_cuda.launches
+    sched, cfg = res.sched, res.cfg
+    want = cfg.n_layers * sched.admitted
+    print(f"[chip_smoke] queue: flash launches={launches} (expected "
+          f"{cfg.n_layers} layers x {sched.admitted} admitted = {want}), "
+          f"matmul launches={M.matmul_cuda.launches}, grouped launches="
+          f"{G.grouped_matmul_cuda.launches}")
+    if launches != want or sched.admitted != QUEUE_REQUESTS:
+        raise SystemExit("[chip_smoke] FAIL: the queue path did not run the "
+                         "flash kernel once per layer per admitted request")
+    sched.alloc.check()
+    if sched.alloc.live_pages != 0 or len(sched.finished) != QUEUE_REQUESTS:
+        raise SystemExit("[chip_smoke] FAIL: queue run left live pages or "
+                         "unfinished requests")
+    stats = step_stats(res.steps)
+    print("[chip_smoke] queue: decode steps ms (active slots): " + " ".join(
+        f"{1e3 * sec:.1f}({act})" for sec, act, _ in res.steps))
+    print(f"[chip_smoke] queue: {sched.generated_tokens} tokens in "
+          f"{res.wall_s:.2f}s ({res.tok_per_s:.1f} tok/s), goodput "
+          f"{sched.goodput():.3f} over {sched.steps} steps, decode step "
+          f"{stats['mean_ms']:.2f} ms mean, {stats['median_ms']:.2f} ms "
+          f"median at {stats['mean_active']:.2f} active slots of "
+          f"{QUEUE_SLOTS} (over {stats['steps']})")
+    parity = fixed_batch_parity(res, torch)
+    print(f"[chip_smoke] queue parity vs fixed batch: "
+          f"{parity['token_identical_requests']}/{len(sched.finished)} "
+          f"requests token-identical, logits max_abs_err="
+          f"{parity['logits_max_abs_err']:.3e} over "
+          f"{parity['steps_compared']} steps (tol {LOGITS_TOL:g})")
+    # the kernel at the trace's longest prefill, with the untuned block
+    # and walk every queue prefill took (ops' defaults under a mask)
+    longest = max(len(f.prompt) for f in sched.finished.values())
+    flash = time_flash(fa, torch, cfg.n_heads, longest,
+                       cfg.resolved_head_dim, 512, 512, "tri", None, seed=9)
+    out = {"trace": {"requests": QUEUE_REQUESTS,
+                     "prompt_len": [QUEUE_PROMPT // 4, QUEUE_PROMPT],
+                     "max_new": [QUEUE_GEN // 4, QUEUE_GEN],
+                     "prompt_lens": [len(f.prompt) for _, f in
+                                     sorted(sched.finished.items())],
+                     "seed": 1},
+           "slots": QUEUE_SLOTS, "page_size": QUEUE_PAGE,
+           "n_pages": res.n_pages, "cap": sched.cap,
+           "kv_bytes": sum(p.k.numel() * p.k.element_size() * 2
+                           for p in sched.pool),
+           "flash_launches": launches, "expected_flash_launches": want,
+           "tok_per_s": res.tok_per_s, "wall_s": res.wall_s,
+           "goodput": sched.goodput(), "steps": sched.steps,
+           "tokens": sched.generated_tokens,
+           "decode_step": stats, "parity": parity, "flash": flash}
+    del res, sched
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_closed_loop(torch) -> dict:
+    """Phase 10: profile (smoke, on the card) -> measured install ->
+    full-width queue with the drift-triggered re-install on the card."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import profile, serve
+
+    prof = WORK / "loop_profile.json"
+    serve.run(["--arch", ARCH, "--scale", "smoke", *LOOP_PROFILE_ARGS,
+               "--profile-out", str(prof), "--device", "cuda"])
+    art = WORK / "loop_artifact"
+    for d in (art, Path(f"{art}.prev"), Path(f"{art}.tmp")):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    profile.main(["--dryrun-dir", str(WORK / "no_dryrun"), "--profile",
+                  str(prof), "--out", str(WORK / "loop_merged.json"),
+                  "--install", "--backend", "measured", "--artifact",
+                  str(art), "--samples", str(LOOP_SAMPLES),
+                  "--timing-budget", str(LOOP_BUDGET)])
+    install_s = time.perf_counter() - t0
+    backend = json.loads((art / "config.json").read_text())["backend"]
+    print(f"[chip_smoke] loop: measured install ({LOOP_SAMPLES} samples, "
+          f"budget {LOOP_BUDGET} cells) in {install_s:.1f}s, backend "
+          f"{json.dumps(backend)}")
+    if backend.get("kind") != "measured-cuda":
+        raise SystemExit("[chip_smoke] FAIL: the install did not time on "
+                         "MeasuredCUDABackend")
+    torch.cuda.empty_cache()
+
+    args = serve.parse_args(queue_argv(
+        "--artifact", str(art), "--reinstall", "--reinstall-cooldown", "0",
+        "--reinstall-threshold", str(REINSTALL_THRESHOLD),
+        "--reinstall-budget", str(REINSTALL_BUDGET)))
+    res = serve.serve_config(get_config(ARCH), args)
+    mgr, sched = res.manager, res.sched
+    swapped = json.loads((art / "config.json").read_text())["backend"]
+    drift = res.fire_drifts[0] if res.fire_drifts else mgr.last_drift
+    print(f"[chip_smoke] loop: drift at the fire {drift}, threshold "
+          f"{REINSTALL_THRESHOLD}; fires={mgr.fires} swaps={mgr.swaps} "
+          f"last_error={mgr.last_error!r}; re-install seconds "
+          f"{res.reinstall_s}; swapped-in backend {json.dumps(swapped)}")
+    if not res.fire_drifts or res.fire_drifts[0] <= REINSTALL_THRESHOLD:
+        raise SystemExit(f"[chip_smoke] FAIL: drift {drift} did not cross "
+                         f"{REINSTALL_THRESHOLD}")
+    if mgr.fires < 1 or mgr.swaps < 1 or mgr.last_error is not None:
+        raise SystemExit("[chip_smoke] FAIL: the re-install did not fire "
+                         "and swap cleanly")
+    if swapped.get("kind") != "measured-cuda" or             mgr.tuner.backend_info.get("kind") != "measured-cuda" or             type(mgr.backend).__name__ != "MeasuredCUDABackend":
+        raise SystemExit("[chip_smoke] FAIL: the re-install did not run on "
+                         "MeasuredCUDABackend")
+    sched.alloc.check()
+    if sched.alloc.live_pages != 0:
+        raise SystemExit("[chip_smoke] FAIL: live pages after the loop")
+    print("[chip_smoke] loop: decode steps ms (install in flight): "
+          + " ".join(f"{1e3 * sec:.1f}({'i' if inst else '-'})"
+                     for sec, _, inst in res.steps))
+    during = step_stats([r for r in res.steps if r[2]])
+    goodput = sched.goodput()
+    # after the swap: the same trace once more through the swapped tuner
+    n0 = len(sched.decode_log)
+    for f in sorted(sched.finished.values(), key=lambda f: f.rid):
+        sched.submit(f.prompt, len(f.tokens))
+    sched.run_until_drained()
+    after = step_stats(sched.decode_log[n0:])
+    sched.alloc.check()
+    fmt = lambda st: ("n/a" if st["mean_ms"] is None else
+                      f"{st['mean_ms']:.2f} ms mean, {st['median_ms']:.2f} "
+                      f"ms median at {st['mean_active']:.2f} active slots "
+                      f"over {st['steps']} steps")
+    print(f"[chip_smoke] loop: decode step while the install ran "
+          f"{fmt(during)}; after the swap {fmt(after)}; "
+          f"{res.tok_per_s:.1f} tok/s, goodput {goodput:.3f} (first trace)")
+    out = {"profile": {"config": "smoke", "args": LOOP_PROFILE_ARGS},
+           "install": {"samples": LOOP_SAMPLES, "timing_budget": LOOP_BUDGET,
+                       "seconds": install_s, "backend": backend},
+           "reinstall": {"threshold": REINSTALL_THRESHOLD,
+                         "timing_budget": REINSTALL_BUDGET,
+                         "fire_drifts": res.fire_drifts,
+                         "fires": mgr.fires, "swaps": mgr.swaps,
+                         "last_error": None, "seconds": res.reinstall_s,
+                         "backend": swapped},
+           "tok_per_s": res.tok_per_s, "goodput": goodput,
+           "steps": len(res.steps),
+           "decode_step_during_install": during,
+           "decode_step_after_swap": after}
+    del res, sched, mgr
+    torch.cuda.empty_cache()
+    return out
+
+
+START = time.perf_counter()
+
+
 def main() -> int:
     try:
         import torch
@@ -1155,11 +1423,29 @@ def main() -> int:
     # -- 8. mixtral ------------------------------------------------------------------
     mixtral, grouped_entry = phase_mixtral(art, mm, fa, gm, torch)
 
-    # -- 9. report ---------------------------------------------------------------
+    # -- 9. queue ---------------------------------------------------------------
+    serving = {"arch": ARCH, "dtype": "float32", "card": card_line()}
+    t0 = time.perf_counter()
+    serving["queue"] = phase_queue(mm, fa, gm, torch)
+    serving["queue"]["phase_s"] = time.perf_counter() - t0
+
+    # -- 10. closed loop -----------------------------------------------------------
+    t0 = time.perf_counter()
+    serving["closed_loop"] = phase_closed_loop(torch)
+    serving["closed_loop"]["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] phases 9 and 10 took "
+          f"{serving['queue']['phase_s']:.1f}s and "
+          f"{serving['closed_loop']['phase_s']:.1f}s; the script "
+          f"{time.perf_counter() - START:.1f}s so far")
+
+    # -- 11. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs),
                flash_entry("flash_attention@mixtral_prefill",
-                           mixtral["flash"], mixtral["flash_launches"])]
+                           mixtral["flash"], mixtral["flash_launches"]),
+               flash_entry("flash_attention@queue_prefill",
+                           serving["queue"]["flash"],
+                           serving["queue"]["flash_launches"])]
     # one entry per measured shape: the tiled GEMM at 2048^3 (the main
     # entry) and the largest cube, the grouped kernel at mixtral's decode
     # bucket (the main entry: 180 of its 192 launches) and prefill bucket
@@ -1191,6 +1477,7 @@ def main() -> int:
                    if k in ("cta", "k_step", "group", "ms_by_tile")}})
     print(json.dumps({"adsala": adsala}))
     print(json.dumps({"mixtral": mixtral}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -349,10 +349,32 @@ class MeasuredCPUBackend:
 
 
 # port-only begin: the device counterpart of MeasuredCPUBackend
-__all__.append("MeasuredCUDABackend")
+__all__ += ["MeasuredCUDABackend", "attn_timing_heads"]
 
 #: bytes written before every timed run to evict the H100's 50 MB L2
 L2_FLUSH_BYTES = 64 * 2**20
+
+
+def attn_timing_heads(head_dim: int) -> tuple[int, int]:
+    """(batch-heads, kernel head dim) an ``attn`` row of head dim
+    ``head_dim`` is timed at on the card.
+
+    The installer samples an attn row's head dim (k) freely; the flash
+    kernel takes the dims of ``SUPPORTED_HEAD_DIMS``.  A row at a dim
+    the kernel lacks is timed at the smallest kernel dim above it
+    (zero-padding a head dim leaves attention's result unchanged, and
+    is what a call at that dim would cost); above the largest, it is
+    timed as ceil(k / largest) heads of the largest dim, the same
+    products over the same (Sq, Skv) pairs.  Every attn row is timed
+    on the kernel; none is refused or sent to a plain version."""
+    from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
+
+    k = max(int(head_dim), 1)
+    for d in sorted(SUPPORTED_HEAD_DIMS):
+        if k <= d:
+            return 1, d
+    top = max(SUPPORTED_HEAD_DIMS)
+    return -(-k // top), top
 
 
 @dataclasses.dataclass
@@ -373,9 +395,18 @@ class MeasuredCUDABackend:
     ``torch.Generator`` seeded with ``seed`` and regrown only when a
     sample needs more, so memory holds one sample's operands however
     many shapes are timed.  TRSM solves against a well-conditioned
-    lower-triangular operand (|diag| + m).  ``attn`` times causal
-    single-head flash attention on (Sq=m, Dh=k, Skv=n); Dh must be one
-    of the kernel's head dims.  Dims are clamped at ``max_dim``.
+    lower-triangular operand (|diag| + m).  ``attn`` times causal flash
+    attention on (Sq=m, Dh=k, Skv=n) on the kernel, at the head dims
+    :func:`attn_timing_heads` gives: the installer samples Dh freely,
+    the kernel takes a few.  Dims are clamped at ``max_dim``.
+
+    Every timing call runs on the backend's own CUDA stream, after that
+    stream waited for the work already queued on the caller's current
+    stream, and waits for its own last event only: a server queueing
+    work on the card meanwhile (a background re-install beside serving)
+    neither enters the reading nor is waited for, and no autograd state
+    is built (the calls run under ``torch.inference_mode``, which is
+    per thread).
 
     Building the object needs no card; the first timing call raises
     ``RuntimeError`` without one.  There is no CPU fallback.
@@ -397,6 +428,7 @@ class MeasuredCUDABackend:
         self._pool = None
         self._flush = None
         self._tri = None              # (m, lower-triangular operand)
+        self._stream = None           # the backend's own CUDA stream
 
     @staticmethod
     def _torch():
@@ -428,7 +460,6 @@ class MeasuredCUDABackend:
              routine: str):
         """A closure that runs the routine once on pooled operands."""
         from repro_torch.kernels import ops
-        from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS
 
         tile = cfg.tile
         if routine == "gemm":
@@ -447,11 +478,9 @@ class MeasuredCUDABackend:
             ell = self._tri[1]
             return lambda: ops.trsm(ell, b, tile=tile, backend="cuda")
         if routine == "attn":
-            if k not in SUPPORTED_HEAD_DIMS:
-                raise ValueError(f"attn head dim {k} not in the kernel's "
-                                 f"{SUPPORTED_HEAD_DIMS}")
-            q, kk, v = (t[None] for t in self._views((m, k), (n, k),
-                                                      (n, k)))
+            bh, d = attn_timing_heads(k)
+            q, kk, v = (t.view(bh, -1, d) for t in self._views(
+                (bh * m, d), (bh * n, d), (bh * n, d)))
             bq, bkv = cfg.flash_block
             return lambda: ops.flash_attention(
                 q, kk, v, causal=True, bq=bq, bkv=bkv,
@@ -464,21 +493,27 @@ class MeasuredCUDABackend:
         ``warmup`` untimed ones, the L2 flushed before each timed one."""
         torch = self._torch()
         m, k, n = (min(int(d), self.max_dim) for d in (m, k, n))
-        run = self._run(m, k, n, cfg, routine)
-        for _ in range(self.warmup):
-            run()
-        if self._flush is None:
-            self._flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream())
         events = []
-        for _ in range(self.repeats):
-            self._flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            run()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
+        with torch.inference_mode(), torch.cuda.stream(stream):
+            run = self._run(m, k, n, cfg, routine)
+            for _ in range(self.warmup):
+                run()
+            if self._flush is None:
+                self._flush = torch.empty(L2_FLUSH_BYTES // 4,
+                                          device="cuda")
+            for _ in range(self.repeats):
+                self._flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                run()
+                end.record(stream)
+                events.append((start, end))
+        events[-1][1].synchronize()     # in stream order: all are done
         return float(np.median([s.elapsed_time(e) for s, e in events])) \
             * 1e-3
 

@@ -1,6 +1,6 @@
 """Shared layer library, dense subset: norms, MLPs, RoPE, GQA attention
 (train/prefill through the flash kernel, one-token decode over a full
-or ring KV cache).
+or ring KV cache, or over a paged KV pool for continuous batching).
 
 Plain functions on tensors; parameters arrive as dicts built from the
 ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
@@ -24,7 +24,7 @@ __all__ = [
     "linear", "mlp_defs", "apply_mlp",
     "rope_angles", "apply_rope",
     "attention_defs", "attention_train", "attention_decode",
-    "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
+    "attention_decode_paged", "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
 ]
 
 _NEG_INF = -1e30
@@ -123,7 +123,9 @@ def rope_angles(positions: torch.Tensor, dim: int,
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
                fraction: float = 1.0) -> torch.Tensor:
     """Rotate the first ``fraction`` of the head dim; x: (B, S, H, Dh),
-    sin/cos: (S, rot/2)."""
+    sin/cos: (S, rot/2) — or (B, S, rot/2) when every sequence in the
+    batch sits at its own position (the continuous-batching paged
+    decode path, where positions are (B, S))."""
     dh = x.shape[-1]
     rot = int(dh * fraction)
     rot -= rot % 2
@@ -131,8 +133,12 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
         return x
     xr, xp = x[..., :rot], x[..., rot:]
     x1, x2 = xr[..., : rot // 2].float(), xr[..., rot // 2:].float()
-    sin_ = sin[None, :, None, : rot // 2].float()
-    cos_ = cos[None, :, None, : rot // 2].float()
+    if sin.dim() == 3:    # per-sequence positions: (B, S, rot/2)
+        sin_ = sin[:, :, None, : rot // 2].float()
+        cos_ = cos[:, :, None, : rot // 2].float()
+    else:
+        sin_ = sin[None, :, None, : rot // 2].float()
+        cos_ = cos[None, :, None, : rot // 2].float()
     out = torch.cat([x1 * cos_ - x2 * sin_, x2 * cos_ + x1 * sin_], dim=-1)
     return torch.cat([out.to(x.dtype), xp], dim=-1)
 
@@ -318,3 +324,59 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
                 site="attn.out_proj")
     return linear(out, p["wo"]), cache
+
+
+def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
+                           page_table: torch.Tensor, pos: torch.Tensor,
+                           tuner=None, plan=None):
+    """One-token decode against a paged KV pool (continuous batching).
+
+    x (B, 1, D); ``pos`` is (B,) int — every sequence in the batch sits
+    at its own position (ragged admission), with -1 marking an inactive
+    batch slot; ``page_table`` (B, P) int maps each sequence's logical
+    pages to physical pages of ``pool``
+    (:class:`repro_torch.serve.kv_cache.PagedKV`), -1 marking holes.
+
+    The compute is element-for-element the fixed-batch
+    :func:`attention_decode`: the page gather materialises the same
+    (B, cap, Hkv, Dh) view the contiguous cache holds (holes land beyond
+    the ``kv_ids <= pos`` valid prefix, where the mask erases them).
+    The cache update keeps its TRSM-site recorder tag.  As in
+    :func:`attention_decode`, the new rows are written into the pool in
+    place and the same pool is returned; an inactive slot writes
+    nothing.  ``plan`` is the step's
+    :func:`~repro_torch.serve.kv_cache.plan_pages` for this table and
+    these positions, computed once for all layers (else here).
+    """
+    from repro_torch.serve.kv_cache import (append_token, gather_pages,
+                                            plan_pages)
+
+    if s.window is not None:
+        raise NotImplementedError(
+            "paged decode does not support sliding-window (ring) caches")
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, s, pos[:, None], tuner)
+    cap = page_table.shape[1] * pool.page_size
+    ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
+                routine="trsm", site="attn.cache_update")
+    active = pos >= 0
+    if plan is None:
+        plan = plan_pages(page_table, pos, active, pool.k.shape[0],
+                          pool.page_size)
+    append_token(pool.k, page_table, pos, k_new[:, 0], active, plan)
+    append_token(pool.v, page_table, pos, v_new[:, 0], active, plan)
+    k = gather_pages(pool.k, page_table, plan)     # (B, cap, Hkv, Dh)
+    v = gather_pages(pool.v, page_table, plan)
+    kk = _repeat_kv(k, s.n_heads)
+    vv = _repeat_kv(v, s.n_heads)
+    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
+                          kk.float()) * (s.head_dim ** -0.5)
+    valid = (torch.arange(cap, device=x.device)[None, :]
+             <= pos[:, None])
+    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
+    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
+    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
+                site="attn.out_proj")
+    return linear(out, p["wo"]), pool

@@ -9,7 +9,9 @@ layers are a plain Python loop over per-layer parameter dicts
 scan parameters into that list.
 
 The same layer-apply code serves prefill (returns caches) and decode
-(consumes caches), as in the reference.  MoE layers take the
+(consumes caches), as in the reference; with a page table, decode reads
+and writes per-layer page pools instead (continuous batching,
+:mod:`repro_torch.serve.scheduler`).  MoE layers take the
 reference's single-device path (its ``_moe_apply`` without a mesh);
 MLA, recurrent and xLSTM layers are not ported yet.
 """
@@ -108,6 +110,9 @@ class Ctx:
                                    # routine-aware call site (None = the
                                    # sites still report dispatch events,
                                    # just untuned)
+    kv_quantized: bool = False     # int8 KV cache: not ported, so
+                                   # make_ctx never sets it; the cache
+                                   # builders refuse it
 
 
 def _cache_shape(cfg: ArchConfig, spec: LayerSpec, ctx: Ctx
@@ -126,6 +131,30 @@ def _seed_cache(raw: Any, cfg: ArchConfig, spec: LayerSpec,
     _, cap, windowed = _cache_shape(cfg, spec, ctx)
     k, v = raw
     return L.seed_kv_cache(k, v, cap, windowed=windowed)
+
+
+def _init_layer_paged(cfg: ArchConfig, spec: LayerSpec, n_pages: int,
+                      page_size: int, ctx: Ctx, dtype: torch.dtype,
+                      device: torch.device | str) -> Any:
+    """Paged twin of the contiguous cache: one page pool per attention
+    layer.  Sliding-window (ring) and recurrent-state layers have no
+    paged representation (the window bounds their memory already;
+    recurrent states carry no sequence dim) — continuous batching
+    supports the attention-cache families."""
+    from repro_torch.serve import kv_cache as KV
+
+    if spec.kind not in ("attn", "local"):
+        raise NotImplementedError(
+            f"paged decode cache for layer kind {spec.kind!r} "
+            "(recurrent states are not paged)")
+    if ctx.kv_quantized:
+        raise NotImplementedError("paged decode with int8 KV cache")
+    a = _attn_spec(cfg, spec.kind)
+    if a.window is not None:
+        raise NotImplementedError(
+            "paged decode cache for sliding-window (ring) layers")
+    return KV.init_paged_kv(n_pages, page_size, a.n_kv_heads,
+                            a.head_dim, dtype, device=device)
 
 
 def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -157,13 +186,23 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return x, aux, cache
 
 
-def _apply_layer_decode(p: dict, x: torch.Tensor, cache: L.KVCache,
-                        pos: int, cfg: ArchConfig, spec: LayerSpec,
-                        ctx: Ctx) -> tuple[torch.Tensor, L.KVCache]:
+def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
+                        pos: Any, cfg: ArchConfig, spec: LayerSpec,
+                        ctx: Ctx, page_table: torch.Tensor | None = None,
+                        plan: Any = None) -> tuple[torch.Tensor, Any]:
+    """``page_table`` switches the attention mixer onto the paged read
+    path (the cache is a PagedKV pool, ``pos`` is (B,) per-sequence
+    positions, ``plan`` the step's page plan) — the continuous-batching
+    decode."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    mix, cache = L.attention_decode(p["mixer"], h,
-                                    _attn_spec(cfg, spec.kind), cache, pos,
-                                    tuner=ctx.tuner)
+    if page_table is not None:
+        mix, cache = L.attention_decode_paged(
+            p["mixer"], h, _attn_spec(cfg, spec.kind), cache, page_table,
+            pos, tuner=ctx.tuner, plan=plan)
+    else:
+        mix, cache = L.attention_decode(p["mixer"], h,
+                                        _attn_spec(cfg, spec.kind), cache,
+                                        pos, tuner=ctx.tuner)
     x, _ = _apply_ffn(p, x + mix, cfg, spec, ctx)
     return x, cache
 
@@ -235,6 +274,17 @@ class LM:
                 device=device, windowed=windowed))
         return caches
 
+    def init_paged_cache(self, n_pages: int, page_size: int, ctx: Ctx,
+                         dtype: torch.dtype = torch.float32,
+                         device: torch.device | str = "cpu") -> list:
+        """One :class:`~repro_torch.serve.kv_cache.PagedKV` pool per
+        layer, in model order — page pools instead of per-batch
+        contiguous caches.  All layers share one page table (they see
+        the same token positions), so the scheduler allocates once and
+        every layer's pool is indexed by the same physical page ids."""
+        return [_init_layer_paged(self.cfg, s, n_pages, page_size, ctx,
+                                  dtype, device) for s in self.plan]
+
     def prefill(self, params: dict, tokens: torch.Tensor, ctx: Ctx
                 ) -> tuple[torch.Tensor, list[L.KVCache]]:
         """Run the full prompt; return (last-token logits, decode caches)."""
@@ -242,15 +292,28 @@ class LM:
         return self.logits_last(params, x), caches
 
     def decode_step(self, params: dict, token: torch.Tensor,
-                    cache: list[L.KVCache], pos: int, ctx: Ctx
-                    ) -> tuple[torch.Tensor, list[L.KVCache]]:
+                    cache: list, pos: Any, ctx: Ctx,
+                    page_table: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, list]:
         """token (B, 1) int64 -> (logits (B, V), cache).  The caches are
-        updated in place (see :func:`layers.attention_decode`)."""
+        updated in place (see :func:`layers.attention_decode`).
+
+        With ``page_table`` (B, P) the cache list holds page pools and
+        ``pos`` is (B,) per-sequence positions (-1 = inactive slot) —
+        the continuous-batching paged decode (repro_torch.serve.scheduler).
+        """
         cfg = self.cfg
         x = params["embed"][token]
+        plan = None
+        if page_table is not None:
+            # one page plan serves every layer's pools this step
+            from repro_torch.serve.kv_cache import plan_pages
+            plan = plan_pages(page_table, pos, pos >= 0,
+                              cache[0].k.shape[0], cache[0].page_size)
         new = []
         for p, s, c in zip(params["layers"], self.plan, cache):
-            x, c2 = _apply_layer_decode(p, x, c, pos, cfg, s, ctx)
+            x, c2 = _apply_layer_decode(p, x, c, pos, cfg, s, ctx,
+                                        page_table, plan)
             new.append(c2)
         x = L.apply_norm(params["ln_f"], x, cfg.norm_kind)
         return self.logits_last(params, x), new

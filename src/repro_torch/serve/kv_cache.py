@@ -1,0 +1,301 @@
+"""Paged KV cache: host-side page allocator + device-side page pools.
+
+The fixed-batch serving cache allocates ``B x cache_len`` token slots up
+front, so cache memory caps the batch at
+``B_max = mem / (cache_len * bytes_per_token)`` even when most requests
+are far shorter than ``cache_len``.  Paging (vLLM, arXiv 2309.06180)
+breaks the cache into fixed-size **pages** of ``page_size`` token slots
+handed out from a free list; each sequence holds exactly the pages its
+actual length needs, and a **page table** maps its logical token
+positions to physical pages.  The ceiling becomes total *tokens in
+flight*, not batch size — the property the continuous-batching
+scheduler (:mod:`repro_torch.serve.scheduler`) is built on.
+
+Split of responsibilities, as in :mod:`repro.serve.kv_cache`:
+
+* :class:`PageAllocator` — pure-Python free-list bookkeeping (admit /
+  grow / retire), carried over unchanged.
+* :class:`PagedKV` / :class:`PagedLatent` — one attention layer's page
+  pool: ``(n_pages, page_size, ...)`` tensors, the paged analogue of
+  :class:`~repro_torch.models.layers.KVCache`.  ``PagedLatent`` is the
+  MLA pool's type only; MLA is not ported yet.
+* :func:`gather_pages` / :func:`append_token` / :func:`seed_pages` —
+  the fixed-shape device primitives the paged decode read path
+  (``attention_decode_paged``) is built from, as tensor gathers and
+  scatters with no loop over slots.  Holes in the page table are
+  clamped on gather (the garbage rows land beyond every sequence's
+  valid prefix, where the attention mask kills them); inactive slots
+  and holes write nothing on scatter, never corrupting a live page.
+
+Unlike the reference's functional updates, :func:`append_token` and
+:func:`seed_pages` write the pool in place and return it, as the port's
+``attention_decode`` writes its cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = [
+    "HOLE", "PageAllocator", "PagedKV", "PagedLatent", "init_paged_kv",
+    "PagePlan", "plan_pages", "gather_pages", "append_token",
+    "seed_pages", "pages_for",
+]
+
+#: page-table entry marking an unallocated slot
+HOLE = -1
+
+
+def pages_for(n_tokens: int, page_size: int) -> int:
+    """Pages needed to hold ``n_tokens`` token slots (ceil division)."""
+    if n_tokens < 0:
+        raise ValueError(f"n_tokens={n_tokens} < 0")
+    return -(-n_tokens // page_size)
+
+
+# ---------------------------------------------------------------------------
+# Host-side allocator
+# ---------------------------------------------------------------------------
+
+class PageAllocator:
+    """Free-list page allocator with per-sequence page accounting.
+
+    All-or-nothing: :meth:`admit` and :meth:`grow` either return the
+    full list of newly allocated page ids or ``None`` with the
+    allocator state untouched — a caller that cannot get its pages
+    defers (re-queues the request), it never observes a half-allocated
+    sequence.  :meth:`retire` frees exactly the sequence's pages.
+
+    The invariants the property suite pins:
+
+    * a page is never handed out twice while live;
+    * ``free_pages + live_pages == n_pages`` after every operation;
+    * retiring a sequence frees exactly the page count it held;
+    * exhaustion returns ``None`` and changes nothing.
+    """
+
+    def __init__(self, n_pages: int, page_size: int) -> None:
+        if n_pages <= 0:
+            raise ValueError(f"n_pages={n_pages} <= 0")
+        if page_size <= 0:
+            raise ValueError(f"page_size={page_size} <= 0")
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        # LIFO free stack: recently retired pages are re-used first,
+        # keeping the hot pool compact
+        self._free: list[int] = list(range(n_pages - 1, -1, -1))
+        self._live: dict[int, list[int]] = {}
+
+    # -- views ----------------------------------------------------------
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_pages(self) -> int:
+        return sum(len(p) for p in self._live.values())
+
+    @property
+    def live_seqs(self) -> tuple[int, ...]:
+        return tuple(self._live)
+
+    def pages_of(self, seq_id: int) -> list[int]:
+        """The sequence's pages in logical order (copy)."""
+        return list(self._live[seq_id])
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return pages_for(n_tokens, self.page_size) <= len(self._free)
+
+    # -- mutations ------------------------------------------------------
+    def admit(self, seq_id: int, n_tokens: int) -> list[int] | None:
+        """Allocate pages for a new sequence of ``n_tokens`` slots.
+
+        Returns the page ids (logical order) or ``None`` when the pool
+        cannot cover the request — admission deferred, nothing changed.
+        """
+        if seq_id in self._live:
+            raise ValueError(f"seq {seq_id} already live")
+        need = pages_for(n_tokens, self.page_size)
+        if need == 0:
+            raise ValueError(f"admit of empty sequence {seq_id}")
+        if need > len(self._free):
+            return None
+        pages = [self._free.pop() for _ in range(need)]
+        self._live[seq_id] = pages
+        return pages
+
+    def grow(self, seq_id: int, n_tokens_total: int) -> list[int] | None:
+        """Extend a live sequence to ``n_tokens_total`` slots.
+
+        Returns the *newly* allocated page ids ([] when already
+        covered) or ``None`` when the pool is exhausted — the sequence
+        keeps its current pages, nothing is partially allocated.
+        """
+        held = self._live[seq_id]
+        need = pages_for(n_tokens_total, self.page_size) - len(held)
+        if need <= 0:
+            return []
+        if need > len(self._free):
+            return None
+        fresh = [self._free.pop() for _ in range(need)]
+        held.extend(fresh)
+        return fresh
+
+    def retire(self, seq_id: int) -> int:
+        """Free a live sequence's pages; returns how many were freed."""
+        pages = self._live.pop(seq_id)
+        self._free.extend(pages)
+        return len(pages)
+
+    def check(self) -> None:
+        """Raise AssertionError when any allocator invariant is broken."""
+        live = [p for pages in self._live.values() for p in pages]
+        assert len(set(live)) == len(live), "double-allocated live page"
+        assert not set(live) & set(self._free), "live page on free list"
+        assert len(live) + len(self._free) == self.n_pages, \
+            "page conservation violated"
+        assert all(0 <= p < self.n_pages for p in live + self._free)
+
+
+# ---------------------------------------------------------------------------
+# Device-side pools
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PagedKV:
+    """One attention layer's page pool — the paged
+    :class:`~repro_torch.models.layers.KVCache`.  ``k``/``v``:
+    ``(n_pages, page_size, n_kv_heads, head_dim)``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-3]
+
+
+@dataclasses.dataclass
+class PagedLatent:
+    """One MLA layer's page pool.  ``c_kv``:
+    ``(n_pages, page_size, kv_lora_rank)``, ``k_rope``:
+    ``(n_pages, page_size, qk_rope_dim)``.  The type only: paged MLA
+    waits for the MLA port."""
+
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.c_kv.shape[-2]
+
+
+def init_paged_kv(n_pages: int, page_size: int, n_kv_heads: int,
+                  head_dim: int, dtype: torch.dtype, *,
+                  device: torch.device | str = "cpu") -> PagedKV:
+    shape = (n_pages, page_size, n_kv_heads, head_dim)
+    return PagedKV(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# Fixed-shape device primitives
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagePlan:
+    """The index arithmetic of one decode step: every layer's K and V
+    pools see the same page table and positions, so the paged decode
+    computes it once a step (:func:`plan_pages`) instead of once a
+    pool."""
+
+    #: (B*T,) page ids to gather, holes clamped to page 0
+    ids: torch.Tensor
+    #: (B,) flat pool row each sequence's new token lands in
+    dest: torch.Tensor
+    #: (B,) row of ``new`` each write takes
+    src: torch.Tensor
+    #: () bool: some slot writes at all
+    write: torch.Tensor
+
+
+def plan_pages(table: torch.Tensor, pos: torch.Tensor,
+               active: torch.Tensor, n_pages: int,
+               page: int) -> PagePlan:
+    """Plan one step's gathers and writes for a ``(B, T)`` page table
+    and ``(B,)`` positions over pools of ``n_pages`` pages of ``page``
+    token slots.
+
+    Inactive slots and holes write nothing.  The reference drops them
+    with an out-of-bounds scatter; here a dropped row is aimed at the
+    first writing row's slot with that row's value (duplicate indices
+    carrying equal values give the same result in any order), and when
+    no row writes, every row rewrites its clamped slot with what it
+    already holds — no host sync, and never a write to a page a live
+    sequence owns.  Live sequences own disjoint pages, so the writing
+    rows' slots never collide."""
+    cap = table.shape[1] * page
+    idx = pos.clamp(0, cap - 1).long()
+    page_ix = table.gather(1, (idx // page)[:, None])[:, 0].long()
+    ok = active & (page_ix >= 0)
+    dest = page_ix.clamp(0, n_pages - 1) * page + idx % page
+    first = torch.argmax(ok.to(torch.int8))          # 0 when none is ok
+    rows = torch.arange(table.shape[0], device=table.device)
+    return PagePlan(
+        ids=table.clamp(0, n_pages - 1).reshape(-1).long(),
+        dest=torch.where(ok, dest, dest[first]),
+        src=torch.where(ok, rows, first),
+        write=ok.any())
+
+
+def gather_pages(pages: torch.Tensor, table: torch.Tensor,
+                 plan: PagePlan | None = None) -> torch.Tensor:
+    """Page-table gather: ``(P, page, ...)`` pool + ``(B, T)`` table ->
+    a contiguous per-sequence ``(B, T*page, ...)`` view.
+
+    Holes (:data:`HOLE`) clamp to page 0; whatever that page holds
+    lands at token slots at/after the sequence's allocated prefix,
+    where the downstream ``kv_ids <= pos`` attention mask zeroes it.
+    ``plan`` (for this table) saves recomputing the clamped ids."""
+    b, t = table.shape
+    page = pages.shape[1]
+    ids = plan.ids if plan is not None else \
+        table.clamp(0, pages.shape[0] - 1).reshape(-1)
+    gathered = pages.index_select(0, ids)
+    return gathered.reshape((b, t * page) + tuple(pages.shape[2:]))
+
+
+def append_token(pages: torch.Tensor, table: torch.Tensor,
+                 pos: torch.Tensor, new: torch.Tensor,
+                 active: torch.Tensor,
+                 plan: PagePlan | None = None) -> torch.Tensor:
+    """Write one token per sequence, in place: ``new[b]`` lands at
+    physical slot ``(table[b, pos[b] // page], pos[b] % page)``.
+    Inactive slots (and holes) write nothing (see :func:`plan_pages`,
+    whose plan for these arguments ``plan`` may pass in).  Returns
+    ``pages``."""
+    n_pages, page = pages.shape[:2]
+    if plan is None:
+        plan = plan_pages(table, pos, active, n_pages, page)
+    flat = pages.view((n_pages * page,) + tuple(pages.shape[2:]))
+    vals = torch.where(plan.write,
+                       new.index_select(0, plan.src).to(pages.dtype),
+                       flat[plan.dest])
+    flat.index_put_((plan.dest,), vals)
+    return pages
+
+
+def seed_pages(pages: torch.Tensor, page_ids: torch.Tensor,
+               values: torch.Tensor) -> torch.Tensor:
+    """Bulk-write a prompt's cache rows into freshly allocated pages, in
+    place.  ``values``: ``(n * page, ...)`` contiguous token rows (pad to
+    a page multiple first), scattered as ``n`` whole pages at
+    ``page_ids``.  Returns ``pages``."""
+    n = page_ids.shape[0]
+    page = pages.shape[1]
+    vals = values.reshape((n, page) + tuple(pages.shape[2:]))
+    pages.index_copy_(0, page_ids.to(pages.device).long(),
+                      vals.to(pages.dtype))
+    return pages

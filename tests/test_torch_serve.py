@@ -168,3 +168,195 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) > 30
+
+
+# ---------------------------------------------------------------------------
+# continuous batching, the closed re-install loop and the registry
+# ---------------------------------------------------------------------------
+
+def _drifting_artifact(path):
+    """A simulated install weighted by a gemm profile of shapes far from
+    the smoke model's: its serving mix drifts past any threshold."""
+    import numpy as np
+
+    from repro_torch.core import InstallConfig, SimulatedBackend, install
+    from repro_torch.core.workload import WorkloadProfile
+    from repro_torch.kernels.recorder import DispatchEvent, DispatchRecorder
+
+    rec = DispatchRecorder()
+    rng = np.random.default_rng(11)
+    for _ in range(64):
+        m, k, n = (int(x) for x in rng.integers(64, 512, 3))
+        rec.events.append(DispatchEvent("gemm", m, k, n, site="synthetic"))
+    install(SimulatedBackend(seed=0),
+            InstallConfig(n_samples=48, repeats=2, tile_ids=(0, 3),
+                          models=("linear_regression",),
+                          routines=("gemm", "attn"), grid_budget="small",
+                          cv_splits=3, seed=0,
+                          workload=WorkloadProfile.from_recorder(rec)),
+            artifact_dir=str(path))
+    return str(path)
+
+
+def test_serve_queue_cli_runs_on_cpu_without_jax(port_artifact):
+    code = _BLOCK + textwrap.dedent("""
+        import runpy
+        sys.argv = ["serve"] + sys.argv[1:]
+        runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+        """)
+    res = subprocess.run(
+        [sys.executable, "-c", code, "--device", "cpu", "--scale", "smoke",
+         "--queue", "--requests", "4", "--prompt-len", "8",
+         "--gen-tokens", "5", "--slots", "2", "--page-size", "4",
+         "--artifact", port_artifact],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "4 requests via continuous batching (2 slots, 16 pages x 4 " \
+        "tokens)" in res.stdout
+    assert "goodput" in res.stdout and "tuner stats:" in res.stdout
+
+
+def test_serve_queue_run_returns_the_scheduler(port_artifact):
+    from repro_torch.launch import serve
+
+    res = serve.run(["--device", "cpu", "--queue", "--requests", "5",
+                     "--prompt-len", "12", "--gen-tokens", "6",
+                     "--slots", "3", "--page-size", "4",
+                     "--artifact", port_artifact])
+    assert isinstance(res, serve.QueueResult)
+    assert len(res.sched.finished) == 5 and res.manager is None
+    res.sched.alloc.check()
+    assert res.sched.alloc.live_pages == 0
+    assert res.n_pages == 2 * 3 * 5         # 2 x slots x pages_for(18, 4)
+    assert len(res.steps) == res.sched.steps
+    assert not any(inst for _, _, inst in res.steps)
+    # one recorded prefill per distinct prompt length, one decode step
+    lengths = {len(f.prompt) for f in res.sched.finished.values()}
+    core = [e for e in res.recs["prefill"].events if e.site == "attn.core"]
+    assert len(core) == res.cfg.n_layers * len(lengths)
+    assert all(e.config is not None for e in core)
+
+
+def test_serve_queue_reinstall_fires_and_swaps(tmp_path, capsys):
+    from repro_torch.launch import serve
+
+    art = _drifting_artifact(tmp_path / "art")
+    res = serve.run(["--device", "cpu", "--queue", "--requests", "4",
+                     "--prompt-len", "8", "--gen-tokens", "5",
+                     "--slots", "2", "--page-size", "4", "--artifact", art,
+                     "--reinstall", "--reinstall-cooldown", "0",
+                     "--reinstall-budget", "200"])
+    out = capsys.readouterr().out
+    mgr = res.manager
+    assert mgr.fires == 1 and mgr.swaps == 1 and mgr.last_error is None
+    assert res.fire_drifts and res.fire_drifts[0] > 0.25
+    assert "crossed the threshold at decode step" in out
+    assert "re-install: fires=1 swaps=1" in out
+    # the re-install kept every routine and the simulated provenance
+    assert set(mgr.routines) == {"gemm", "syrk", "trsm", "attn"}
+    assert mgr.tuner.backend_info["kind"] == "simulated"
+    res.sched.alloc.check()
+    assert os.path.isdir(art + ".prev")
+
+
+def test_serve_fixed_batch_reinstall_fires(tmp_path, capsys):
+    from repro_torch.launch import serve
+
+    art = _drifting_artifact(tmp_path / "art")
+    res = serve.run(["--device", "cpu", "--requests", "2", "--prompt-len",
+                     "8", "--gen-tokens", "4", "--artifact", art,
+                     "--reinstall", "--reinstall-cooldown", "0",
+                     "--reinstall-budget", "200"])
+    out = capsys.readouterr().out
+    assert isinstance(res, serve.ServeResult)
+    assert "background re-install launched" in out
+    assert "re-install: fires=1 swaps=1" in out
+
+
+def test_serve_registry_adopts_the_nearest_cell(tmp_path, capsys):
+    from repro_torch.core import (ArtifactRegistry, HardwareFingerprint,
+                                  InstallConfig, SimulatedBackend)
+    from repro_torch.launch import serve
+
+    reg = ArtifactRegistry(str(tmp_path / "reg"))
+    donor = HardwareFingerprint(cpu_model="Some Other CPU", cores=3)
+    reg.install(donor, SimulatedBackend(seed=0),
+                InstallConfig(n_samples=48, repeats=2, tile_ids=(0, 3),
+                              models=("linear_regression",),
+                              routines=("gemm", "attn"),
+                              grid_budget="small", cv_splits=3, seed=0))
+    args = ["--device", "cpu", "--queue", "--requests", "2",
+            "--prompt-len", "8", "--gen-tokens", "3", "--slots", "2",
+            "--page-size", "4", "--registry", str(tmp_path / "reg")]
+    res = serve.run(args + ["--reinstall"])
+    out = capsys.readouterr().out
+    assert "seeded from nearest neighbour" in out
+    local = HardwareFingerprint.collect(probe_sizes=())
+    own = reg.resolve(local)
+    assert own is not None and res.manager.artifact_dir == own
+    assert res.manager.fires == 0          # a uniform install: no drift
+    # the adopted cell now serves itself
+    serve.run(args)
+    assert "registry: serving own cell" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        serve.run(args + ["--artifact", str(tmp_path)])
+
+
+def test_serve_reinstall_without_artifact_refuses():
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit, match="requires --artifact"):
+        serve.run(["--device", "cpu", "--queue", "--reinstall"])
+
+
+def test_queue_on_cuda_without_gpu_raises():
+    from repro_torch.launch import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run(["--device", "cuda", "--queue", "--requests", "1",
+                   "--prompt-len", "4", "--gen-tokens", "2"])
+
+
+def test_profile_cli_installs_from_a_serve_profile(tmp_path, capsys):
+    from repro_torch.launch import profile, serve
+
+    prof = tmp_path / "p.json"
+    serve.run(["--device", "cpu", "--requests", "2", "--prompt-len", "8",
+               "--gen-tokens", "3", "--profile-out", str(prof)])
+    art = tmp_path / "art"
+    profile.main(["--dryrun-dir", str(tmp_path / "none"), "--profile",
+                  str(prof), "--out", str(tmp_path / "m.json"),
+                  "--install", "--artifact", str(art), "--samples", "24",
+                  "--timing-budget", "150"])
+    out = capsys.readouterr().out
+    assert "simulated backend" in out
+    from repro_torch.core import AdsalaTuner
+    t = AdsalaTuner.from_artifact(str(art))
+    assert t.workload is not None and set(t.routines) == {
+        "gemm", "syrk", "trsm", "attn"}
+
+
+def test_profile_measured_backend_needs_a_card(tmp_path):
+    from repro_torch.launch import profile, serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    prof = tmp_path / "p.json"
+    serve.run(["--device", "cpu", "--requests", "1", "--prompt-len", "4",
+               "--gen-tokens", "2", "--profile-out", str(prof)])
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        profile.main(["--dryrun-dir", str(tmp_path / "none"), "--profile",
+                      str(prof), "--out", str(tmp_path / "m.json"),
+                      "--install", "--backend", "measured", "--artifact",
+                      str(tmp_path / "art"), "--samples", "8"])
+
+
+def test_scan_covers_the_serving_modules():
+    scanned = {os.path.relpath(p, PKG) for p in _py_files()}
+    for rel in ("serve/__init__.py", "serve/kv_cache.py",
+                "serve/scheduler.py", "serve/reinstall.py",
+                "ft/__init__.py", "ft/heartbeat.py", "launch/profile.py",
+                "launch/serve.py"):
+        assert rel in scanned, rel
