@@ -57,8 +57,10 @@ Phases (any failure exits non-zero):
    the allocator clean at the end, and every request must decode like
    the fixed-batch path at batch 1 (logits within ``LOGITS_TOL`` at
    every step; a token may differ only where the fixed-batch top-2
-   logit gap is below that tolerance); then the flash kernel at the
-   trace's longest prefill with the untuned block and tri walk the
+   logit gap is below that tolerance); a warm decode step of 4 slots
+   on the page pools against the fixed-batch contiguous caches of the
+   same span, in turns (shown, not checked); then the flash kernel at
+   the trace's longest prefill with the untuned block and tri walk the
    trace ran;
 10. closed loop: a serving profile recorded from the smoke config on
    the card, a measured install weighted by it (``launch.profile
@@ -1119,6 +1121,44 @@ def fixed_batch_parity(res, torch) -> dict:
             "token_identical_requests": len(sched.finished) - len(ties)}
 
 
+def paged_vs_fixed_step(res, torch) -> dict:
+    """A warm decode step of all QUEUE_SLOTS slots, every one at position
+    ``cap - 32``: on the scheduler's page pools (a shuffled page table, as
+    served) against the fixed-batch contiguous caches of the same ``cap``.
+    CUDA events over 10 steps a turn, in turns fixed, paged, paged, fixed;
+    a step includes the greedy token's copy to the host, as the
+    scheduler's does."""
+    from repro_torch.train.step import make_ctx
+
+    sched, model, params = res.sched, res.model, res.params
+    b, cap = QUEUE_SLOTS, sched.cap
+    per = cap // QUEUE_PAGE
+    ctx = make_ctx("decode", cache_len=cap)
+    table = torch.randperm(b * per, generator=torch.Generator().manual_seed(1)
+                           ).view(b, per).to(torch.int32).cuda()
+    pos = max(cap - 32, 0)
+    pos_t = torch.full((b,), pos, device="cuda")
+    tok = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    ms = {"fixed": [], "paged": []}
+    with torch.inference_mode():
+        caches = model.init_cache(b, ctx, device="cuda")
+
+        def fixed():
+            model.decode_step(params, tok, caches, pos, ctx)[0].argmax(
+                -1).cpu()
+
+        def paged():
+            model.decode_step(params, tok, sched.pool, pos_t, ctx,
+                              table)[0].argmax(-1).cpu()
+
+        for name in ("fixed", "paged", "paged", "fixed"):
+            ms[name].append(cuda_ms(fixed if name == "fixed" else paged,
+                                    iters=10, warmup=2))
+        del caches
+    return {"slots": b, "cap": cap, "pos": pos, "fixed_ms": ms["fixed"],
+            "paged_ms": ms["paged"]}
+
+
 def phase_queue(M, fa, G, torch) -> dict:
     """Phase 9: the full-width ragged trace through the port's queue
     path, untuned; launch counts, allocator, golden parity."""
@@ -1159,6 +1199,11 @@ def phase_queue(M, fa, G, torch) -> dict:
           f"requests token-identical, logits max_abs_err="
           f"{parity['logits_max_abs_err']:.3e} over "
           f"{parity['steps_compared']} steps (tol {LOGITS_TOL:g})")
+    step = paged_vs_fixed_step(res, torch)
+    print(f"[chip_smoke] queue: warm decode step at {step['slots']} slots, "
+          f"cap {step['cap']}: fixed-batch " + " / ".join(
+              f"{t:.2f}" for t in step["fixed_ms"]) + " ms, paged "
+          + " / ".join(f"{t:.2f}" for t in step["paged_ms"]) + " ms")
     # the kernel at the trace's longest prefill, with the untuned block
     # and walk every queue prefill took (ops' defaults under a mask)
     longest = max(len(f.prompt) for f in sched.finished.values())
@@ -1178,7 +1223,8 @@ def phase_queue(M, fa, G, torch) -> dict:
            "tok_per_s": res.tok_per_s, "wall_s": res.wall_s,
            "goodput": sched.goodput(), "steps": sched.steps,
            "tokens": sched.generated_tokens,
-           "decode_step": stats, "parity": parity, "flash": flash}
+           "decode_step": stats, "paged_vs_fixed_step": step,
+           "parity": parity, "flash": flash}
     del res, sched
     torch.cuda.empty_cache()
     return out

@@ -10,16 +10,17 @@ optionally runs a mix-weighted ADSALA install driven by it:
     PYTHONPATH=src python -m repro_torch.launch.serve --scale smoke \
         --profile-out results/serve_profile.json
     # 2. fold the recorded mixes into a profile and install against it,
-    #    timing the port's kernels on the card
+    #    timing the port's kernels on the card (--backend simulated
+    #    installs on the CPU against the analytic model instead)
     PYTHONPATH=src python -m repro_torch.launch.profile \
-        --profile results/serve_profile.json --install --backend measured \
+        --profile results/serve_profile.json --install \
         --artifact results/adsala_artifact_workload
 
 Cells are merged proportionally to their recorded flop volume — an arch
 that dispatches 10x the contraction flops pulls the install budget 10x
-harder toward its shapes.  The port's ``--backend measured`` is
-:class:`~repro_torch.core.timing.MeasuredCUDABackend`: the port's own
-GEMM and flash kernels timed on the card, as the reference's
+harder toward its shapes.  The port's ``--backend measured``, the
+default, is :class:`~repro_torch.core.timing.MeasuredCUDABackend`: the
+port's own GEMM and flash kernels timed on the card, as the reference's
 ``MeasuredCPUBackend`` timed blocked BLAS-3 on its host.
 """
 
@@ -107,12 +108,13 @@ def main(argv: list[str] | None = None) -> None:
                          "instead of --artifact: the cell is this "
                          "machine's hardware fingerprint and the "
                          "commit is atomic (tmp/COMMIT/.prev)")
-    ap.add_argument("--backend", default="simulated",
-                    choices=["simulated", "measured"],
-                    help="timing backend: 'measured' times the "
-                         "port's kernels on the card "
-                         "(MeasuredCUDABackend) instead of the v5e "
-                         "analytic model")
+    ap.add_argument("--backend", default="measured",
+                    choices=["measured", "simulated"],
+                    help="timing backend: 'measured' (the default) "
+                         "times the port's kernels on the card "
+                         "(MeasuredCUDABackend, which needs a CUDA "
+                         "device); 'simulated' is the v5e analytic "
+                         "model, run on the CPU")
     ap.add_argument("--transfer", default="none",
                     help="'none' (full local gather), 'nearest' (pick "
                          "the closest populated registry cell as "

@@ -205,7 +205,8 @@ def serve_config(cfg: ArchConfig, args: argparse.Namespace, *,
             # kind of backend that installed the artifact (its
             # "backend" provenance block) — a measured artifact
             # re-installs measured on the card, legacy ones fall back
-            # to the simulator.  Every routine keeps its coverage (the
+            # to the simulator, which the card refuses (below).  Every
+            # routine keeps its coverage (the
             # reference's launcher re-installs gemm only, which its
             # manager's default template warns against: a narrowing
             # swap strands the routines it drops)
@@ -222,6 +223,7 @@ def serve_config(cfg: ArchConfig, args: argparse.Namespace, *,
                         models=("lightgbm",),
                         timing_budget=args.reinstall_budget)),
                 search_width=args.search_width)
+            _require_measured_reinstall(dev, manager)
             tuner = manager
             print(f"[serve] ADSALA tuner loaded from {args.artifact} "
                   f"({mode}); online re-install armed at drift > "
@@ -306,6 +308,23 @@ def serve_config(cfg: ArchConfig, args: argparse.Namespace, *,
     _report_tail(args, cfg, recs, tuner, manager)
     return ServeResult(cfg, model, params, prompts, tuner, recs,
                        prefill_logits, out, t_prefill, tps)
+
+
+def _require_measured_reinstall(dev: torch.device, manager) -> None:
+    """On the card the background re-install times the port's kernels:
+    refuse an artifact whose install backend does not rebuild as
+    :class:`~repro_torch.core.timing.MeasuredCUDABackend` (a simulated
+    or legacy artifact would re-install against the v5e model)."""
+    from repro_torch.core.timing import MeasuredCUDABackend
+
+    if dev.type == "cuda" and not isinstance(manager.backend,
+                                             MeasuredCUDABackend):
+        kind = (manager.tuner.backend_info or {}).get("kind")
+        raise SystemExit(
+            f"--reinstall on {dev}: the artifact {manager.artifact_dir} "
+            f"was installed by a {kind or 'legacy (unrecorded)'} backend, "
+            "so its re-install would not time this card; install it "
+            "with launch.profile --install --backend measured")
 
 
 def _resolve_registry(args: argparse.Namespace):

@@ -286,6 +286,26 @@ def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
     return cache
 
 
+def _decode_attend(p: dict, x: torch.Tensor, s: AttnSpec, q: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                   tuner) -> torch.Tensor:
+    """The one-token attention both decode paths share: q (B, 1, H, Dh)
+    over k, v (B, cap, Hkv, Dh) with ``valid`` (1 or B, cap) masking the
+    slots it may read, then the output projection."""
+    b = x.shape[0]
+    kk = _repeat_kv(k, s.n_heads)
+    vv = _repeat_kv(v, s.n_heads)
+    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
+                          kk.float()) * (s.head_dim ** -0.5)
+    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
+    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
+    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
+                site="attn.out_proj")
+    return linear(out, p["wo"])
+
+
 def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
                      pos: int, tuner=None) -> tuple[torch.Tensor, KVCache]:
     """One-token decode: x (B, 1, D); ``pos`` = tokens so far.
@@ -307,23 +327,14 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     cache.k[:, slot] = k_new[:, 0]
     cache.v[:, slot] = v_new[:, 0]
 
-    kk = _repeat_kv(cache.k, s.n_heads)
-    vv = _repeat_kv(cache.v, s.n_heads)
-    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
-                          kk.float()) * (s.head_dim ** -0.5)
     kv_ids = torch.arange(cap, device=x.device)
     if cache.windowed:
         # ring buffer: valid slots are the last min(pos+1, cap) writes
         valid = (slot - kv_ids) % cap < min(int(pos) + 1, cap)
     else:
         valid = kv_ids <= pos
-    scores = torch.where(valid[None, None, :], scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
-    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
-    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
-                site="attn.out_proj")
-    return linear(out, p["wo"]), cache
+    return _decode_attend(p, x, s, q, cache.k, cache.v, valid[None, :],
+                          tuner), cache
 
 
 def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
@@ -337,10 +348,11 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
     pages to physical pages of ``pool``
     (:class:`repro_torch.serve.kv_cache.PagedKV`), -1 marking holes.
 
-    The compute is element-for-element the fixed-batch
-    :func:`attention_decode`: the page gather materialises the same
-    (B, cap, Hkv, Dh) view the contiguous cache holds (holes land beyond
-    the ``kv_ids <= pos`` valid prefix, where the mask erases them).
+    The compute is the fixed-batch :func:`attention_decode`'s, through
+    the same :func:`_decode_attend`: the page gather materialises the
+    same (B, cap, Hkv, Dh) view the contiguous cache holds (holes land
+    beyond the ``kv_ids <= pos`` valid prefix, where the mask erases
+    them).
     The cache update keeps its TRSM-site recorder tag.  As in
     :func:`attention_decode`, the new rows are written into the pool in
     place and the same pool is returned; an inactive slot writes
@@ -367,16 +379,6 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
     append_token(pool.v, page_table, pos, v_new[:, 0], active, plan)
     k = gather_pages(pool.k, page_table, plan)     # (B, cap, Hkv, Dh)
     v = gather_pages(pool.v, page_table, plan)
-    kk = _repeat_kv(k, s.n_heads)
-    vv = _repeat_kv(v, s.n_heads)
-    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
-                          kk.float()) * (s.head_dim ** -0.5)
     valid = (torch.arange(cap, device=x.device)[None, :]
              <= pos[:, None])
-    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
-    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
-    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
-                site="attn.out_proj")
-    return linear(out, p["wo"]), pool
+    return _decode_attend(p, x, s, q, k, v, valid, tuner), pool

@@ -19,7 +19,7 @@ from repro_torch.serve.kv_cache import HOLE, PagedKV, gather_pages
 from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 from repro_torch.train.step import make_ctx
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda, pytest.mark.timeout(300)]
 
 
 @pytest.fixture

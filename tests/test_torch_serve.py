@@ -328,8 +328,8 @@ def test_profile_cli_installs_from_a_serve_profile(tmp_path, capsys):
     art = tmp_path / "art"
     profile.main(["--dryrun-dir", str(tmp_path / "none"), "--profile",
                   str(prof), "--out", str(tmp_path / "m.json"),
-                  "--install", "--artifact", str(art), "--samples", "24",
-                  "--timing-budget", "150"])
+                  "--install", "--backend", "simulated", "--artifact",
+                  str(art), "--samples", "24", "--timing-budget", "150"])
     out = capsys.readouterr().out
     assert "simulated backend" in out
     from repro_torch.core import AdsalaTuner
@@ -338,7 +338,11 @@ def test_profile_cli_installs_from_a_serve_profile(tmp_path, capsys):
         "gemm", "syrk", "trsm", "attn"}
 
 
-def test_profile_measured_backend_needs_a_card(tmp_path):
+@pytest.mark.parametrize("backend", [["--backend", "measured"], []],
+                         ids=["explicit", "default"])
+def test_profile_measured_backend_needs_a_card(tmp_path, backend):
+    """The install times the card unless --backend simulated is asked
+    for: without a card it raises, explicit or by default."""
     from repro_torch.launch import profile, serve
 
     if torch.cuda.is_available():
@@ -349,8 +353,31 @@ def test_profile_measured_backend_needs_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         profile.main(["--dryrun-dir", str(tmp_path / "none"), "--profile",
                       str(prof), "--out", str(tmp_path / "m.json"),
-                      "--install", "--backend", "measured", "--artifact",
+                      "--install", *backend, "--artifact",
                       str(tmp_path / "art"), "--samples", "8"])
+
+
+@pytest.mark.parametrize("device,measured,refused", [
+    ("cuda", False, True), ("cuda", True, False), ("cpu", False, False)])
+def test_reinstall_on_the_card_needs_a_measured_backend(tmp_path, device,
+                                                        measured, refused):
+    """A server on the card re-installs only on MeasuredCUDABackend: a
+    simulated artifact's manager would re-install against the v5e model,
+    so the launcher refuses it there (the check needs no card)."""
+    from repro_torch.core.timing import MeasuredCUDABackend
+    from repro_torch.kernels.recorder import DispatchRecorder
+    from repro_torch.launch import serve
+    from repro_torch.serve import ReinstallManager
+
+    art = _drifting_artifact(tmp_path / "art")
+    mgr = ReinstallManager(
+        art, {"decode": DispatchRecorder()},
+        backend=MeasuredCUDABackend() if measured else None)
+    if refused:
+        with pytest.raises(SystemExit, match="simulated backend"):
+            serve._require_measured_reinstall(torch.device(device), mgr)
+    else:
+        serve._require_measured_reinstall(torch.device(device), mgr)
 
 
 def test_scan_covers_the_serving_modules():

@@ -22,7 +22,7 @@ from repro_torch.core import GemmConfig, MeasuredCUDABackend
 from repro_torch.core.timing import attn_timing_heads
 from repro_torch.kernels import flash_attention as F
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda, pytest.mark.timeout(300)]
 
 CFG = GemmConfig(1, "M", 3)
 
