@@ -70,8 +70,22 @@ Phases (any failure exits non-zero):
    background re-install must run on the card's backend, fire, swap
    and end without error, and the allocator must be clean; decode
    steps are timed while the install runs and after it;
-11. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
-   line, one ``{"serving": {...}}`` line, one ``{"kernels": [...]}``
+11. train: stablelm-1.6b trained on the card on the ``library``
+   backend (no kernel has a backward; no kernel counter may move):
+   (a) full width cut to 2 layers, one ``build_train_step`` step on
+   the card and the same step on the CPU from the same seeded weights
+   and batch (1 x 512: the SYRK-scores attention) — loss, grad norm,
+   every gradient and the updated parameters within the CPU tests'
+   tolerances; (b) full width and depth through ``launch.train --scale
+   full --batch 4 --seq 1024 --steps 8`` (the chunked attention): 8
+   finite losses, the last two below the first on average, step ms,
+   tokens/s, peak memory and the final checkpoint's GB and seconds;
+   (c) that checkpoint restored onto the card equals the state in
+   memory bit for bit; (d) ``--resume`` at the smoke scale continues
+   at the saved step;
+12. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+   line, one ``{"serving": {...}}`` line, one ``{"train": {...}}``
+   line, one ``{"kernels": [...]}``
    line (one entry per measured shape:
    flash attention at stablelm's and mixtral's prefill shapes and at
    the queue trace's longest prefill, each with
@@ -149,6 +163,16 @@ LOOP_PROFILE_ARGS = ["--requests", "4", "--prompt-len", "64",
                      "--gen-tokens", "8"]
 LOOP_SAMPLES, LOOP_BUDGET, REINSTALL_BUDGET = 48, 160, 160
 REINSTALL_THRESHOLD = 0.25
+
+#: phase 11: the card-against-CPU step (full width, depth cut, batch x
+#: length; 512 takes the SYRK-scores attention) and the full-depth run
+#: through the launcher (1024 takes the chunked attention)
+TRAIN_CMP_LAYERS, TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 2, 1, 512
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+#: card vs CPU within the CPU tests' tolerances (tests/test_torch_train.py:
+#: loss and grad norm relative, each gradient normwise, the updated
+#: parameters normwise as one vector)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 1e-5
 
 #: mixtral-8x22b at full width, depth cut to fit one card in fp32
 MIX_ARCH, MIX_LAYERS = "mixtral-8x22b", 4
@@ -1321,6 +1345,194 @@ def phase_closed_loop(torch) -> dict:
     return out
 
 
+def phase_train(M, fa, G, torch) -> dict:
+    """Phase 11: training on the card — card against CPU at 2 layers,
+    the full-depth launcher run, its checkpoint restored bitwise, a
+    resume."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import (build_train_step, init_train_state,
+                                        make_ctx)
+
+    counters = (fa.flash_attention_cuda, M.matmul_cuda,
+                G.grouped_matmul_cuda)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    def no_launches(what):
+        n = {c.__name__: c.launches for c in counters}
+        print(f"[chip_smoke] train: kernel launches during {what}: {n}")
+        if any(n.values()):
+            raise SystemExit(f"[chip_smoke] FAIL: a CUDA kernel launched "
+                             f"under grad during {what}")
+
+    ckpt_root = WORK / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    ckpt_root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(ckpt_root).free / 1e9
+    print(f"[chip_smoke] train: {free_gb:.1f} GB free for checkpoints "
+          f"under {ckpt_root}")
+    out = {"arch": ARCH, "dtype": "float32", "card": card_line(),
+           "disk_free_gb": free_gb}
+
+    # -- (a) card against CPU ------------------------------------------------
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_CMP_LAYERS)
+    model = build_model(cfg)
+    opt = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    host = init_train_state(model, cfg, opt,
+                            torch.Generator().manual_seed(0))
+    batch = SyntheticLM(cfg.vocab, TRAIN_CMP_SEQ,
+                        TRAIN_CMP_BATCH).batch_at(0)
+    step, _, _ = build_train_step(model, cfg, opt)
+    ctx = make_ctx("train")
+    runs = {}
+    reset()
+    for dev in ("cuda", "cpu"):
+        state = (host if dev == "cpu"
+                 else tree_map(lambda t: t.to(dev), host))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        params = tree_map(lambda t: t.detach().requires_grad_(True),
+                          state["params"])
+        loss = model.loss(params, b, ctx)
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, tree_leaves(params))]
+        del params
+        new, met = step(state, b)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = {"seconds": time.perf_counter() - t0,
+                     "loss": loss.item(), "grads": grads,
+                     "metrics": {k: v.item() for k, v in met.items()},
+                     "params": [t.cpu() for t in
+                                tree_leaves(new["params"])]}
+        del state, new, b
+    no_launches("the card-against-CPU step")
+    card, cpu = runs["cuda"], runs["cpu"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    norm = lambda a, b: ((a.double() - b.double()).norm()
+                         / b.double().norm().clamp(min=1e-30)).item()
+    errs = {"loss_rel": rel(card["loss"], cpu["loss"]),
+            "step_loss_rel": rel(card["metrics"]["loss"],
+                                 cpu["metrics"]["loss"]),
+            "grad_norm_rel": rel(card["metrics"]["grad_norm"],
+                                 cpu["metrics"]["grad_norm"]),
+            "grads_normwise_max": max(norm(a, b) for a, b in zip(
+                card["grads"], cpu["grads"])),
+            # the parameters as one vector: AdamW's first step is
+            # lr * g / (|g| + eps), so a gradient element near zero whose
+            # sign differs between the devices moves by 2 lr — a large
+            # share of a small or zero-initialised tensor (the biases)
+            "params_normwise": norm(
+                torch.cat([t.flatten() for t in card["params"]]),
+                torch.cat([t.flatten() for t in cpu["params"]])),
+            "params_normwise_max_tensor": max(norm(a, b) for a, b in zip(
+                card["params"], cpu["params"]))}
+    print(f"[chip_smoke] train (a): {ARCH} full width, {TRAIN_CMP_LAYERS} "
+          f"layers, {TRAIN_CMP_BATCH}x{TRAIN_CMP_SEQ}: loss card "
+          f"{card['loss']:.6f} cpu {cpu['loss']:.6f}; card vs cpu "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + f"; card {card['seconds']:.1f}s, cpu {cpu['seconds']:.1f}s")
+    if not (errs["loss_rel"] <= TRAIN_LOSS_TOL
+            and errs["step_loss_rel"] <= TRAIN_LOSS_TOL
+            and errs["grad_norm_rel"] <= TRAIN_LOSS_TOL
+            and errs["grads_normwise_max"] <= TRAIN_GRAD_TOL
+            and errs["params_normwise"] <= TRAIN_PARAM_TOL):
+        raise SystemExit("[chip_smoke] FAIL: the card's train step "
+                         "disagrees with the CPU's")
+    out["card_vs_cpu"] = {"layers": TRAIN_CMP_LAYERS,
+                          "batch": [TRAIN_CMP_BATCH, TRAIN_CMP_SEQ],
+                          "card_s": card["seconds"], "cpu_s": cpu["seconds"],
+                          "loss": card["loss"], **errs}
+    del host, runs, card, cpu
+    torch.cuda.empty_cache()
+
+    # -- (b) full depth through the launcher ---------------------------------
+    full_dir = ckpt_root / "full"
+    reset()
+    res = train.run(["--arch", ARCH, "--scale", "full", "--batch",
+                     str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+                     str(TRAIN_STEPS), "--ckpt-dir", str(full_dir),
+                     "--ckpt-every", str(10 * TRAIN_STEPS), "--device",
+                     "cuda"])
+    no_launches("the full-depth run")
+    losses = res.losses
+    steps_s = res.driver.step_times
+    step_ms = 1e3 * statistics.median(steps_s[2:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"[chip_smoke] train (b): {res.n_params:,} parameters, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, losses "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + "; step ms " + " ".join(f"{1e3 * t:.1f}" for t in steps_s)
+          + f"; median of steps 3-{TRAIN_STEPS} {step_ms:.1f} ms, "
+          f"{tok_s:.0f} tokens/s, peak {res.peak_gib:.2f} GiB; checkpoint "
+          f"{res.ckpt_bytes / 1e9:.3f} GB in {res.ckpt_s:.1f}s")
+    if len(losses) != TRAIN_STEPS or not all(
+            x == x and abs(x) != float("inf") for x in losses):
+        raise SystemExit(f"[chip_smoke] FAIL: losses {losses}")
+    if not (losses[-1] + losses[-2]) / 2 < losses[0]:
+        raise SystemExit(f"[chip_smoke] FAIL: the loss did not fall: "
+                         f"{losses}")
+
+    # -- (c) the checkpoint restored onto the card ---------------------------
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(str(full_dir), TRAIN_STEPS,
+                                  res.driver.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live = tree_leaves(res.driver.state)
+    back = tree_leaves(restored)
+    same = len(live) == len(back) and all(
+        a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(live, back))
+    print(f"[chip_smoke] train (c): restored {len(back)} tensors onto "
+          f"{back[0].device} in {restore_s:.1f}s; bitwise equal to the "
+          f"state in memory: {same}")
+    if not same:
+        raise SystemExit("[chip_smoke] FAIL: the restored checkpoint differs "
+                         "from the state in memory")
+    out["full"] = {"layers": res.cfg.n_layers, "params": res.n_params,
+                   "batch": [TRAIN_BATCH, TRAIN_SEQ], "losses": losses,
+                   "step_s": steps_s, "step_ms_median_3_on": step_ms,
+                   "tokens_per_s": tok_s, "peak_gib": res.peak_gib,
+                   "ckpt_gb": res.ckpt_bytes / 1e9, "ckpt_s": res.ckpt_s,
+                   "restore_s": restore_s, "restore_bitwise": same,
+                   "wall_s": res.wall_s}
+    del res, restored, live, back
+    shutil.rmtree(full_dir)
+    torch.cuda.empty_cache()
+
+    # -- (d) resume on the card -----------------------------------------------
+    smoke_dir = str(ckpt_root / "smoke")
+    base = ["--arch", ARCH, "--scale", "smoke", "--device", "cuda",
+            "--ckpt-dir", smoke_dir]
+    reset()
+    first = train.run(base + ["--steps", "3"])
+    again = train.run(base + ["--steps", "5", "--resume"])
+    no_launches("the smoke runs")
+    print(f"[chip_smoke] train (d): resumed from step {again.resumed_from}"
+          f", ended at step {again.summary['step']}")
+    if first.summary["step"] != 3 or again.resumed_from != 3 \
+            or again.summary["step"] != 5 or len(again.losses) != 2 \
+            or int(again.driver.state["step"]) != 5:
+        raise SystemExit("[chip_smoke] FAIL: --resume did not continue at "
+                         "the saved step")
+    out["resume"] = {"saved_step": 3, "resumed_from": again.resumed_from,
+                     "final_step": again.summary["step"]}
+    shutil.rmtree(ckpt_root)
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -1484,7 +1696,14 @@ def main() -> int:
           f"{serving['closed_loop']['phase_s']:.1f}s; the script "
           f"{time.perf_counter() - START:.1f}s so far")
 
-    # -- 11. report ---------------------------------------------------------------
+    # -- 11. train ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    training = phase_train(mm, fa, gm, torch)
+    training["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 11 took {training['phase_s']:.1f}s; the "
+          f"script {time.perf_counter() - START:.1f}s so far")
+
+    # -- 12. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs),
                flash_entry("flash_attention@mixtral_prefill",
@@ -1524,6 +1743,7 @@ def main() -> int:
     print(json.dumps({"adsala": adsala}))
     print(json.dumps({"mixtral": mixtral}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"train": training}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,9 @@
     params_np = jax.tree.map(np.asarray, lm.init(jax.random.PRNGKey(0)))
     state = params_from_jax(params_np, device="cuda")
 
+A reference train state (``init_train_state``: params, AdamW moments,
+step) goes through :func:`state_from_jax` the same way.
+
 The reference keeps its layers as ``prefix`` / ``scan`` / ``suffix``,
 the ``scan`` unit's parameters stacked along a leading layer dimension.
 The port keeps one parameter dict per layer in ``state["layers"]``, in
@@ -18,9 +21,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_leaves, tree_map
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "state_from_jax"]
 
 
 def params_from_jax(tree: dict, device: torch.device | str = "cpu",
@@ -36,7 +39,7 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
     unit = tree.get("scan", [])
     if unit:
         repeats = {int(np.shape(a)[0]) for u in unit
-                   for a in _leaves(u)}
+                   for a in tree_leaves(u)}
         if len(repeats) != 1:
             raise ValueError(f"scan params disagree on the layer count "
                              f"{sorted(repeats)}")
@@ -49,7 +52,18 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
     return tree_map(leaf, state)
 
 
-def _leaves(tree: Any) -> list:
-    out: list = []
-    tree_map(out.append, tree)
+def state_from_jax(state: dict, device: torch.device | str = "cpu",
+                   dtype: torch.dtype | None = None) -> dict:
+    """Reference train state of numpy arrays (``params``, ``m``, ``v``,
+    ``step``, optionally ``ef``) -> the port's train state.
+
+    Every parameter-shaped tree goes through :func:`params_from_jax`
+    (``dtype`` casts the parameters only; the moments stay fp32, as the
+    reference keeps them); ``step`` becomes an int32 scalar tensor."""
+    out = {"params": params_from_jax(state["params"], device, dtype)}
+    for key in ("m", "v", "ef"):
+        if key in state:
+            out[key] = params_from_jax(state[key], device)
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=device)
     return out

@@ -1,7 +1,9 @@
-"""Fault tolerance, serving subset: the liveness heartbeat helpers the
-serving re-install manager stamps its install phases into.  The
-reference's train driver (checkpoint/restart, stragglers, preemption)
-is not ported yet."""
+"""Fault tolerance: checkpoint/restart driver, stragglers, preemption.
+
+Import :class:`~repro_torch.ft.driver.TrainDriver` from
+``repro_torch.ft.driver``; the heartbeat helpers here are shared with
+the serving re-install manager.
+"""
 
 from repro_torch.ft.heartbeat import read_heartbeat, write_heartbeat
 

@@ -23,7 +23,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "build", "BUILD_DIR", "SOURCES", "HEADERS", "UNITS"]
+__all__ = ["library", "build", "refuse_grad", "BUILD_DIR", "SOURCES",
+           "HEADERS", "UNITS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "flash_attention.cu", _CSRC / "matmul.cu",
@@ -132,3 +133,21 @@ def library() -> ctypes.CDLL:
             lib.grouped_matmul_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``name``.
+
+    The kernels launch through ctypes into outputs made with
+    ``torch.empty``, so an output computed from inputs that require grad
+    would carry no ``grad_fn`` and the gradients of those inputs would
+    be lost without an error.  None of them has a backward.
+    """
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and an input "
+            "requires grad; train on the 'library' backend "
+            "(train.step.make_ctx('train') selects it)")

@@ -281,9 +281,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``bq``/``bkv`` are the tuner's logical blocks, planned by
     :func:`flash_launch`; ``grid`` picks the dense or tri KV walk.
-    Raises on any input the kernel does not take and on a failed launch.
+    Raises on any input the kernel does not take, under autograd (it has
+    no backward) and on a failed launch.
     """
     _check(q, k, v, grid)
+    _build.refuse_grad("flash_attention_cuda", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on "

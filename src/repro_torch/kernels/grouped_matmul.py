@@ -155,9 +155,11 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
 
     ``bm``/``bk``/``bn`` are the tuner's logical tile, mapped to a
     launch by :func:`grouped_launch`.  Raises on any input the kernel
-    does not take and on a failed launch.
+    does not take, under autograd (it has no backward) and on a failed
+    launch.
     """
     check_grouped_shapes(x, w)
+    _build.refuse_grad("grouped_matmul_cuda", x, w)
     for name, t in (("x", x), ("w", w)):
         if not t.is_cuda:
             raise ValueError(f"grouped_matmul_cuda: {name} is on "

@@ -107,9 +107,11 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
 
     ``bm``/``bk``/``bn`` are the tuner's logical tile, mapped to a
     launch by :func:`launch_shape`.  Raises on any input the kernel
-    does not take and on a failed launch.
+    does not take, under autograd (it has no backward) and on a failed
+    launch.
     """
     check_gemm_shapes(a, b)
+    _build.refuse_grad("matmul_cuda", a, b)
     for name, t in (("a", a), ("b", b)):
         if not t.is_cuda:
             raise ValueError(f"matmul_cuda: {name} is on {t.device}, not "

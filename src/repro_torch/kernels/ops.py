@@ -6,11 +6,17 @@ are the entry points; the ``observe`` / ``dispatch_hint`` /
 ``grouped_dispatch_hint`` sites report the plain contractions the model
 layers leave to ``torch.matmul``.  Backend selection:
 
-  * ``cuda``  — the hand-written Hopper kernels; a CPU tensor raises;
-  * ``torch`` — the kernels' plain PyTorch versions, on any device;
-  * ``auto``  — ``ADSALA_BACKEND`` when set (``cuda`` or ``torch``,
-    anything else raises), else the tensor's device: CUDA tensors take
-    the kernel, CPU tensors the plain version.
+  * ``cuda``    — the hand-written Hopper kernels; a CPU tensor raises,
+    and so does an input that requires grad (no kernel has a backward);
+  * ``torch``   — the kernels' plain PyTorch versions, on any device;
+  * ``library`` — the reference's ``xla`` backend: the oracles of
+    :mod:`repro_torch.kernels.ref` for the BLAS-3 and grouped
+    products, and for attention the reference's XLA paths
+    (SYRK-materialised scores or chunked softmax), all differentiable
+    by autograd — the training backend;
+  * ``auto``    — ``ADSALA_BACKEND`` when set (``cuda``, ``torch`` or
+    ``library``, anything else raises), else the tensor's device: CUDA
+    tensors take the kernel, CPU tensors the plain version.
 
 When an :class:`~repro_torch.core.tuner.AdsalaTuner` is supplied, the
 call's (routine, m, k, n) is looked up per call (memoised inside the
@@ -28,6 +34,7 @@ from __future__ import annotations
 import os
 from typing import Literal
 
+import numpy as np
 import torch
 
 from repro_torch.core.costmodel import (
@@ -37,7 +44,7 @@ from repro_torch.core.costmodel import (
     GemmConfig,
 )
 from repro_torch.core.tuner import AdsalaTuner
-from repro_torch.kernels import recorder
+from repro_torch.kernels import _build, recorder, ref
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_torch,
@@ -54,32 +61,39 @@ from repro_torch.kernels.matmul import (
 )
 
 __all__ = ["matmul", "syrk", "trsm", "grouped_matmul", "flash_attention",
-           "dispatch_hint", "grouped_dispatch_hint", "observe",
-           "resolve_backend", "supported_routine"]
+           "chunked_attention", "dispatch_hint", "grouped_dispatch_hint",
+           "observe", "resolve_backend", "supported_routine", "BACKENDS"]
 
-Backend = Literal["auto", "cuda", "torch"]
+Backend = Literal["auto", "cuda", "torch", "library"]
 
-_BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("auto", "cuda", "torch", "library")
 
 
 def resolve_backend(backend: Backend = "auto",
-                    device: torch.device | None = None) -> str:
-    """``cuda`` or ``torch`` for a call on tensors living on ``device``."""
-    if backend not in _BACKENDS:
+                    device: torch.device | None = None,
+                    *inputs: torch.Tensor) -> str:
+    """``cuda``, ``torch`` or ``library`` for a call on tensors living on
+    ``device``.  ``cuda`` under autograd (an ``inputs`` tensor requires
+    grad) raises before the device is checked: the kernels have no
+    backward, and nothing falls back."""
+    if backend not in BACKENDS:
         raise ValueError(
-            f"unknown backend {backend!r}; expected one of {_BACKENDS}")
+            f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":
         env = os.environ.get("ADSALA_BACKEND")
         if env:
-            if env not in ("cuda", "torch"):
-                raise ValueError(
-                    f"ADSALA_BACKEND={env!r}; expected 'cuda' or 'torch'")
+            if env not in BACKENDS[1:]:
+                raise ValueError(f"ADSALA_BACKEND={env!r}; expected one "
+                                 f"of {BACKENDS[1:]}")
             backend = env
         else:
             backend = ("cuda" if device is not None
                        and device.type == "cuda" else "torch")
-    if backend == "cuda" and (device is None or device.type != "cuda"):
-        raise ValueError(f"backend 'cuda' needs CUDA tensors, got {device}")
+    if backend == "cuda":
+        _build.refuse_grad("ops (backend 'cuda')", *inputs)
+        if device is None or device.type != "cuda":
+            raise ValueError(
+                f"backend 'cuda' needs CUDA tensors, got {device}")
     return backend
 
 
@@ -197,15 +211,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     """Tuned GEMM C = A @ B: the tuner's tile for (gemm, m, k, n) (or an
     explicit ``tile``, which skips the tuner) drives the kernel."""
     check_gemm_shapes(a, b)
-    be = resolve_backend(backend, a.device)
+    be = resolve_backend(backend, a.device, a, b)
     m, k, n = int(a.shape[0]), int(a.shape[1]), int(b.shape[1])
     # an explicit tile overrides the tuner entirely: don't consult it,
     # and don't label the event with a config that was never dispatched
     rt, cfg, hit = _select(m, k, n, DEFAULT_ROUTINE,
                            tuner if tile is None else None,
-                           need_config=True)
+                           need_config=be != "library")
     recorder.record(rt, m, k, n, config=cfg, cache_hit=hit, site=site,
                     count=count)
+    if be == "library":
+        return ref.matmul_ref(a, b)
     bm, bk, bn = _tile(tile, cfg)
     return _gemm(be)(a, b, bm=bm, bk=bk, bn=bn)
 
@@ -231,12 +247,14 @@ def syrk(a: torch.Tensor, b: torch.Tensor | None = None, *,
             f"bad SYRK-shaped operands {tuple(a.shape)} x "
             f"{tuple(b.shape)}; B must match A (square output, shared k)")
     m, k = int(a.shape[0]), int(a.shape[1])
-    be = resolve_backend(backend, a.device)
+    be = resolve_backend(backend, a.device, a, b)
     rt, cfg, hit = _select(m, k, m, "syrk",
                            tuner if tile is None else None,
-                           need_config=True)
+                           need_config=be != "library")
     recorder.record(rt, m, k, m, config=cfg, cache_hit=hit, site=site,
                     count=count)
+    if be == "library":
+        return ref.syrk_ref(a, b, lower=lower)
     bm, bk, bn = _tile(tile, cfg)
     c = _gemm(be)(a, (a if b is None else b).T, bm=bm, bk=bk, bn=bn,
                   out_dtype=torch.float32)
@@ -267,12 +285,14 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     m = int(a.shape[0])
     n = int(b.shape[1])
-    be = resolve_backend(backend, a.device)
+    be = resolve_backend(backend, a.device, a, b)
     rt, cfg, hit = _select(m, m, n, "trsm",
                            tuner if tile is None else None,
-                           need_config=True)
+                           need_config=be != "library")
     recorder.record(rt, m, m, n, config=cfg, cache_hit=hit, site=site,
                     count=count)
+    if be == "library":
+        return ref.trsm_ref(a, b, lower=lower, unit_diag=unit_diag)
     bm, bk, bn = _tile(tile, cfg)
     gemm = _gemm(be)
     a32 = a.float()
@@ -319,7 +339,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     the tuner.
     """
     check_grouped_shapes(x, w)
-    be = resolve_backend(backend, x.device)
+    be = resolve_backend(backend, x.device, x, w)
     e, c, d = (int(s) for s in x.shape)
     f = int(w.shape[2])
     if group_sizes is not None:
@@ -336,6 +356,16 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     # query the tuner with at least one row so the shape stays sensible
     shapes = ([(max(g, 1), d, f) for g in group_sizes]
               if group_sizes is not None else [(c, d, f)] * e)
+    if be == "library":
+        # the reference's xla branch: the tuner is consulted only when a
+        # recorder wants the configs on its events
+        consult = tuner if tile is None else None
+        if recorder.active():
+            grouped_dispatch_hint(shapes, consult, routine=routine,
+                                  site=site)
+        else:
+            supported_routine(routine, consult)
+        return ref.grouped_matmul_ref(x, w)
     cfgs = grouped_dispatch_hint(shapes, tuner if tile is None else None,
                                  routine=routine, site=site)
     if tile is not None:
@@ -348,6 +378,83 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
         bm, bk, bn = DEFAULT_TILES[3]
     fn = grouped_matmul_cuda if be == "cuda" else grouped_matmul_torch
     return fn(x, w, bm=bm, bk=bk, bn=bn)
+
+
+def _fp32_up(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or wider (float64 stays float64: gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+#: untuned library-backend fallback: the longest causal self-attention
+#: whose scores the SYRK materialisation path serves when no tuner is
+#: available to price the choice (the reference's value)
+SYRK_FALLBACK_MAX_SEQ = 512
+
+#: hard memory guard on the SYRK score path (tuned or not): the full
+#: fp32 (Sq, Sq) score triangle must fit this budget per head
+SYRK_SCORES_BYTES_MAX = 64 * 1024 * 1024
+
+
+def _syrk_scores_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, sm_scale: float | None, *,
+                           tuner: AdsalaTuner | None, site: str,
+                           count: int) -> torch.Tensor:
+    """Causal self-attention with materialised SYRK-shaped scores.
+
+    Only the lower triangle of QKᵀ is consumed under the causal mask —
+    SYRK's output shape — so the score product is recorded as ONE
+    routine="syrk" event on the per-head (Sq, Dh, Sq) triple with
+    multiplicity ``count``, as the reference's vmapped ``syrk`` records
+    it; the product itself is one batched ``tril(q @ kᵀ)`` in fp32
+    (or wider).
+    q/k/v: (BH, Sq, Dh).
+    """
+    _, sq, d = q.shape
+    scale = sm_scale if sm_scale is not None else float(d) ** -0.5
+    rt, cfg, hit = _select(sq, d, sq, "syrk", tuner, need_config=False)
+    recorder.record(rt, sq, d, sq, config=cfg, cache_hit=hit, site=site,
+                    count=count)
+    scores = torch.tril(torch.bmm(_fp32_up(q),
+                                  _fp32_up(k).transpose(1, 2)))
+    ids = torch.arange(sq, device=q.device)
+    mask = ids[None, :] <= ids[:, None]
+    scores = torch.where(mask[None], scores * scale, ref.NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.bmm(probs, _fp32_up(v)).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, window: int | None,
+                      sm_scale: float | None, chunk: int = 512,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Softmax attention over query chunks, (BH, S, D) in and out: the
+    reference's ``_chunked_attention_flat`` (and, with ``q_offset`` and
+    a value width other than the key's, the core of its
+    ``layers.chunked_attention_xla``).
+
+    Never materialises the full (Sq, Skv) score matrix: per chunk the
+    live block is (BH, chunk, Skv), the long-sequence path.  Query row
+    i sits at position ``q_offset + i``.  Computed in fp32 (or wider).
+    """
+    sq, d = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    scale = sm_scale if sm_scale is not None else float(d) ** -0.5
+    kv_ids = torch.arange(skv, device=q.device)
+    k32, v32 = _fp32_up(k), _fp32_up(v)
+    outs = []
+    for i0 in range(0, sq, chunk):
+        qi = q[:, i0:i0 + chunk]
+        s = torch.bmm(_fp32_up(qi), k32.transpose(1, 2)) * scale
+        q_ids = q_offset + i0 + torch.arange(qi.shape[1], device=q.device)
+        mask = torch.ones((qi.shape[1], skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kv_ids[None, :] <= q_ids[:, None]
+        if window is not None:
+            mask &= kv_ids[None, :] > q_ids[:, None] - window
+        s = torch.where(mask[None], s, ref.NEG_INF)
+        outs.append(torch.bmm(torch.softmax(s, dim=-1), v32).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -367,17 +474,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     identity.  The tuner's chosen :class:`GemmConfig` supplies the
     flash blocks (``flash_block``) and the KV walk (``flash_grid``:
     dense vs block-sparse triangular).  Explicit ``bq``/``bkv``/``grid``
-    overrides skip the tuner entirely.  One attn/gemm event carrying the
-    resolved config is reported to any active DispatchRecorder.
+    overrides skip the tuner entirely.
 
-    The reference's XLA-only SYRK-scores and chunked paths are not part
-    of this port: both backends here run the flash function.
+    The ``cuda`` and ``torch`` backends run the flash function; the
+    ``library`` backend runs the reference's XLA paths: the SYRK
+    score-materialisation path (:func:`_syrk_scores_attention`) for
+    causal self-attention when the tuner's predicted times favour it
+    over the attn routine (untuned: up to
+    :data:`SYRK_FALLBACK_MAX_SEQ`), within the
+    :data:`SYRK_SCORES_BYTES_MAX` guard, else :func:`chunked_attention`.
+    Every path reports its dispatch to any active DispatchRecorder: the
+    SYRK path as one syrk event, the others as one attn/gemm event
+    carrying the resolved config.
     """
     if q.ndim != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] \
             or q.shape[2] != k.shape[2]:
         raise ValueError(f"bad attention shapes {tuple(q.shape)} "
                          f"{tuple(k.shape)}")
-    be = resolve_backend(backend, q.device)
+    be = resolve_backend(backend, q.device, q, k, v)
     bh, sq, d = (int(s) for s in q.shape)
     skv = int(k.shape[1])
     count = bh if count is None else count
@@ -400,6 +514,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bq = bq if bq is not None else fbq
     bkv = bkv if bkv is not None else fbkv
     grid = grid if grid is not None else fgrid
+    if be == "library":
+        if causal and window is None and sq == skv \
+                and sq * sq * 4 <= SYRK_SCORES_BYTES_MAX:
+            if cfg is not None and rt == "attn" \
+                    and "syrk" in tuner.routines:
+                _, t_attn = tuner.select_with_times(sq, d, skv, "attn")
+                _, t_syrk = tuner.select_with_times(sq, d, sq, "syrk")
+                use_syrk = float(np.min(t_syrk)) < float(np.min(t_attn))
+            else:
+                use_syrk = (tuner is None or rt != "attn") \
+                    and sq <= SYRK_FALLBACK_MAX_SEQ
+            if use_syrk:
+                return _syrk_scores_attention(q, k, v, sm_scale,
+                                              tuner=tuner, site=site,
+                                              count=count)
+        recorder.record(rt, sq, d, skv, config=cfg, cache_hit=hit,
+                        site=site, count=count)
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale,
+                                 chunk=min(512, max(1, sq)))
     recorder.record(rt, sq, d, skv, config=cfg, cache_hit=hit,
                     site=site, count=count)
     fn = flash_attention_cuda if be == "cuda" else flash_attention_torch

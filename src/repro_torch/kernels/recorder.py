@@ -26,6 +26,7 @@ Semantics worth knowing:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Iterable
@@ -34,7 +35,7 @@ from repro_torch.core.costmodel import ROUTINES
 from repro_torch.core.features import ROUTINE_FLOP_SCALE
 
 __all__ = ["DispatchEvent", "DispatchRecorder", "record", "active",
-           "active_event_count", "record_backward"]
+           "active_event_count", "record_backward", "suppressed"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +93,24 @@ def record(routine: str, m: int, k: int, n: int, *,
                           bool(cache_hit), site, int(count))
     for rec in stack:
         rec.events.append(event)
+
+
+@contextlib.contextmanager
+def suppressed():
+    """Hide this thread's active recorders for the block: nothing inside
+    is recorded and :func:`active` is False there.
+
+    Activation recomputation (``torch.utils.checkpoint``) replays a
+    layer's Python in the backward pass; the replay runs here, so each
+    dispatch is recorded once, as the reference's ``jax.checkpoint``
+    traces the layer once.
+    """
+    saved = getattr(_tls, "stack", None)
+    _tls.stack = []
+    try:
+        yield
+    finally:
+        _tls.stack = saved
 
 
 def active_event_count() -> int:

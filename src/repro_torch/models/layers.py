@@ -1,6 +1,8 @@
 """Shared layer library, dense subset: norms, MLPs, RoPE, GQA attention
-(train/prefill through the flash kernel, one-token decode over a full
-or ring KV cache, or over a paged KV pool for continuous batching).
+(train/prefill through ``ops.flash_attention`` — the flash kernel, or
+the reference's XLA paths on the ``library`` backend — chunked-softmax
+attention for long sequences, one-token decode over a full or ring KV
+cache, or over a paged KV pool for continuous batching).
 
 Plain functions on tensors; parameters arrive as dicts built from the
 ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
@@ -24,6 +26,7 @@ __all__ = [
     "linear", "mlp_defs", "apply_mlp",
     "rope_angles", "apply_rope",
     "attention_defs", "attention_train", "attention_decode",
+    "chunked_attention_xla",
     "attention_decode_paged", "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
 ]
 
@@ -202,17 +205,40 @@ def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     return torch.repeat_interleave(k, n_heads // hk, dim=2)
 
 
-def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None
+def chunked_attention_xla(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool,
+                          window: int | None, q_offset: int = 0,
+                          chunk: int = 512) -> torch.Tensor:
+    """Softmax attention over query chunks (the reference's XLA path).
+
+    Never materialises the full (Sq, Skv) score matrix: per chunk the
+    live score block is (B, H, chunk, Skv).  q/k: (B, H, S, Dh), v:
+    (B, H, Skv, Dv) — Dv may differ from Dh; query i sits at position
+    ``q_offset + i``.  Scaled by Dh^-0.5.
+    """
+    b, h, sq, dh = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    out = ops.chunked_attention(
+        q.reshape(b * h, sq, dh), k.reshape(b * h, skv, dh),
+        v.reshape(b * h, skv, dv), causal=causal, window=window,
+        sm_scale=dh ** -0.5, chunk=chunk, q_offset=q_offset)
+    return out.reshape(b, h, sq, dv)
+
+
+def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None,
+                    backend: str = "auto"
                     ) -> tuple[torch.Tensor,
                                tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence self-attention (prefill internals).
+    """Full-sequence self-attention (training / prefill internals).
 
     Returns (out, (k, v)) — the pre-repeat (B, S, Hkv, Dh) projections so
     prefill can seed the decode cache without recomputation.  The
     attention core is one :func:`ops.flash_attention` dispatch on the
-    flattened (B*H, Sq, Dh) heads: causal layers dispatch as
-    routine="attn" and the tuner resolves the flash blocks and the
-    dense vs block-sparse triangular KV walk.
+    flattened (B*H, Sq, Dh) heads, on ``backend``: causal layers
+    dispatch as routine="attn" and the tuner resolves the flash blocks
+    and the dense vs block-sparse triangular KV walk, and — on the
+    ``library`` backend, the one training takes — whether the SYRK
+    score-materialisation path wins for this shape.
     """
     b, sq, _ = x.shape
     positions = torch.arange(sq, device=x.device)
@@ -224,7 +250,8 @@ def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None
         q.transpose(1, 2).reshape(flat).contiguous(),
         kr.transpose(1, 2).reshape(flat).contiguous(),
         vr.transpose(1, 2).reshape(flat).contiguous(),
-        causal=s.causal, window=s.window, tuner=tuner, site="attn.core")
+        causal=s.causal, window=s.window, tuner=tuner, site="attn.core",
+        backend=backend)
     out = out.reshape(b, s.n_heads, sq, s.head_dim).transpose(1, 2)
     ops.observe(b * sq, s.n_heads * s.head_dim, x.shape[-1], tuner,
                 site="attn.out_proj")

@@ -126,10 +126,12 @@ def _combine(y: torch.Tensor, dest: torch.Tensor, order: torch.Tensor,
     return torch.einsum("tkd,tk->td", per_choice, w)
 
 
-def apply_moe(p: dict, x: torch.Tensor, s: MoESpec, tuner=None
+def apply_moe(p: dict, x: torch.Tensor, s: MoESpec, tuner=None,
+              backend: str = "auto"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (out, aux_loss): route, sort-based dispatch into
-    (E, capacity, D) buckets, three grouped expert GEMMs, combine."""
+    (E, capacity, D) buckets, three grouped expert GEMMs on ``backend``,
+    combine."""
     b, sl, d = x.shape
     n_tok = b * sl
     xf = x.reshape(n_tok, d)
@@ -137,10 +139,12 @@ def apply_moe(p: dict, x: torch.Tensor, s: MoESpec, tuner=None
     gate_vals, gate_idx, aux = _route(p, xf, s)
     buckets, dest, order, valid = _dispatch(xf, gate_idx, s, cap)
 
-    hi = ops.grouped_matmul(buckets, p["wi"], tuner=tuner, site="moe.wi")
-    hg = ops.grouped_matmul(buckets, p["wg"], tuner=tuner, site="moe.wg")
+    hi = ops.grouped_matmul(buckets, p["wi"], tuner=tuner, site="moe.wi",
+                            backend=backend)
+    hg = ops.grouped_matmul(buckets, p["wg"], tuner=tuner, site="moe.wg",
+                            backend=backend)
     y = ops.grouped_matmul(F.silu(hg) * hi, p["wo"], tuner=tuner,
-                           site="moe.wo")
+                           site="moe.wo", backend=backend)
 
     out = _combine(y, dest, order, valid, gate_vals, n_tok, s)
     if s.n_shared:

@@ -16,7 +16,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["ParamDef", "init_params", "tree_map"]
+__all__ = ["ParamDef", "init_params", "tree_map", "tree_leaves",
+           "tree_paths"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +40,26 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a tree of dicts and lists, in :func:`tree_map`'s
+    order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_paths(tree: Any, prefix: tuple = ()) -> list[tuple]:
+    """The path (dict keys and list indices) of every leaf, in
+    :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, prefix + (i,))]
+    return [prefix]
 
 
 def _init_one(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,

@@ -8,27 +8,32 @@ layers are a plain Python loop over per-layer parameter dicts
 :func:`repro_torch.convert.params_from_jax` unstacks the reference's
 scan parameters into that list.
 
-The same layer-apply code serves prefill (returns caches) and decode
-(consumes caches), as in the reference; with a page table, decode reads
-and writes per-layer page pools instead (continuous batching,
-:mod:`repro_torch.serve.scheduler`).  MoE layers take the
-reference's single-device path (its ``_moe_apply`` without a mesh);
-MLA, recurrent and xLSTM layers are not ported yet.
+The same layer-apply code serves train (the loss), prefill (returns
+caches) and decode (consumes caches), as in the reference; with a page
+table, decode reads and writes per-layer page pools instead
+(continuous batching, :mod:`repro_torch.serve.scheduler`).  In training
+each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
+set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
+layers take the reference's single-device path (its ``_moe_apply``
+without a mesh); MLA, recurrent and xLSTM layers are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import recorder
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params
 
-__all__ = ["LM", "build_lm", "Ctx", "LayerSpec"]
+__all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy"]
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +109,7 @@ def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    mode: str                      # prefill | decode
+    mode: str                      # train | prefill | decode
     cache_len: int = 0             # decode capacity
     tuner: Any = None              # AdsalaTuner threaded to every
                                    # routine-aware call site (None = the
@@ -113,6 +118,14 @@ class Ctx:
     kv_quantized: bool = False     # int8 KV cache: not ported, so
                                    # make_ctx never sets it; the cache
                                    # builders refuse it
+    remat: bool = True             # recompute each layer in the backward
+                                   # pass (train mode)
+    backend: str = "auto"          # ops backend of the attention core
+                                   # and the MoE experts; the reference
+                                   # picks its backend globally, the
+                                   # port names it per call ("library"
+                                   # in training: no kernel has a
+                                   # backward)
 
 
 def _cache_shape(cfg: ArchConfig, spec: LayerSpec, ctx: Ctx
@@ -165,7 +178,7 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
     h = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     if spec.mlp == "moe":
         out, aux = MOE.apply_moe(p["moe"], h, _moe_spec(cfg),
-                                 tuner=ctx.tuner)
+                                 tuner=ctx.tuner, backend=ctx.backend)
         return x + out, aux
     return x + L.apply_mlp(p["mlp"], h, cfg.mlp_kind, tuner=ctx.tuner), None
 
@@ -179,7 +192,7 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     ctx.mode == 'prefill', else None."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     mix, raw = L.attention_train(p["mixer"], h, _attn_spec(cfg, spec.kind),
-                                 tuner=ctx.tuner)
+                                 tuner=ctx.tuner, backend=ctx.backend)
     cache = _seed_cache(raw, cfg, spec, ctx) if ctx.mode == "prefill" \
         else None
     x, aux = _apply_ffn(p, x + mix, cfg, spec, ctx)
@@ -205,6 +218,37 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
                                         pos, tuner=ctx.tuner)
     x, _ = _apply_ffn(p, x + mix, cfg, spec, ctx)
     return x, cache
+
+
+def _remat_contexts():
+    """(forward, recomputation) contexts of a checkpointed layer: the
+    recomputation replays the layer's dispatches, which the forward run
+    already recorded."""
+    return contextlib.nullcontext(), recorder.suppressed()
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def chunked_cross_entropy(x: torch.Tensor, w_unemb: torch.Tensor,
+                          labels: torch.Tensor, *, chunk: int = 512
+                          ) -> torch.Tensor:
+    """Mean CE over (B, S) without materialising (B, S, V) at once: the
+    logits exist one (B, chunk, V) block at a time.  Labels < 0 are
+    ignored."""
+    s = x.shape[1]
+    tot = x.new_zeros((), dtype=torch.float32)
+    n_valid = x.new_zeros((), dtype=torch.float32)
+    for i0 in range(0, s, chunk):
+        li = labels[:, i0:i0 + chunk].long()
+        logits = (x[:, i0:i0 + chunk] @ w_unemb).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li.clamp(min=0)[..., None])[..., 0]
+        valid = (li >= 0).float()
+        tot = tot + ((logz - gold) * valid).sum()
+        n_valid = n_valid + valid.sum()
+    return tot / torch.clamp(n_valid, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +293,33 @@ class LM:
         """(B, S) tokens -> (hidden (B, S, D), total aux loss of the MoE
         layers (fp32 scalar), caches|None)."""
         cfg = self.cfg
-        x = params["embed"][tokens]
+        x = params["embed"][tokens.long()]
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
+        remat = ctx.remat and ctx.mode == "train" and torch.is_grad_enabled()
         for p, s in zip(params["layers"], self.plan):
-            x, aux, c = _apply_layer_train(p, x, cfg, s, ctx)
+            if remat:
+                x, aux, c = checkpoint(_apply_layer_train, p, x, cfg, s, ctx,
+                                       use_reentrant=False,
+                                       context_fn=_remat_contexts)
+            else:
+                x, aux, c = _apply_layer_train(p, x, cfg, s, ctx)
             if aux is not None:
                 aux_total = aux_total + aux
             caches.append(c)
         x = L.apply_norm(params["ln_f"], x, cfg.norm_kind)
         return x, aux_total, caches if ctx.mode == "prefill" else None
+
+    def loss(self, params: dict, batch: dict, ctx: Ctx | None = None
+             ) -> torch.Tensor:
+        """Mean next-token CE of ``batch`` (``tokens``, ``labels``: (B,
+        S) ints) plus 0.01 x the MoE layers' auxiliary loss.  The
+        default ctx trains on the ``library`` backend."""
+        ctx = ctx or Ctx(mode="train", backend="library")
+        x, aux, _ = self.forward(params, batch["tokens"], ctx)
+        ce = chunked_cross_entropy(x, self._unembed_weight(params),
+                                   batch["labels"])
+        return ce + 0.01 * aux
 
     def logits_last(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         return x[:, -1] @ self._unembed_weight(params)

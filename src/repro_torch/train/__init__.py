@@ -1,1 +1,1 @@
-"""Step builders (serving slice: the runtime context only)."""
+"""Training: AdamW (``optim``) and the train-step builder (``step``)."""

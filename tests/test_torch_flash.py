@@ -311,6 +311,30 @@ def test_cuda_backend_on_cpu_tensors_raises(monkeypatch):
         ops.resolve_backend("pallas")
 
 
+def test_cuda_kernel_under_autograd_raises(monkeypatch):
+    """No backward: an input that requires grad is refused before the
+    device is checked, by the wrapper and by ops on the cuda backend
+    (explicit, through the environment, or auto on a CUDA device); the
+    library and torch backends differentiate."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(32, 32))
+    kg = k.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward.*'library'"):
+        F.flash_attention_cuda(q, kg, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, kg, v, backend="cuda")
+    monkeypatch.setenv("ADSALA_BACKEND", "cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, kg, v)
+    monkeypatch.delenv("ADSALA_BACKEND")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.resolve_backend("auto", torch.device("cuda", 0), q, kg)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            F.flash_attention_cuda(q, kg, v)
+    for be in ("torch", "library"):
+        assert ops.flash_attention(q, kg, v, backend=be).grad_fn is not None
+
+
 def test_auto_backend_follows_the_device():
     assert ops.resolve_backend("auto", torch.device("cpu")) == "torch"
     assert ops.resolve_backend("auto", torch.device("cuda", 0)) == "cuda"

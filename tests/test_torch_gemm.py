@@ -314,6 +314,36 @@ def test_cuda_backend_on_cpu_tensors_raises(monkeypatch):
         ops.matmul(a, a)
 
 
+def test_cuda_kernel_under_autograd_raises(monkeypatch):
+    """The kernel has no backward: an input that requires grad is
+    refused before the device is checked, by the wrapper and by ops on
+    the cuda backend — explicit or through the environment — with no
+    fallback; under no_grad the device check is reached again."""
+    a = torch.ones(8, 8, requires_grad=True)
+    b = torch.ones(8, 8)
+    for call in (lambda: M.matmul_cuda(a, b),
+                 lambda: M.matmul_cuda(b, a),
+                 lambda: ops.matmul(a, b, backend="cuda"),
+                 lambda: ops.syrk(a, backend="cuda"),
+                 lambda: ops.syrk(b, a, backend="cuda"),
+                 lambda: ops.trsm(b, a, backend="cuda")):
+        with pytest.raises(RuntimeError, match="no backward.*'library'"):
+            call()
+    monkeypatch.setenv("ADSALA_BACKEND", "cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.matmul(a, b)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            M.matmul_cuda(a, b)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            ops.matmul(a, b)
+    monkeypatch.delenv("ADSALA_BACKEND")
+    # the other backends differentiate
+    for be in ("torch", "library"):
+        out = ops.matmul(a, b, backend=be)
+        assert out.grad_fn is not None
+
+
 def test_launch_shapes_of_the_default_tiles_are_all_different():
     shapes = [M.launch_shape(*t) for t in DEFAULT_TILES]
     assert len(set(shapes)) == len(DEFAULT_TILES) == 8

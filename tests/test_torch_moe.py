@@ -342,6 +342,22 @@ def test_grouped_cuda_backend_on_cpu_tensors_raises():
         G.grouped_matmul_cuda(x, w)
 
 
+def test_grouped_cuda_kernel_under_autograd_raises():
+    """No backward: refused before the device check, by the wrapper and
+    by ops on the cuda backend; the MoE layer trains on the library
+    backend."""
+    x, w = torch.ones(2, 8, 8), torch.ones(2, 8, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward.*'library'"):
+        G.grouped_matmul_cuda(x, w)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.grouped_matmul(x, w, backend="cuda")
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            G.grouped_matmul_cuda(x, w)
+    out = ops.grouped_matmul(x, w, backend="library")
+    assert out.grad_fn is not None
+
+
 # ---------------------------------------------------------------------------
 # the ring KV cache
 # ---------------------------------------------------------------------------

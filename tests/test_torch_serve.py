@@ -385,5 +385,7 @@ def test_scan_covers_the_serving_modules():
     for rel in ("serve/__init__.py", "serve/kv_cache.py",
                 "serve/scheduler.py", "serve/reinstall.py",
                 "ft/__init__.py", "ft/heartbeat.py", "launch/profile.py",
-                "launch/serve.py"):
+                "launch/serve.py", "train/optim.py", "train/step.py",
+                "data/__init__.py", "data/pipeline.py", "ckpt/__init__.py",
+                "ckpt/checkpoint.py", "ft/driver.py", "launch/train.py"):
         assert rel in scanned, rel
