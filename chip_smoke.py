@@ -46,8 +46,8 @@ Phases (any failure exits non-zero):
    flash kernel's one per layer,
    the logits finite, and the same prefill on the plain backend must
    agree; then the grouped kernel against its plain version and
-   ``torch.bmm`` at mixtral's prefill and decode buckets and at
-   deepseek-v2's expert shape, and the flash kernel against its plain
+   ``torch.bmm`` at mixtral's prefill and decode buckets, and the flash
+   kernel against its plain
    version and SDPA at mixtral's attention shape (192, 1024, 128) with
    the tuner's block;
 9. queue: stablelm-1.6b at full width served as a ragged trace of 8
@@ -83,16 +83,38 @@ Phases (any failure exits non-zero):
    (c) that checkpoint restored onto the card equals the state in
    memory bit for bit; (d) ``--resume`` at the smoke scale continues
    at the saved step;
-12. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
-   line, one ``{"serving": {...}}`` line, one ``{"train": {...}}``
-   line, one ``{"kernels": [...]}``
+12. deepseek and int8: after checking that at most 2 GiB is still
+   allocated, (a) deepseek-v2-236b at full width cut to 4 layers (the
+   dense first layer and 3 MoE layers, fp32, 53.2 GB) through
+   ``serve.serve_config`` with the phase-4 artifact: MLA on the chunked
+   attention and the latent cache, the grouped kernel's launch count 3
+   per MoE layer per forward (9 tiled, 135 thin), no flash or GEMM
+   launch, finite logits, the plain backend's prefill and first decode
+   step agreeing; warm prefill and decode step, peak memory, the latent
+   cache's bytes a token; (b) the same model and weights through the
+   continuous-batching scheduler over latent page pools (6 ragged
+   requests up to the fixed batch's lengths, 2 slots, pages of 16): the
+   grouped launches the prefills and steps imply, a clean allocator,
+   every request decoding like the fixed batch at batch 1 (phase 9's
+   rule); (c) the grouped kernel against its plain version and
+   ``torch.bmm`` at deepseek's four buckets, prefill (160, 192, 5120,
+   1536) and (160, 192, 1536, 5120), decode (160, 8, 5120, 1536) and
+   (160, 8, 1536, 5120); (d) stablelm-1.6b at
+   full width and depth through the launcher with ``ADSALA_KV_INT8=1``
+   (the int8 KV cache), then fp32 and int8 caches fed the fp32 path's
+   greedy tokens: max |dlogit| / max |logit| below 0.03 at every step,
+   24 flash launches a prefill, the caches' bytes, warm decode steps
+   of the two caches in turns and a profiler trace of each;
+13. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+   line, one ``{"deepseek": {...}}`` line, one ``{"serving": {...}}``
+   line, one ``{"train": {...}}`` line, one ``{"kernels": [...]}``
    line (one entry per measured shape:
    flash attention at stablelm's and mixtral's prefill shapes and at
    the queue trace's longest prefill, each with
    its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
-   experts; each with its body, ring stages and split count), the card's
-   line, and the ``{"ok": true, ...}`` last line.
+   four buckets; each with its body, ring stages and split
+   count), the card's line, and the ``{"ok": true, ...}`` last line.
 
 Exits non-zero without a result when no CUDA device is present or when
 the repository's ``src/repro_torch`` is not beside this file.
@@ -100,6 +122,7 @@ the repository's ``src/repro_torch`` is not beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -178,18 +201,41 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-5, 1e-4, 1e-5
 MIX_ARCH, MIX_LAYERS = "mixtral-8x22b", 4
 #: the reference's grouped cases (tests/test_kernels.py), tile 32
 GROUPED_CASES = [(4, 64, 32, 48), (2, 100, 64, 64), (8, 16, 16, 96)]
-#: grouped GEMM timing shapes (name, E, C, d, f): mixtral's expert
-#: buckets in prefill (4 x 1024 tokens) and decode (4 tokens), and
-#: deepseek-v2's experts (160 of d_ff 1536) at 192 rows each
 #: thin buckets (C <= 16: the weight-streaming body; 17: the tiled one),
 #: ragged d and f, and a shape whose planner splits K (E, C, d, f)
 SPLIT_CASE = (2, 8, 4096, 300)
 THIN_CASES = [(8, 1, 300, 130), (8, 3, 300, 130), (8, 8, 300, 130),
               (8, 16, 300, 130), (8, 17, 300, 130), (4, 8, 257, 513),
               (3, 5, 1000, 3), SPLIT_CASE]
+#: grouped GEMM timing shapes (name, E, C, d, f): mixtral's expert
+#: buckets in prefill (4 x 1024 tokens) and decode (4 tokens)
 GROUPED_SHAPES = [("mixtral_prefill", 8, 1280, 6144, 16384),
-                  ("mixtral_decode", 8, 8, 6144, 16384),
-                  ("deepseek_v2_experts", 160, 192, 5120, 1536)]
+                  ("mixtral_decode", 8, 8, 6144, 16384)]
+
+#: phase 12: deepseek-v2-236b at full width, depth cut to the dense first
+#: layer and 3 MoE layers (fp32, 53.2 GB of weights)
+DS_ARCH, DS_LAYERS = "deepseek-v2-236b", 4
+#: the grouped kernel at deepseek's served buckets (name, E, C, d, f):
+#: 160 experts of d_ff 1536, 192 rows at 4 x 1024 prefill tokens, 8 at a
+#: decode step of 4 (MoESpec.capacity's floor); wi and wg map d_model to
+#: d_ff, wo maps d_ff back
+DS_GROUPED_SHAPES = [("deepseek_prefill", 160, 192, 5120, 1536),
+                     ("deepseek_prefill_wo", 160, 192, 1536, 5120),
+                     ("deepseek_decode", 160, 8, 5120, 1536),
+                     ("deepseek_decode_wo", 160, 8, 1536, 5120)]
+#: the paged trace over deepseek's latent pools: requests, slots, page
+#: size; prompt lengths in [DS_QUEUE_PROMPT // 4, DS_QUEUE_PROMPT] and
+#: outputs in [DS_QUEUE_GEN // 4, DS_QUEUE_GEN], from
+#: numpy.random.default_rng(1), up to the fixed batch's lengths
+DS_QUEUE_REQUESTS, DS_QUEUE_SLOTS, DS_QUEUE_PAGE = 6, 2, 16
+DS_QUEUE_PROMPT, DS_QUEUE_GEN = PROMPT_LEN, GEN_TOKENS
+#: what the phase may find allocated when it starts (phase 11's leftovers)
+DS_HELD_MAX = 2 * 2 ** 30
+#: int8 KV cache against the fp32 cache: max |dlogit| / max |logit| at
+#: every step, the reference's gate (tests/test_sharding_serving.py)
+INT8_REL_TOL = 0.03
+#: the fp32 and int8 caches' warm decode steps: turns, steps a turn
+INT8_TURNS, INT8_ITERS = ("fp32", "int8", "int8", "fp32"), 20
 
 
 def card_line() -> str:
@@ -259,6 +305,53 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def plain_backend():
+    """Run the kernels' plain PyTorch versions (ADSALA_BACKEND=torch)."""
+    os.environ["ADSALA_BACKEND"] = "torch"
+    try:
+        yield
+    finally:
+        del os.environ["ADSALA_BACKEND"]
+
+
+def decoder(res, tok, cache, dctx):
+    """A warm decode step over ``cache``, at positions that stay inside
+    it."""
+    steps = iter(range(10 ** 6))
+
+    def decode():
+        pos = PROMPT_LEN + next(steps) % (GEN_TOKENS - 1)
+        res.model.decode_step(res.params, tok, cache, pos, dctx)
+    return decode
+
+
+def trace_steps(fn, torch, steps: int = 3) -> dict:
+    """``steps`` calls of ``fn`` under ``torch.profiler``: the device
+    events (kernels, copies) a call, their summed time a call in ms, and
+    the five names with the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3 / steps
+            n += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"events": n / steps, "device_ms": sum(by_name.values()),
+            "top": [(k[:60], ms) for k, ms in top]}
 
 
 def flash_bound_ms(bh: int, sq: int, skv: int, d: int, causal: bool,
@@ -903,6 +996,77 @@ def grouped_bound_ms(e: int, c: int, d: int, f: int) -> tuple[float, str]:
     return _bound(2.0 * e * c * d * f, 4.0 * e * (c * d + d * f + c * f))
 
 
+def kernel_counts(M, fa, G) -> dict:
+    return {"grouped": G.grouped_matmul_cuda.launches,
+            "grouped_by_variant": dict(
+                G.grouped_matmul_cuda.launches_by_variant),
+            "flash": fa.flash_attention_cuda.launches,
+            "matmul": M.matmul_cuda.launches}
+
+
+def reset_counts(M, fa, G) -> None:
+    G.grouped_matmul_cuda.launches = 0
+    G.grouped_matmul_cuda.launches_by_variant = {"thin": 0, "tiled": 0}
+    fa.flash_attention_cuda.launches = 0
+    M.matmul_cuda.launches = 0
+
+
+def cache_bytes(caches) -> int:
+    """Bytes of a list of per-layer caches or pools (every tensor
+    field)."""
+    import dataclasses
+
+    total = 0
+    for c in caches:
+        for f in dataclasses.fields(c):
+            t = getattr(c, f.name)
+            if hasattr(t, "element_size"):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def time_grouped(G, torch, tuner, grouped_shapes, seed: int) -> dict:
+    """The grouped kernel at each (name, E, C, d, f) with the tuner's
+    tile, against its plain version (normwise within RANDOM_TOL) and
+    ``torch.bmm``, beside its bound: one row per shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs: dict[str, float] = {}
+    shapes = {}
+    for name, e, c, d, f in grouped_shapes:
+        x = torch.randn((e, c, d), generator=gen, device="cuda")
+        w = torch.randn((e, d, f), generator=gen, device="cuda")
+        tile = tuner.select(c, d, f).tile
+        bm, bk, bn = tile
+        plan = G.grouped_launch(e, c, d, f, bm, bk, bn)
+        check_close(name, G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
+                    G.grouped_matmul_torch(x, w, bm=bm, bk=bk, bn=bn),
+                    RANDOM_TOL, torch, errs, normwise=True, kind="grouped")
+        bound, bound_by = grouped_bound_ms(e, c, d, f)
+        row = {
+            "shape": [e, c, d, f], "tile": list(tile),
+            "variant": plan.variant, "stages": plan.stages,
+            "splits": plan.splits, "cta": [plan.cta_m, plan.cta_n],
+            "k_step": plan.k_step, "max_abs_err": errs[name],
+            "ms": cuda_ms(lambda: G.grouped_matmul_cuda(
+                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
+            "plain_ms": cuda_ms(lambda: G.grouped_matmul_torch(
+                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.bmm(x, w), iters=3,
+                                  warmup=1),
+            "bound_ms": bound, "bound_by": bound_by}
+        shapes[name] = row
+        print(f"[chip_smoke] grouped {name} {e}x{c}x{d}x{f} tile {tile} "
+              f"({plan.variant}, CTA {plan.cta_m}x{plan.cta_n}, K step "
+              f"{plan.k_step}, {plan.stages} stages, {plan.splits} "
+              f"splits): kernel {row['ms']:.3f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, "
+              f"torch.bmm {row['library_ms']:.3f} ms, bound "
+              f"{bound:.3f} ms ({bound_by})")
+        del x, w
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     """Phase 8: serve mixtral-8x22b (full width, MIX_LAYERS layers, fp32)
     through the port's serving code; count the grouped and flash
@@ -920,15 +1084,11 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
         "--gen-tokens", str(GEN_TOKENS), "--artifact", str(art),
         "--device", "cuda"])
     torch.cuda.reset_peak_memory_stats()
-    G.grouped_matmul_cuda.launches = 0
-    G.grouped_matmul_cuda.launches_by_variant = {"thin": 0, "tiled": 0}
-    fa.flash_attention_cuda.launches = 0
-    M.matmul_cuda.launches = 0
+    reset_counts(M, fa, G)
     res = serve.serve_config(cfg, args)
-    launches = G.grouped_matmul_cuda.launches
-    by_variant = dict(G.grouped_matmul_cuda.launches_by_variant)
-    flash_launches = fa.flash_attention_cuda.launches
-    gemm_launches = M.matmul_cuda.launches
+    n = kernel_counts(M, fa, G)
+    launches, by_variant = n["grouped"], n["grouped_by_variant"]
+    flash_launches, gemm_launches = n["flash"], n["matmul"]
     moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
     # one prefill and GEN_TOKENS - 1 decode steps, 3 expert GEMMs a layer
     want = 3 * moe_layers * GEN_TOKENS
@@ -967,11 +1127,8 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
         return res.model.prefill(res.params, res.prompts, ctx)[0]
 
     def prefill_t():
-        os.environ["ADSALA_BACKEND"] = "torch"
-        try:
-            return res.model.prefill(res.params, res.prompts, ctx)[0]
-        finally:
-            del os.environ["ADSALA_BACKEND"]
+        with plain_backend():
+            return prefill_k()
 
     with torch.inference_mode():
         logits_t = prefill_t()
@@ -991,14 +1148,8 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
         _, cache = res.model.prefill(res.params, res.prompts, ctx)
         dctx = make_ctx("decode", cache_len=PROMPT_LEN + GEN_TOKENS,
                         tuner=res.tuner)
-        steps = iter(range(10 ** 6))
-
-        def decode():
-            pos = PROMPT_LEN + next(steps) % (GEN_TOKENS - 1)
-            res.model.decode_step(res.params, res.tokens[:, :1], cache, pos,
-                                  dctx)
-
-        warm_d = cuda_ms(decode, iters=5, warmup=1)
+        warm_d = cuda_ms(decoder(res, res.tokens[:, :1], cache, dctx),
+                         iters=5, warmup=1)
     peak = torch.cuda.max_memory_allocated()
     print(f"[chip_smoke] mixtral warm prefill ({REQUESTS}x{PROMPT_LEN}): "
           f"kernel path {warm_k:.1f} ms, plain path {warm_t:.1f} ms; warm "
@@ -1024,42 +1175,8 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     del res, cache, ctx, dctx
     torch.cuda.empty_cache()
 
-    # -- the kernel at the path's bucket shapes and deepseek-v2's ----------
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    errs: dict[str, float] = {}
-    shapes = {}
-    for name, e, c, d, f in GROUPED_SHAPES:
-        x = torch.randn((e, c, d), generator=gen, device="cuda")
-        w = torch.randn((e, d, f), generator=gen, device="cuda")
-        tile = tuner.select(c, d, f).tile
-        bm, bk, bn = tile
-        plan = G.grouped_launch(e, c, d, f, bm, bk, bn)
-        check_close(name, G.grouped_matmul_cuda(x, w, bm=bm, bk=bk, bn=bn),
-                    G.grouped_matmul_torch(x, w, bm=bm, bk=bk, bn=bn),
-                    RANDOM_TOL, torch, errs, normwise=True, kind="grouped")
-        bound, bound_by = grouped_bound_ms(e, c, d, f)
-        row = {
-            "shape": [e, c, d, f], "tile": list(tile),
-            "variant": plan.variant, "stages": plan.stages,
-            "splits": plan.splits, "cta": [plan.cta_m, plan.cta_n],
-            "k_step": plan.k_step, "max_abs_err": errs[name],
-            "ms": cuda_ms(lambda: G.grouped_matmul_cuda(
-                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
-            "plain_ms": cuda_ms(lambda: G.grouped_matmul_torch(
-                x, w, bm=bm, bk=bk, bn=bn), iters=3, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.bmm(x, w), iters=3,
-                                  warmup=1),
-            "bound_ms": bound, "bound_by": bound_by}
-        shapes[name] = row
-        print(f"[chip_smoke] grouped {name} {e}x{c}x{d}x{f} tile {tile} "
-              f"({plan.variant}, CTA {plan.cta_m}x{plan.cta_n}, K step "
-              f"{plan.k_step}, {plan.stages} stages, {plan.splits} "
-              f"splits): kernel {row['ms']:.3f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, "
-              f"torch.bmm {row['library_ms']:.3f} ms, bound "
-              f"{bound:.3f} ms ({bound_by})")
-        del x, w
-        torch.cuda.empty_cache()
+    # -- the kernel at the path's bucket shapes ------------------------------
+    shapes = time_grouped(G, torch, tuner, GROUPED_SHAPES, seed=6)
     # the flash kernel at mixtral's attention shape and the tuner's block
     hd = cfg.resolved_head_dim
     choice = tuner.select(PROMPT_LEN, hd, PROMPT_LEN, "attn")
@@ -1190,9 +1307,7 @@ def phase_queue(M, fa, G, torch) -> dict:
     from repro_torch.launch import serve
 
     args = serve.parse_args(queue_argv())
-    fa.flash_attention_cuda.launches = 0
-    M.matmul_cuda.launches = 0
-    G.grouped_matmul_cuda.launches = 0
+    reset_counts(M, fa, G)
     res = serve.serve_config(get_config(ARCH), args, keep_logits=True)
     launches = fa.flash_attention_cuda.launches
     sched, cfg = res.sched, res.cfg
@@ -1241,8 +1356,7 @@ def phase_queue(M, fa, G, torch) -> dict:
                      "seed": 1},
            "slots": QUEUE_SLOTS, "page_size": QUEUE_PAGE,
            "n_pages": res.n_pages, "cap": sched.cap,
-           "kv_bytes": sum(p.k.numel() * p.k.element_size() * 2
-                           for p in sched.pool),
+           "kv_bytes": cache_bytes(sched.pool),
            "flash_launches": launches, "expected_flash_launches": want,
            "tok_per_s": res.tok_per_s, "wall_s": res.wall_s,
            "goodput": sched.goodput(), "steps": sched.steps,
@@ -1533,6 +1647,329 @@ def phase_train(M, fa, G, torch) -> dict:
     return out
 
 
+def phase_deepseek(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
+    """Phase 12 (a)-(c): serve deepseek-v2-236b (full width, DS_LAYERS
+    layers, fp32) through ``serve.serve_config`` and through the
+    continuous-batching scheduler over latent page pools; count the
+    grouped launches; check against the plain path and the fixed batch;
+    time the grouped kernel at deepseek's buckets."""
+    import dataclasses
+    import gc
+    import types
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve.kv_cache import pages_for
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    from repro_torch.train.step import make_ctx
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"[chip_smoke] deepseek: {held / 2 ** 30:.3f} GiB allocated at "
+          f"the start (at most {DS_HELD_MAX / 2 ** 30:g})")
+    if held > DS_HELD_MAX:
+        raise SystemExit("[chip_smoke] FAIL: earlier phases left memory "
+                         "allocated")
+
+    # -- (a) the fixed batch through the launcher ---------------------------
+    cfg = dataclasses.replace(get_config(DS_ARCH), n_layers=DS_LAYERS)
+    args = serve.parse_args([
+        "--requests", str(REQUESTS), "--prompt-len", str(PROMPT_LEN),
+        "--gen-tokens", str(GEN_TOKENS), "--artifact", str(art),
+        "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(M, fa, G)
+    res = serve.serve_config(cfg, args)
+    n = kernel_counts(M, fa, G)
+    moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
+    want = 3 * moe_layers * GEN_TOKENS
+    want_variant = {"tiled": 3 * moe_layers,
+                    "thin": 3 * moe_layers * (GEN_TOKENS - 1)}
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    print(f"[chip_smoke] deepseek: {cfg.n_layers} layers ({moe_layers} MoE) "
+          f"x d_model {cfg.d_model}, {cfg.n_heads} heads, MLA q_lora "
+          f"{cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank}, {cfg.n_experts} "
+          f"experts top-{cfg.top_k} x d_ff {cfg.d_ff_expert} + "
+          f"{cfg.n_shared_experts} shared: {n_params / 1e9:.3f} B "
+          f"parameters (fp32, {4 * n_params / 1e9:.1f} GB)")
+    print(f"[chip_smoke] deepseek serve: grouped kernel launches="
+          f"{n['grouped']} (expected 3 x {moe_layers} MoE layers x (1 "
+          f"prefill + {GEN_TOKENS - 1} decode steps) = {want}), by body "
+          f"{n['grouped_by_variant']} (expected {want_variant}); flash "
+          f"launches={n['flash']}, matmul launches={n['matmul']} "
+          "(expected 0: MLA attends on the chunked path, the projections "
+          "go to torch.matmul)")
+    if n["grouped"] != want or n["grouped_by_variant"] != want_variant \
+            or n["flash"] or n["matmul"]:
+        raise SystemExit("[chip_smoke] FAIL: the deepseek path did not run "
+                         "the grouped kernel 3 times per MoE layer per "
+                         "forward (tiled in prefill, thin in decode), or "
+                         "ran another kernel")
+    if not torch.isfinite(res.prefill_logits).all():
+        raise SystemExit("[chip_smoke] FAIL: non-finite deepseek logits")
+    if tuple(res.tokens.shape) != (REQUESTS, GEN_TOKENS):
+        raise SystemExit(f"[chip_smoke] FAIL: generated {res.tokens.shape}")
+
+    cache_len = PROMPT_LEN + GEN_TOKENS
+    ctx = make_ctx("prefill", cache_len=cache_len, tuner=res.tuner)
+    dctx = make_ctx("decode", cache_len=cache_len, tuner=res.tuner)
+
+    def prefill_k():
+        return res.model.prefill(res.params, res.prompts, ctx)[0]
+
+    def prefill_t():
+        with plain_backend():
+            return prefill_k()
+
+    def agree(what, got, want) -> float:
+        err = (got - want).abs().max().item()
+        same_tok = torch.equal(got.argmax(-1), want.argmax(-1))
+        print(f"[chip_smoke] deepseek {what} logits kernel vs plain: "
+              f"max_abs_err={err:.3e} (max |logit| "
+              f"{want.abs().max().item():.3f}, tol {LOGITS_TOL:g}), same "
+              f"greedy token: {same_tok}")
+        if not (err <= LOGITS_TOL and same_tok):
+            raise SystemExit(f"[chip_smoke] FAIL: deepseek kernel and plain "
+                             f"{what} disagree")
+        return err
+
+    with torch.inference_mode():
+        lerr = agree("prefill", res.prefill_logits, prefill_t())
+        warm_k = cuda_ms(prefill_k, iters=2, warmup=1)
+        warm_t = cuda_ms(prefill_t, iters=2, warmup=1)
+        _, cache = res.model.prefill(res.params, res.prompts, ctx)
+
+        def step(pos):
+            return res.model.decode_step(res.params, res.tokens[:, :1],
+                                         cache, pos, dctx)[0]
+
+        # the first decode step on the kernel path (the thin body at both
+        # decode buckets), then on the plain path over the same cache:
+        # each writes its own latent row into slot PROMPT_LEN, then reads
+        thin = G.grouped_matmul_cuda.launches_by_variant["thin"]
+        step_k = step(PROMPT_LEN)
+        thin = G.grouped_matmul_cuda.launches_by_variant["thin"] - thin
+        if thin != 3 * moe_layers:
+            raise SystemExit(f"[chip_smoke] FAIL: a deepseek decode step "
+                             f"ran the thin body {thin} times")
+        with plain_backend():
+            derr = agree("decode step", step_k, step(PROMPT_LEN))
+        warm_d = cuda_ms(decoder(res, res.tokens[:, :1], cache, dctx),
+                         iters=5, warmup=1)
+        latent = cache_bytes(cache) // (len(cache) * REQUESTS * cache_len)
+        del cache
+    per_head = 4 * cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                                  + cfg.v_head_dim)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[chip_smoke] deepseek warm prefill ({REQUESTS}x{PROMPT_LEN}): "
+          f"kernel path {warm_k:.1f} ms, plain path {warm_t:.1f} ms; warm "
+          f"decode step {warm_d:.2f} ms ({REQUESTS / warm_d * 1e3:.1f} "
+          f"tok/s); first call prefill {res.prefill_s * 1e3:.1f} ms, "
+          f"decode {res.tok_per_s:.1f} tok/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    print(f"[chip_smoke] deepseek latent cache: {latent} B a token a layer "
+          f"((kv_lora {cfg.kv_lora_rank} + rope {cfg.qk_rope_dim}) x 4); "
+          f"a per-head K/V cache would hold {per_head} B "
+          f"({per_head / latent:.1f}x)")
+    out = {"arch": DS_ARCH, "n_layers": cfg.n_layers, "dtype": "float32",
+           "card": card_line(), "parameters": n_params,
+           "requests": REQUESTS, "prompt_len": PROMPT_LEN,
+           "gen_tokens": GEN_TOKENS, "grouped_launches": n["grouped"],
+           "expected_grouped_launches": want,
+           "grouped_launches_by_variant": n["grouped_by_variant"],
+           "flash_launches": n["flash"], "matmul_launches": n["matmul"],
+           "logits_max_abs_err": lerr, "decode_logits_max_abs_err": derr,
+           "first_prefill_ms": res.prefill_s * 1e3,
+           "first_decode_tok_per_s": res.tok_per_s,
+           "warm_prefill_ms": warm_k, "warm_prefill_plain_ms": warm_t,
+           "warm_decode_step_ms": warm_d,
+           "warm_decode_tok_per_s": REQUESTS / warm_d * 1e3,
+           "max_memory_allocated": peak,
+           "latent_cache_bytes_per_token_layer": latent,
+           "per_head_kv_bytes_per_token_layer": per_head}
+
+    # -- (b) the paged trace over latent pools ------------------------------
+    max_seq = DS_QUEUE_PROMPT + DS_QUEUE_GEN
+    sched = ContinuousBatchingScheduler(
+        res.model, cfg, res.params, slots=DS_QUEUE_SLOTS,
+        n_pages=2 * DS_QUEUE_SLOTS * pages_for(max_seq, DS_QUEUE_PAGE),
+        page_size=DS_QUEUE_PAGE, max_seq_len=max_seq, keep_logits=True)
+    rng = np.random.default_rng(1)
+    for _ in range(DS_QUEUE_REQUESTS):
+        length = int(rng.integers(DS_QUEUE_PROMPT // 4, DS_QUEUE_PROMPT + 1))
+        new = int(rng.integers(DS_QUEUE_GEN // 4, DS_QUEUE_GEN + 1))
+        sched.submit(rng.integers(0, cfg.vocab, length).tolist(), new)
+    reset_counts(M, fa, G)
+    t0 = time.perf_counter()
+    finished = sched.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nq = kernel_counts(M, fa, G)
+    want_q = 3 * moe_layers * (sched.admitted + sched.steps)
+    stats = step_stats([(sec, act) for sec, act in sched.decode_log])
+    print(f"[chip_smoke] deepseek queue: {len(finished)} requests "
+          f"(prompts {sorted(len(f.prompt) for f in finished.values())}) on "
+          f"{DS_QUEUE_SLOTS} slots, {sched.n_pages} pages x "
+          f"{DS_QUEUE_PAGE}: {sched.generated_tokens} tokens in {wall:.2f}s "
+          f"over {sched.steps} steps, goodput {sched.goodput():.3f}, decode "
+          f"step {stats['mean_ms']:.2f} ms mean; grouped launches="
+          f"{nq['grouped']} (expected 3 x {moe_layers} x ({sched.admitted} "
+          f"prefills + {sched.steps} steps) = {want_q}), flash "
+          f"{nq['flash']}, matmul {nq['matmul']}")
+    if nq["grouped"] != want_q or nq["flash"] or nq["matmul"] \
+            or sched.admitted != DS_QUEUE_REQUESTS:
+        raise SystemExit("[chip_smoke] FAIL: the paged deepseek path did "
+                         "not run the grouped kernel 3 times per MoE layer "
+                         "per prefill and step")
+    sched.alloc.check()
+    if sched.alloc.live_pages != 0 or len(finished) != DS_QUEUE_REQUESTS:
+        raise SystemExit("[chip_smoke] FAIL: deepseek queue run left live "
+                         "pages or unfinished requests")
+    parity = fixed_batch_parity(types.SimpleNamespace(
+        sched=sched, model=res.model, params=res.params), torch)
+    print(f"[chip_smoke] deepseek queue parity vs fixed batch: "
+          f"{parity['token_identical_requests']}/{len(finished)} requests "
+          f"token-identical, logits max_abs_err="
+          f"{parity['logits_max_abs_err']:.3e} over "
+          f"{parity['steps_compared']} steps (tol {LOGITS_TOL:g})")
+    out["queue"] = {"requests": DS_QUEUE_REQUESTS, "slots": DS_QUEUE_SLOTS,
+                    "page_size": DS_QUEUE_PAGE, "n_pages": sched.n_pages,
+                    "prompt_lens": [len(f.prompt) for _, f in
+                                    sorted(finished.items())],
+                    "steps": sched.steps, "tokens": sched.generated_tokens,
+                    "goodput": sched.goodput(), "wall_s": wall,
+                    "decode_step": stats, "grouped_launches": nq["grouped"],
+                    "expected_grouped_launches": want_q,
+                    "latent_pool_bytes": cache_bytes(sched.pool),
+                    "parity": parity}
+    tuner = res.tuner
+    del res, sched, finished, ctx, dctx
+    torch.cuda.empty_cache()
+
+    # -- (c) the grouped kernel at deepseek's buckets ------------------------
+    entry = {"launches": n["grouped"],
+             "launches_by_variant": n["grouped_by_variant"],
+             "shapes": time_grouped(G, torch, tuner, DS_GROUPED_SHAPES,
+                                    seed=8)}
+    return out, entry
+
+
+def phase_int8(M, fa, G, torch) -> dict:
+    """Phase 12 (d): stablelm-1.6b at full width and depth on the int8 KV
+    cache (ADSALA_KV_INT8=1) through the launcher, then the same prompts
+    on the fp32 and the int8 cache fed the fp32 path's greedy tokens:
+    relative logit error at every step, flash launches, cache bytes,
+    warm decode steps."""
+    from repro_torch.launch import serve
+    from repro_torch.train.step import make_ctx
+
+    argv = ["--arch", ARCH, "--scale", "full", "--requests", str(REQUESTS),
+            "--prompt-len", str(PROMPT_LEN), "--gen-tokens",
+            str(GEN_TOKENS), "--device", "cuda"]
+    cache_len = PROMPT_LEN + GEN_TOKENS
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(M, fa, G)
+    os.environ["ADSALA_KV_INT8"] = "1"
+    try:
+        res = serve.run(argv)
+    finally:
+        del os.environ["ADSALA_KV_INT8"]
+    n = kernel_counts(M, fa, G)
+    cfg = res.cfg
+    print(f"[chip_smoke] int8: {ARCH} served with ADSALA_KV_INT8=1: flash "
+          f"launches={n['flash']} (expected {cfg.n_layers})")
+    if n["flash"] != cfg.n_layers or not torch.isfinite(
+            res.prefill_logits).all():
+        raise SystemExit("[chip_smoke] FAIL: the int8 serving path did not "
+                         "run the flash kernel once per layer, or its "
+                         "logits are not finite")
+
+    paths = {}
+    with torch.inference_mode():
+        for name, flag in (("fp32", None), ("int8", "1")):
+            if flag:
+                os.environ["ADSALA_KV_INT8"] = flag
+            try:
+                pctx = make_ctx("prefill", cache_len=cache_len)
+                dctx = make_ctx("decode", cache_len=cache_len)
+            finally:
+                os.environ.pop("ADSALA_KV_INT8", None)
+            if pctx.kv_quantized != bool(flag):
+                raise SystemExit("[chip_smoke] FAIL: ADSALA_KV_INT8 did not "
+                                 "reach make_ctx")
+            reset_counts(M, fa, G)
+            logits, cache = res.model.prefill(res.params, res.prompts, pctx)
+            flash = fa.flash_attention_cuda.launches
+            if flash != cfg.n_layers or any(
+                    c.quantized != bool(flag) for c in cache):
+                raise SystemExit(f"[chip_smoke] FAIL: the {name} prefill ran "
+                                 f"{flash} flash launches, or built the "
+                                 "wrong cache")
+            rows = [logits.float()]
+            if name == "fp32":
+                toks = [torch.argmax(logits, -1)[:, None]]
+            for i in range(GEN_TOKENS - 1):
+                logits, cache = res.model.decode_step(
+                    res.params, toks[i], cache, PROMPT_LEN + i, dctx)
+                rows.append(logits.float())
+                if name == "fp32":
+                    toks.append(torch.argmax(logits, -1)[:, None])
+            paths[name] = {"rows": rows, "flash_launches": flash,
+                           "cache_bytes": cache_bytes(cache),
+                           "decode": decoder(res, toks[0], cache, dctx)}
+            del cache
+        # warm decode steps of the two caches in turns, then a profiler
+        # trace of each: the kernels' own time against the step's
+        for name in INT8_TURNS:
+            paths[name].setdefault("warm_decode_step_ms", []).append(
+                cuda_ms(paths[name]["decode"], iters=INT8_ITERS, warmup=2))
+        for p in paths.values():
+            p["trace"] = trace_steps(p["decode"], torch)
+    rel = [((q - f).abs().max() / f.abs().max()).item()
+           for f, q in zip(paths["fp32"]["rows"], paths["int8"]["rows"])]
+    peak = torch.cuda.max_memory_allocated()
+    ratio = paths["fp32"]["cache_bytes"] / paths["int8"]["cache_bytes"]
+    print("[chip_smoke] int8 vs fp32 cache, max |dlogit| / max |logit| at "
+          "prefill and each step (fed the fp32 greedy tokens): "
+          + " ".join(f"{r:.2e}" for r in rel) + f" (gate {INT8_REL_TOL})")
+    print(f"[chip_smoke] int8: cache bytes fp32 "
+          f"{paths['fp32']['cache_bytes']} int8 "
+          f"{paths['int8']['cache_bytes']} ({ratio:.2f}x); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    for name, p in paths.items():
+        t = p["trace"]
+        traced = "the profiler recorded no device event"
+        if t["events"]:
+            steps_ms = p["warm_decode_step_ms"]
+            idle = 1 - t["device_ms"] / (sum(steps_ms) / len(steps_ms))
+            traced = (f"traced: {t['events']:.0f} device events, "
+                      f"{t['device_ms']:.2f} ms of device time a step "
+                      f"(idle {idle:.0%}); most: " + ", ".join(
+                          f"{k} {ms:.3f} ms" for k, ms in t["top"]))
+        print(f"[chip_smoke] int8: {name} warm decode step, {INT8_ITERS} "
+              f"steps a turn in turns {' '.join(INT8_TURNS)}: "
+              + ", ".join(f"{ms:.2f}" for ms in p["warm_decode_step_ms"])
+              + f" ms; {traced}")
+    if not max(rel) < INT8_REL_TOL:
+        raise SystemExit("[chip_smoke] FAIL: the int8 KV cache misses the "
+                         f"{INT8_REL_TOL} logit gate")
+    out = {"arch": ARCH, "dtype": "float32", "requests": REQUESTS,
+           "prompt_len": PROMPT_LEN, "gen_tokens": GEN_TOKENS,
+           "serve_flash_launches": n["flash"], "rel_logit_err": rel,
+           "cache_bytes_ratio": ratio, "max_memory_allocated": peak,
+           "turns": list(INT8_TURNS), "iters": INT8_ITERS}
+    for name, p in paths.items():
+        out[name] = {k: v for k, v in p.items()
+                     if k not in ("rows", "decode")}
+    del res, paths
+    torch.cuda.empty_cache()
+    return out
+
+
 START = time.perf_counter()
 
 
@@ -1629,11 +2066,8 @@ def main() -> int:
 
     def prefill_t():
         # the same prefill with the kernels' plain versions
-        os.environ["ADSALA_BACKEND"] = "torch"
-        try:
-            return res.model.prefill(res.params, res.prompts, ctx)[0]
-        finally:
-            del os.environ["ADSALA_BACKEND"]
+        with plain_backend():
+            return prefill_k()
 
     with torch.inference_mode():
         logits_t = prefill_t()
@@ -1653,14 +2087,8 @@ def main() -> int:
         _, cache = res.model.prefill(res.params, res.prompts, ctx)
         dctx = make_ctx("decode", cache_len=PROMPT_LEN + GEN_TOKENS,
                         tuner=res.tuner)
-        steps = iter(range(10 ** 6))
-
-        def decode():
-            pos = PROMPT_LEN + next(steps) % (GEN_TOKENS - 1)
-            res.model.decode_step(res.params, res.tokens[:, :1], cache, pos,
-                                  dctx)
-
-        warm_d = cuda_ms(decode, iters=10, warmup=2)
+        warm_d = cuda_ms(decoder(res, res.tokens[:, :1], cache, dctx),
+                         iters=10, warmup=2)
     print(f"[chip_smoke] warm prefill ({REQUESTS}x{PROMPT_LEN}): kernel "
           f"path {warm_k:.1f} ms, plain path {warm_t:.1f} ms; warm decode "
           f"step {warm_d:.2f} ms ({REQUESTS / warm_d * 1e3:.1f} tok/s)")
@@ -1703,7 +2131,15 @@ def main() -> int:
     print(f"[chip_smoke] phase 11 took {training['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
-    # -- 12. report ---------------------------------------------------------------
+    # -- 12. deepseek and int8 ------------------------------------------------------
+    t0 = time.perf_counter()
+    deepseek, ds_grouped = phase_deepseek(art, mm, fa, gm, torch)
+    deepseek["int8"] = phase_int8(mm, fa, gm, torch)
+    deepseek["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
+          f"script {time.perf_counter() - START:.1f}s so far")
+
+    # -- 13. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs),
                flash_entry("flash_attention@mixtral_prefill",
@@ -1713,16 +2149,19 @@ def main() -> int:
                            serving["queue"]["flash_launches"])]
     # one entry per measured shape: the tiled GEMM at 2048^3 (the main
     # entry) and the largest cube, the grouped kernel at mixtral's decode
-    # bucket (the main entry: 180 of its 192 launches) and prefill bucket
-    # and at deepseek-v2's experts
+    # bucket (the main entry: 180 of its 192 launches) and prefill bucket,
+    # and at deepseek-v2's four buckets with the launches of deepseek's
+    # path (no main entry there)
     for name, source, replaces, entry, errs_, main in (
             ("matmul", "matmul.cu", "src/repro/kernels/matmul.py:57",
              gemm_entry, gemm_errs, f"gemm_{LARGE_CUBE}"),
             ("grouped_matmul", "grouped_matmul.cu",
              "src/repro/kernels/grouped_matmul.py:51", grouped_entry,
-             grouped_errs, "mixtral_decode")):
-        order = [main] + [k for k in entry["shapes"] if k != main]
-        for key in order:
+             grouped_errs, "mixtral_decode"),
+            ("grouped_matmul", "grouped_matmul.cu",
+             "src/repro/kernels/grouped_matmul.py:51", ds_grouped,
+             grouped_errs, None)):
+        for key in sorted(entry["shapes"], key=lambda k: k != main):
             row = entry["shapes"][key]
             kernels.append({
                 "name": name if key == main else f"{name}@{key}",
@@ -1742,6 +2181,7 @@ def main() -> int:
                    if k in ("cta", "k_step", "group", "ms_by_tile")}})
     print(json.dumps({"adsala": adsala}))
     print(json.dumps({"mixtral": mixtral}))
+    print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": training}))
     print(json.dumps({"kernels": kernels}))

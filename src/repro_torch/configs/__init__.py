@@ -37,15 +37,14 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig):
-    """The decoder-only LM of the dense family and of the moe family
-    with GQA attention (mixtral); other families, and MLA attention
-    (deepseek-v2), are not ported yet."""
-    if cfg.family == "moe" and cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention (models/mla.py) is not ported yet")
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "gqa":
+    """The decoder-only LM of the dense family with GQA attention and of
+    the moe family with GQA (mixtral) or MLA attention (deepseek-v2);
+    other families are not ported yet."""
+    if not (cfg.family == "dense" and cfg.attn_kind == "gqa"
+            or cfg.family == "moe" and cfg.attn_kind in ("gqa", "mla")):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} attn {cfg.attn_kind!r} is "
-            "not ported yet (dense and moe families with GQA attention)")
+            "not ported yet (dense family with GQA attention, moe family "
+            "with GQA or MLA attention)")
     from repro_torch.models.transformer import build_lm
     return build_lm(cfg)

@@ -2,7 +2,7 @@
 (train/prefill through ``ops.flash_attention`` — the flash kernel, or
 the reference's XLA paths on the ``library`` backend — chunked-softmax
 attention for long sequences, one-token decode over a full or ring KV
-cache, or over a paged KV pool for continuous batching).
+cache, fp or int8, or over a paged KV pool for continuous batching).
 
 Plain functions on tensors; parameters arrive as dicts built from the
 ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
@@ -266,16 +266,19 @@ def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None,
 @dataclasses.dataclass
 class KVCache:
     """Either a full cache (capacity = max seq) or a ring buffer
-    (capacity = window) for sliding-window layers.  The reference's int8
-    variant is not ported yet."""
-    k: torch.Tensor            # (B, cap, Hkv, Dh)
+    (capacity = window) for sliding-window layers.
+
+    Optionally int8-quantised, as the reference's: k/v stored int8 with
+    a per-(batch, slot, head) fp16 scale."""
+    k: torch.Tensor            # (B, cap, Hkv, Dh) — float or int8
     v: torch.Tensor
     windowed: bool = False
+    k_scale: torch.Tensor | None = None    # (B, cap, Hkv) when quantised
+    v_scale: torch.Tensor | None = None
 
-
-def _no_int8(quantized: bool) -> None:
-    if quantized:
-        raise NotImplementedError("int8 KV cache is not ported yet")
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_kv_cache(batch: int, capacity: int, n_kv_heads: int,
@@ -283,11 +286,33 @@ def init_kv_cache(batch: int, capacity: int, n_kv_heads: int,
                   device: torch.device | str = "cpu",
                   windowed: bool = False,
                   quantized: bool = False) -> KVCache:
-    _no_int8(quantized)
     shape = (batch, capacity, n_kv_heads, head_dim)
+    if quantized:
+        sshape = (batch, capacity, n_kv_heads)
+        return KVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device), windowed,
+            torch.ones(sshape, dtype=torch.float16, device=device),
+            torch.ones(sshape, dtype=torch.float16, device=device))
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    windowed)
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, H, D) -> int8 values + per-(B, S, H) fp16 scales: max |x|
+    over D / 127 (at least 1e-8) in fp32, round half to even, clip to
+    ±127 — the reference's arithmetic, so payload and scales are equal
+    bit for bit."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
 
 
 def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
@@ -297,19 +322,26 @@ def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
     Full cache: the first S slots filled, the rest zero.  Ring cache: the
     last ``capacity`` positions land at slot = pos % capacity (a cyclic
     roll), or, for a prompt shorter than the ring, the first S slots.
+    ``quantized`` quantises the whole seeded cache, empty slots included
+    (as the reference quantises its padded cache: their scale is 1e-8
+    in fp16, i.e. 0).
     """
-    _no_int8(quantized)
     b, sq, hk, hd = k.shape
     if windowed and sq >= capacity:
         shift = sq % capacity
-        return KVCache(torch.roll(k[:, -capacity:], shift, dims=1),
-                       torch.roll(v[:, -capacity:], shift, dims=1), True)
-    if capacity < sq:
-        raise ValueError(f"prompt {sq} exceeds cache {capacity}")
-    cache = init_kv_cache(b, capacity, hk, hd, k.dtype, device=k.device,
-                          windowed=windowed)
-    cache.k[:, :sq] = k
-    cache.v[:, :sq] = v
+        cache = KVCache(torch.roll(k[:, -capacity:], shift, dims=1),
+                        torch.roll(v[:, -capacity:], shift, dims=1), True)
+    else:
+        if capacity < sq:
+            raise ValueError(f"prompt {sq} exceeds cache {capacity}")
+        cache = init_kv_cache(b, capacity, hk, hd, k.dtype,
+                              device=k.device, windowed=windowed)
+        cache.k[:, :sq] = k
+        cache.v[:, :sq] = v
+    if quantized:
+        kq, ks = _quantize_kv(cache.k)
+        vq, vs = _quantize_kv(cache.v)
+        return KVCache(kq, vq, windowed, ks, vs)
     return cache
 
 
@@ -342,7 +374,8 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     slot ``pos % cap`` and reads the last ``min(pos + 1, cap)`` writes.
     Unlike the reference, whose ``dynamic_update_slice`` returns a new
     array, the new row is written into ``cache`` in place, and the same
-    cache is returned.
+    cache is returned; an int8 cache takes the quantised row and its
+    scales in place too, and attends over the dequantised cache.
     """
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
@@ -351,8 +384,19 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
                 routine="trsm", site="attn.cache_update")
     slot = int(pos) % cap if cache.windowed else min(int(pos), cap - 1)
-    cache.k[:, slot] = k_new[:, 0]
-    cache.v[:, slot] = v_new[:, 0]
+    if cache.quantized:
+        kq, ks = _quantize_kv(k_new)
+        vq, vs = _quantize_kv(v_new)
+        cache.k[:, slot] = kq[:, 0]
+        cache.v[:, slot] = vq[:, 0]
+        cache.k_scale[:, slot] = ks[:, 0]
+        cache.v_scale[:, slot] = vs[:, 0]
+        k = _dequantize_kv(cache.k, cache.k_scale, x.dtype)
+        v = _dequantize_kv(cache.v, cache.v_scale, x.dtype)
+    else:
+        cache.k[:, slot] = k_new[:, 0]
+        cache.v[:, slot] = v_new[:, 0]
+        k, v = cache.k, cache.v
 
     kv_ids = torch.arange(cap, device=x.device)
     if cache.windowed:
@@ -360,8 +404,7 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
         valid = (slot - kv_ids) % cap < min(int(pos) + 1, cap)
     else:
         valid = kv_ids <= pos
-    return _decode_attend(p, x, s, q, cache.k, cache.v, valid[None, :],
-                          tuner), cache
+    return _decode_attend(p, x, s, q, k, v, valid[None, :], tuner), cache
 
 
 def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
@@ -400,7 +443,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
                 routine="trsm", site="attn.cache_update")
     active = pos >= 0
     if plan is None:
-        plan = plan_pages(page_table, pos, active, pool.k.shape[0],
+        plan = plan_pages(page_table, pos, active, pool.n_pages,
                           pool.page_size)
     append_token(pool.k, page_table, pos, k_new[:, 0], active, plan)
     append_token(pool.v, page_table, pos, v_new[:, 0], active, plan)

@@ -1,0 +1,275 @@
+"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
+
+Queries and keys/values are projected through low-rank latents; the
+decode cache stores only the compressed latent c_kv (kv_lora_rank) plus
+the decoupled RoPE key (qk_rope_dim) per token — the memory saving that
+defines MLA.  Shapes follow the paper: per head the query/key split into
+a non-positional part (qk_nope_dim) and a shared rotary part
+(qk_rope_dim); values have their own head dim.
+
+The port of :mod:`repro.models.mla`: plain functions on tensor dicts,
+the same recorder sites in the same order.  Prefill attention is the
+reference's chunked XLA path (:func:`layers.chunked_attention_xla`):
+q/k have qk_nope + qk_rope dims and v has v_head_dim, which the flash
+kernel does not take.  Unlike the reference, whose
+``dynamic_update_slice`` returns new arrays, :func:`mla_decode` writes
+the new latent row into the cache in place and returns the same cache,
+as :func:`layers.attention_decode` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import (
+    chunked_attention_xla,
+    linear,
+    rmsnorm,
+    rope_angles,
+)
+from repro_torch.models.params import ParamDef
+
+__all__ = ["MLASpec", "mla_defs", "mla_train", "mla_decode",
+           "mla_decode_paged", "MLACache", "init_mla_cache",
+           "seed_mla_cache"]
+
+_NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_dim: int
+    qk_rope_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_defs(s: MLASpec) -> dict:
+    h = s.n_heads
+    return {
+        # query path: d -> q_lora -> heads * (nope + rope)
+        "wq_a": ParamDef((s.d_model, s.q_lora_rank), ("embed", "lora")),
+        "q_norm": ParamDef((s.q_lora_rank,), (None,), init="ones"),
+        "wq_b": ParamDef((s.q_lora_rank, h * s.qk_head_dim),
+                         ("lora", "heads")),
+        # kv path: d -> kv_lora (+ shared rope key direct from d)
+        "wkv_a": ParamDef((s.d_model, s.kv_lora_rank), ("embed", "lora")),
+        "kv_norm": ParamDef((s.kv_lora_rank,), (None,), init="ones"),
+        "wk_rope": ParamDef((s.d_model, s.qk_rope_dim), ("embed", None)),
+        "wk_b": ParamDef((s.kv_lora_rank, h * s.qk_nope_dim),
+                         ("lora", "heads")),
+        "wv_b": ParamDef((s.kv_lora_rank, h * s.v_head_dim),
+                         ("lora", "heads")),
+        "wo": ParamDef((h * s.v_head_dim, s.d_model), ("heads", "embed")),
+    }
+
+
+def _rope_1head(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rotate a (B, S, R) shared rope key / (B, S, H, R) query rope part.
+
+    ``positions`` is (S,) — or (B, S) when every sequence in the batch
+    sits at its own position (the paged continuous-batching decode)."""
+    r = x.shape[-1]
+    sin, cos = rope_angles(positions, r)
+    x1, x2 = x[..., : r // 2], x[..., r // 2:]
+    if positions.dim() == 2:  # per-sequence: sin/cos already (B, S, r/2)
+        if x.dim() == 4:
+            sin = sin[:, :, None, :]
+            cos = cos[:, :, None, :]
+    elif x.dim() == 4:
+        sin = sin[None, :, None, :]
+        cos = cos[None, :, None, :]
+    else:
+        sin = sin[None, :, :]
+        cos = cos[None, :, :]
+    x1f, x2f = x1.float(), x2.float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _latents(p: dict, x: torch.Tensor, s: MLASpec, positions: torch.Tensor,
+             tuner=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B,S,H,qk_head_dim), c_kv (B,S,R_kv), k_rope (B,S,R_rope)."""
+    b, sq, _ = x.shape
+    # latent down-projections (d -> lora rank) are the skinny GEMMs MLA
+    # trades cache memory for; tag them so the tuner prices that shape
+    ops.observe(b * sq, s.d_model,
+                s.q_lora_rank + s.kv_lora_rank + s.qk_rope_dim, tuner,
+                site="mla.down_proj")
+    ops.observe(b * sq, s.q_lora_rank, s.n_heads * s.qk_head_dim,
+                tuner, site="mla.up_proj_q")
+    q_lat = rmsnorm(linear(x, p["wq_a"]), p["q_norm"])
+    q = linear(q_lat, p["wq_b"]).reshape(b, sq, s.n_heads, s.qk_head_dim)
+    q_nope, q_rope = q[..., : s.qk_nope_dim], q[..., s.qk_nope_dim:]
+    q = torch.cat([q_nope, _rope_1head(q_rope, positions)], dim=-1)
+    c_kv = rmsnorm(linear(x, p["wkv_a"]), p["kv_norm"])
+    k_rope = _rope_1head(linear(x, p["wk_rope"]), positions)
+    return q, c_kv, k_rope
+
+
+def _expand_kv(p: dict, c_kv: torch.Tensor, k_rope: torch.Tensor,
+               s: MLASpec, tuner=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress latents to per-head K (nope+rope) and V."""
+    b, sk, _ = c_kv.shape
+    # latent up-projection (kv lora rank -> per-head K/V)
+    ops.observe(b * sk, s.kv_lora_rank,
+                s.n_heads * (s.qk_nope_dim + s.v_head_dim), tuner,
+                site="mla.up_proj_kv")
+    k_nope = linear(c_kv, p["wk_b"]).reshape(b, sk, s.n_heads,
+                                             s.qk_nope_dim)
+    v = linear(c_kv, p["wv_b"]).reshape(b, sk, s.n_heads, s.v_head_dim)
+    k_rope_h = k_rope[:, :, None, :].expand(b, sk, s.n_heads,
+                                            s.qk_rope_dim)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    return k, v
+
+
+def mla_train(p: dict, x: torch.Tensor, s: MLASpec, tuner=None
+              ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (out, (c_kv, k_rope)) — the latents seed the decode cache."""
+    b, sq, _ = x.shape
+    positions = torch.arange(sq, device=x.device)
+    q, c_kv, k_rope = _latents(p, x, s, positions, tuner)
+    k, v = _expand_kv(p, c_kv, k_rope, s, tuner)
+    # causal scores: SYRK-shaped like GQA attention (triangular output)
+    ops.observe(sq, s.qk_head_dim, sq, tuner, routine="syrk",
+                site="mla.qk", count=b * s.n_heads)
+    out = chunked_attention_xla(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=None, chunk=min(512, sq))
+    del q, k, v
+    out = out.transpose(1, 2).reshape(b, sq, s.n_heads * s.v_head_dim)
+    return linear(out, p["wo"]), (c_kv, k_rope)
+
+
+@dataclasses.dataclass
+class MLACache:
+    """Compressed latent cache: (B, cap, kv_lora_rank) + (B, cap, rope)."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+
+
+def init_mla_cache(batch: int, capacity: int, s: MLASpec,
+                   dtype: torch.dtype, *,
+                   device: torch.device | str = "cpu") -> MLACache:
+    return MLACache(
+        torch.zeros((batch, capacity, s.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, capacity, s.qk_rope_dim), dtype=dtype,
+                    device=device))
+
+
+def seed_mla_cache(c_kv: torch.Tensor, k_rope: torch.Tensor,
+                   capacity: int) -> MLACache:
+    """The decode cache from prefill latents: the first S slots filled,
+    the rest zero."""
+    b, sq, r = c_kv.shape
+    if capacity < sq:
+        raise ValueError(f"prompt {sq} exceeds cache {capacity}")
+    cache = MLACache(
+        c_kv.new_zeros((b, capacity, r)),
+        k_rope.new_zeros((b, capacity, k_rope.shape[-1])))
+    cache.c_kv[:, :sq] = c_kv
+    cache.k_rope[:, :sq] = k_rope
+    return cache
+
+
+def _absorbed_attend(p: dict, x: torch.Tensor, s: MLASpec,
+                     q: torch.Tensor, c_kv: torch.Tensor,
+                     k_rope: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The one-token attention both decode paths share, in latent space:
+    q (B, 1, H, qk_head_dim) over c_kv (B, cap, R_kv) and k_rope (B, cap,
+    R_rope) with ``valid`` (1 or B, cap) masking the slots it may read,
+    then the output projection.
+
+    Absorbed-projection trick: q_nope is absorbed through wk_b, so the
+    cache is never decompressed to per-head K/V; the output leaves
+    latent space through wv_b per head."""
+    b = x.shape[0]
+    q_nope = q[..., : s.qk_nope_dim]       # (B, 1, H, nope)
+    q_rope = q[..., s.qk_nope_dim:]        # (B, 1, H, rope)
+    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
+    q_lat = torch.einsum("bohd,rhd->bhr", q_nope.float(), wk_b.float())
+    c_kv32 = c_kv.float()
+    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, c_kv32)
+    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * (s.qk_head_dim ** -0.5)
+    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhk,bkr->bhr", probs, c_kv32)
+    wv_b = p["wv_b"].reshape(s.kv_lora_rank, s.n_heads, s.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b.float())
+    out = out.reshape(b, 1, s.n_heads * s.v_head_dim).to(x.dtype)
+    return linear(out, p["wo"])
+
+
+def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache: MLACache,
+               pos: int, tuner=None) -> tuple[torch.Tensor, MLACache]:
+    """One-token decode against the latent cache: x (B, 1, D); ``pos`` =
+    tokens so far.  The new latent row is written into ``cache`` in
+    place (slot ``min(pos, cap - 1)``, where the reference's
+    ``dynamic_update_slice`` clamps), and the same cache is returned."""
+    b = x.shape[0]
+    positions = torch.full((1,), pos, device=x.device)
+    q, c_kv_new, k_rope_new = _latents(p, x, s, positions, tuner)
+    cap = cache.c_kv.shape[1]
+    # latent cache update: sequential append + triangular-prefix read,
+    # TRSM-adjacent exactly like the GQA KV cache update
+    ops.observe(cap, s.kv_lora_rank, b * s.n_heads,
+                tuner, routine="trsm", site="mla.cache_update")
+    slot = min(int(pos), cap - 1)
+    cache.c_kv[:, slot] = c_kv_new[:, 0]
+    cache.k_rope[:, slot] = k_rope_new[:, 0]
+    valid = torch.arange(cap, device=x.device) <= pos
+    return _absorbed_attend(p, x, s, q, cache.c_kv, cache.k_rope,
+                            valid[None, :]), cache
+
+
+def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
+                     page_table: torch.Tensor, pos: torch.Tensor,
+                     tuner=None, plan=None):
+    """One-token decode against a paged latent pool (continuous batching).
+
+    The paged twin of :func:`mla_decode`: ``pos`` is (B,) int per-
+    sequence positions (-1 = inactive slot), ``page_table`` (B, P) maps
+    logical pages to physical pages of the
+    :class:`repro_torch.serve.kv_cache.PagedLatent` pool.  Same absorbed
+    attention (:func:`_absorbed_attend`) on the page-gathered latent
+    view; the latent cache update keeps its TRSM-site recorder tag.  The
+    new rows are written into the pool in place and the same pool is
+    returned; an inactive slot writes nothing, with no host sync.
+    ``plan`` is the step's
+    :func:`~repro_torch.serve.kv_cache.plan_pages` for this table and
+    these positions, computed once for all layers (else here).
+    """
+    from repro_torch.serve.kv_cache import (append_token, gather_pages,
+                                            plan_pages)
+
+    b = x.shape[0]
+    q, c_kv_new, k_rope_new = _latents(p, x, s, pos[:, None], tuner)
+    cap = page_table.shape[1] * pool.page_size
+    ops.observe(cap, s.kv_lora_rank, b * s.n_heads,
+                tuner, routine="trsm", site="mla.cache_update")
+    active = pos >= 0
+    if plan is None:
+        plan = plan_pages(page_table, pos, active, pool.n_pages,
+                          pool.page_size)
+    append_token(pool.c_kv, page_table, pos, c_kv_new[:, 0], active, plan)
+    append_token(pool.k_rope, page_table, pos, k_rope_new[:, 0], active,
+                 plan)
+    c_kv = gather_pages(pool.c_kv, page_table, plan)       # (B, cap, R_kv)
+    k_rope = gather_pages(pool.k_rope, page_table, plan)   # (B, cap, R_rope)
+    valid = (torch.arange(cap, device=x.device)[None, :]
+             <= pos[:, None])
+    return _absorbed_attend(p, x, s, q, c_kv, k_rope, valid), pool

@@ -1,5 +1,6 @@
 """Decoder-only LM: GQA attention layers (full or sliding-window KV
-cache) with a dense MLP or an MoE block.
+cache, fp or int8) or MLA layers (latent cache) with a dense MLP or an
+MoE block.
 
 The reference groups layers into prefix / scanned unit / suffix and
 runs the unit under ``jax.lax.scan`` over stacked parameters.  Here the
@@ -15,7 +16,7 @@ table, decode reads and writes per-layer page pools instead
 each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
 set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
 layers take the reference's single-device path (its ``_moe_apply``
-without a mesh); MLA, recurrent and xLSTM layers are not ported yet.
+without a mesh); recurrent and xLSTM layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import recorder
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params
@@ -75,6 +77,14 @@ def _attn_spec(cfg: ArchConfig, kind: str) -> L.AttnSpec:
         qk_norm=cfg.qk_norm)
 
 
+def _mla_spec(cfg: ArchConfig) -> MLA.MLASpec:
+    return MLA.MLASpec(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim)
+
+
 def _moe_spec(cfg: ArchConfig) -> MOE.MoESpec:
     return MOE.MoESpec(
         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
@@ -82,19 +92,20 @@ def _moe_spec(cfg: ArchConfig) -> MOE.MoESpec:
 
 
 def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.kind != "attn" or cfg.attn_kind != "gqa" \
+    if spec.kind != "attn" or cfg.attn_kind not in ("gqa", "mla") \
             or spec.mlp not in ("mlp", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: layer kind={spec.kind!r} attn={cfg.attn_kind!r} "
-            f"mlp={spec.mlp!r} is not ported yet (GQA attention with an "
-            "MLP or MoE block only)")
+            f"mlp={spec.mlp!r} is not ported yet (GQA or MLA attention "
+            "with an MLP or MoE block only)")
 
 
 def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_ported(cfg, spec)
     d = cfg.d_model
-    defs = {"ln1": L.norm_defs(d, cfg.norm_kind),
-            "mixer": L.attention_defs(_attn_spec(cfg, spec.kind)),
+    mixer = (MLA.mla_defs(_mla_spec(cfg)) if cfg.attn_kind == "mla"
+             else L.attention_defs(_attn_spec(cfg, spec.kind)))
+    defs = {"ln1": L.norm_defs(d, cfg.norm_kind), "mixer": mixer,
             "ln2": L.norm_defs(d, cfg.norm_kind)}
     if spec.mlp == "moe":
         defs["moe"] = MOE.moe_defs(_moe_spec(cfg))
@@ -115,9 +126,9 @@ class Ctx:
                                    # routine-aware call site (None = the
                                    # sites still report dispatch events,
                                    # just untuned)
-    kv_quantized: bool = False     # int8 KV cache: not ported, so
-                                   # make_ctx never sets it; the cache
-                                   # builders refuse it
+    kv_quantized: bool = False     # int8 KV cache of the GQA layers
+                                   # (ADSALA_KV_INT8=1 in make_ctx);
+                                   # MLA's latent cache stays float
     remat: bool = True             # recompute each layer in the backward
                                    # pass (train mode)
     backend: str = "auto"          # ops backend of the attention core
@@ -139,11 +150,30 @@ def _cache_shape(cfg: ArchConfig, spec: LayerSpec, ctx: Ctx
 
 
 def _seed_cache(raw: Any, cfg: ArchConfig, spec: LayerSpec,
-                ctx: Ctx) -> L.KVCache:
-    """Convert the attention's prefill projections into a decode cache."""
+                ctx: Ctx) -> Any:
+    """Convert the mixer's prefill by-product (k/v projections, or MLA's
+    latents) into a decode cache."""
+    if cfg.attn_kind == "mla":
+        c_kv, k_rope = raw
+        return MLA.seed_mla_cache(c_kv, k_rope, ctx.cache_len)
     _, cap, windowed = _cache_shape(cfg, spec, ctx)
     k, v = raw
-    return L.seed_kv_cache(k, v, cap, windowed=windowed)
+    return L.seed_kv_cache(k, v, cap, windowed=windowed,
+                           quantized=ctx.kv_quantized)
+
+
+def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                      ctx: Ctx, dtype: torch.dtype,
+                      device: torch.device | str) -> Any:
+    """An empty decode cache: MLA's latent cache, or a (ring, int8)
+    KV cache."""
+    if cfg.attn_kind == "mla":
+        return MLA.init_mla_cache(batch, ctx.cache_len, _mla_spec(cfg),
+                                  dtype, device=device)
+    a, cap, windowed = _cache_shape(cfg, spec, ctx)
+    return L.init_kv_cache(batch, cap, a.n_kv_heads, a.head_dim, dtype,
+                           device=device, windowed=windowed,
+                           quantized=ctx.kv_quantized)
 
 
 def _init_layer_paged(cfg: ArchConfig, spec: LayerSpec, n_pages: int,
@@ -162,6 +192,10 @@ def _init_layer_paged(cfg: ArchConfig, spec: LayerSpec, n_pages: int,
             "(recurrent states are not paged)")
     if ctx.kv_quantized:
         raise NotImplementedError("paged decode with int8 KV cache")
+    if cfg.attn_kind == "mla":
+        s = _mla_spec(cfg)
+        return KV.init_paged_latent(n_pages, page_size, s.kv_lora_rank,
+                                    s.qk_rope_dim, dtype, device=device)
     a = _attn_spec(cfg, spec.kind)
     if a.window is not None:
         raise NotImplementedError(
@@ -185,14 +219,18 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
 
 def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
                        spec: LayerSpec, ctx: Ctx
-                       ) -> tuple[torch.Tensor, torch.Tensor | None,
-                                  L.KVCache | None]:
+                       ) -> tuple[torch.Tensor, torch.Tensor | None, Any]:
     """Full-sequence layer application.  Returns (x, aux_loss, cache):
     aux_loss is None for an MLP layer, cache is decode-format when
     ctx.mode == 'prefill', else None."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    mix, raw = L.attention_train(p["mixer"], h, _attn_spec(cfg, spec.kind),
-                                 tuner=ctx.tuner, backend=ctx.backend)
+    if cfg.attn_kind == "mla":
+        mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
+                                 tuner=ctx.tuner)
+    else:
+        mix, raw = L.attention_train(p["mixer"], h,
+                                     _attn_spec(cfg, spec.kind),
+                                     tuner=ctx.tuner, backend=ctx.backend)
     cache = _seed_cache(raw, cfg, spec, ctx) if ctx.mode == "prefill" \
         else None
     x, aux = _apply_ffn(p, x + mix, cfg, spec, ctx)
@@ -204,11 +242,19 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
                         ctx: Ctx, page_table: torch.Tensor | None = None,
                         plan: Any = None) -> tuple[torch.Tensor, Any]:
     """``page_table`` switches the attention mixer onto the paged read
-    path (the cache is a PagedKV pool, ``pos`` is (B,) per-sequence
-    positions, ``plan`` the step's page plan) — the continuous-batching
-    decode."""
+    path (the cache is a PagedKV or PagedLatent pool, ``pos`` is (B,)
+    per-sequence positions, ``plan`` the step's page plan) — the
+    continuous-batching decode."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    if page_table is not None:
+    if cfg.attn_kind == "mla":
+        if page_table is not None:
+            mix, cache = MLA.mla_decode_paged(
+                p["mixer"], h, _mla_spec(cfg), cache, page_table, pos,
+                tuner=ctx.tuner, plan=plan)
+        else:
+            mix, cache = MLA.mla_decode(p["mixer"], h, _mla_spec(cfg),
+                                        cache, pos, tuner=ctx.tuner)
+    elif page_table is not None:
         mix, cache = L.attention_decode_paged(
             p["mixer"], h, _attn_spec(cfg, spec.kind), cache, page_table,
             pos, tuner=ctx.tuner, plan=plan)
@@ -289,7 +335,7 @@ class LM:
 
     def forward(self, params: dict, tokens: torch.Tensor, ctx: Ctx
                 ) -> tuple[torch.Tensor, torch.Tensor,
-                           list[L.KVCache] | None]:
+                           list | None]:
         """(B, S) tokens -> (hidden (B, S, D), total aux loss of the MoE
         layers (fp32 scalar), caches|None)."""
         cfg = self.cfg
@@ -326,19 +372,15 @@ class LM:
 
     def init_cache(self, batch: int, ctx: Ctx,
                    dtype: torch.dtype = torch.float32,
-                   device: torch.device | str = "cpu") -> list[L.KVCache]:
-        caches = []
-        for s in self.plan:
-            a, cap, windowed = _cache_shape(self.cfg, s, ctx)
-            caches.append(L.init_kv_cache(
-                batch, cap, a.n_kv_heads, a.head_dim, dtype,
-                device=device, windowed=windowed))
-        return caches
+                   device: torch.device | str = "cpu") -> list:
+        return [_init_layer_cache(self.cfg, s, batch, ctx, dtype, device)
+                for s in self.plan]
 
     def init_paged_cache(self, n_pages: int, page_size: int, ctx: Ctx,
                          dtype: torch.dtype = torch.float32,
                          device: torch.device | str = "cpu") -> list:
-        """One :class:`~repro_torch.serve.kv_cache.PagedKV` pool per
+        """One :class:`~repro_torch.serve.kv_cache.PagedKV` (or, for MLA,
+        :class:`~repro_torch.serve.kv_cache.PagedLatent`) pool per
         layer, in model order — page pools instead of per-batch
         contiguous caches.  All layers share one page table (they see
         the same token positions), so the scheduler allocates once and
@@ -347,7 +389,7 @@ class LM:
                                   dtype, device) for s in self.plan]
 
     def prefill(self, params: dict, tokens: torch.Tensor, ctx: Ctx
-                ) -> tuple[torch.Tensor, list[L.KVCache]]:
+                ) -> tuple[torch.Tensor, list]:
         """Run the full prompt; return (last-token logits, decode caches)."""
         x, _, caches = self.forward(params, tokens, ctx)
         return self.logits_last(params, x), caches
@@ -370,7 +412,7 @@ class LM:
             # one page plan serves every layer's pools this step
             from repro_torch.serve.kv_cache import plan_pages
             plan = plan_pages(page_table, pos, pos >= 0,
-                              cache[0].k.shape[0], cache[0].page_size)
+                              cache[0].n_pages, cache[0].page_size)
         new = []
         for p, s, c in zip(params["layers"], self.plan, cache):
             x, c2 = _apply_layer_decode(p, x, c, pos, cfg, s, ctx,

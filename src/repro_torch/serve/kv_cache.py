@@ -17,19 +17,20 @@ Split of responsibilities, as in :mod:`repro.serve.kv_cache`:
   grow / retire), carried over unchanged.
 * :class:`PagedKV` / :class:`PagedLatent` — one attention layer's page
   pool: ``(n_pages, page_size, ...)`` tensors, the paged analogue of
-  :class:`~repro_torch.models.layers.KVCache`.  ``PagedLatent`` is the
-  MLA pool's type only; MLA is not ported yet.
+  :class:`~repro_torch.models.layers.KVCache` and
+  :class:`~repro_torch.models.mla.MLACache`.
 * :func:`gather_pages` / :func:`append_token` / :func:`seed_pages` —
-  the fixed-shape device primitives the paged decode read path
-  (``attention_decode_paged``) is built from, as tensor gathers and
-  scatters with no loop over slots.  Holes in the page table are
-  clamped on gather (the garbage rows land beyond every sequence's
-  valid prefix, where the attention mask kills them); inactive slots
-  and holes write nothing on scatter, never corrupting a live page.
+  the fixed-shape device primitives the paged decode read paths
+  (``attention_decode_paged``, ``mla_decode_paged``) are built from, on
+  pools of any rank, as tensor gathers and scatters with no loop over
+  slots.  Holes in the page table are clamped on gather (the garbage
+  rows land beyond every sequence's valid prefix, where the attention
+  mask kills them); inactive slots and holes write nothing on scatter,
+  never corrupting a live page.
 
 Unlike the reference's functional updates, :func:`append_token` and
 :func:`seed_pages` write the pool in place and return it, as the port's
-``attention_decode`` writes its cache.
+``attention_decode`` and ``mla_decode`` write their caches.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import torch
 
 __all__ = [
     "HOLE", "PageAllocator", "PagedKV", "PagedLatent", "init_paged_kv",
+    "init_paged_latent",
     "PagePlan", "plan_pages", "gather_pages", "append_token",
     "seed_pages", "pages_for",
 ]
@@ -173,6 +175,10 @@ class PagedKV:
     v: torch.Tensor
 
     @property
+    def n_pages(self) -> int:
+        return self.k.shape[0]
+
+    @property
     def page_size(self) -> int:
         return self.k.shape[-3]
 
@@ -181,11 +187,14 @@ class PagedKV:
 class PagedLatent:
     """One MLA layer's page pool.  ``c_kv``:
     ``(n_pages, page_size, kv_lora_rank)``, ``k_rope``:
-    ``(n_pages, page_size, qk_rope_dim)``.  The type only: paged MLA
-    waits for the MLA port."""
+    ``(n_pages, page_size, qk_rope_dim)``."""
 
     c_kv: torch.Tensor
     k_rope: torch.Tensor
+
+    @property
+    def n_pages(self) -> int:
+        return self.c_kv.shape[0]
 
     @property
     def page_size(self) -> int:
@@ -198,6 +207,16 @@ def init_paged_kv(n_pages: int, page_size: int, n_kv_heads: int,
     shape = (n_pages, page_size, n_kv_heads, head_dim)
     return PagedKV(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_paged_latent(n_pages: int, page_size: int, kv_lora_rank: int,
+                      qk_rope_dim: int, dtype: torch.dtype, *,
+                      device: torch.device | str = "cpu") -> PagedLatent:
+    return PagedLatent(
+        torch.zeros((n_pages, page_size, kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros((n_pages, page_size, qk_rope_dim), dtype=dtype,
+                    device=device))
 
 
 # ---------------------------------------------------------------------------

@@ -78,16 +78,17 @@ class FinishedSeq:
 def _seed_segment(pool: list, caches: list, page_ids: torch.Tensor) -> None:
     """Write a prefill's per-layer caches into the matching page pools.
 
-    The two lists differ in type per layer (``KVCache`` vs ``PagedKV``)
-    but align field for field — k with k, v with v; each cache holds one
-    sequence of whole pages, (1, n * page, Hkv, Dh)."""
+    The two lists differ in type per layer (``KVCache`` vs ``PagedKV``,
+    ``MLACache`` vs ``PagedLatent``) but align field for field — k with
+    k, v with v, c_kv with c_kv, k_rope with k_rope; each cache holds
+    one sequence of whole pages, (1, n * page, ...)."""
     if len(pool) != len(caches):
         raise ValueError(
             f"pool/prefill cache layer mismatch ({len(pool)} vs "
             f"{len(caches)}) — unsupported cache variant for paging")
     for pl, c in zip(pool, caches):
-        seed_pages(pl.k, page_ids, c.k[0])
-        seed_pages(pl.v, page_ids, c.v[0])
+        for f in dataclasses.fields(pl):
+            seed_pages(getattr(pl, f.name), page_ids, getattr(c, f.name)[0])
 
 
 class ContinuousBatchingScheduler:

@@ -27,20 +27,18 @@ def make_ctx(mode: str, *, cache_len: int = 0, remat: bool = True,
 
     Training runs on the ``library`` backend on any device, whatever
     ``backend`` says: no CUDA kernel has a backward.
-    ``ADSALA_KV_INT8=1`` asks the reference for int8 serving caches; the
-    port has no int8 cache yet and refuses rather than ignore it.
+    ``ADSALA_KV_INT8=1`` switches the serving caches (prefill and
+    decode) to int8, as in the reference.
     """
-    if (os.environ.get("ADSALA_KV_INT8") == "1"
-            and mode in ("prefill", "decode")):
-        raise NotImplementedError(
-            "ADSALA_KV_INT8=1: the int8 KV cache is not ported yet")
+    kv_q = (os.environ.get("ADSALA_KV_INT8") == "1"
+            and mode in ("prefill", "decode"))
     if mode == "train":
         backend = "library"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
     return Ctx(mode=mode, cache_len=cache_len, remat=remat, tuner=tuner,
-               backend=backend)
+               kv_quantized=kv_q, backend=backend)
 
 
 def build_train_step(model, cfg: ArchConfig,

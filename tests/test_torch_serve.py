@@ -114,6 +114,93 @@ def test_serve_config_serves_a_depth_cut_moe_config(port_artifact, capsys):
             assert sites.count(site) == cfg.n_experts
 
 
+def test_serve_deepseek_fixed_batch_and_queue(port_artifact, capsys):
+    """deepseek-v2 (MLA, a dense first layer, shared experts) through
+    the launcher: a fixed batch, then a ragged queue over latent page
+    pools."""
+    from repro_torch.launch import serve
+    from repro_torch.models.mla import MLACache
+    from repro_torch.serve.kv_cache import PagedLatent
+
+    base = ["--arch", "deepseek-v2-236b", "--scale", "smoke", "--device",
+            "cpu", "--artifact", port_artifact]
+    res = serve.run(base + ["--requests", "2", "--prompt-len", "8",
+                            "--gen-tokens", "3"])
+    assert tuple(res.tokens.shape) == (2, 3)
+    assert torch.isfinite(res.prefill_logits).all()
+    assert "deepseek-v2-236b: 2 requests, prefill 8 toks" in \
+        capsys.readouterr().out
+    cfg = res.cfg
+    # the artifact covers gemm and attn only: the syrk-tagged scores
+    # degrade to gemm, as in the reference
+    qk = [e for e in res.recs["prefill"].events if e.site == "mla.qk"]
+    assert [(e.routine, e.m, e.n, e.count) for e in qk] == \
+        [("gemm", 8, 8, 2 * cfg.n_heads)] * cfg.n_layers
+    sites = [e.site for e in res.recs["decode"].events]
+    assert sites.count("mla.cache_update") == cfg.n_layers
+    assert sites.count("moe.wi") == cfg.n_experts * (cfg.n_layers - 1)
+    _, cache = res.model.prefill(res.params, res.prompts[:1], serve.make_ctx(
+        "prefill", cache_len=11))
+    assert all(isinstance(c, MLACache) for c in cache)
+
+    q = serve.run(base + ["--queue", "--requests", "4", "--prompt-len",
+                          "10", "--gen-tokens", "4", "--slots", "2",
+                          "--page-size", "4"])
+    assert isinstance(q, serve.QueueResult)
+    assert all(isinstance(p, PagedLatent) for p in q.sched.pool)
+    assert len(q.sched.finished) == 4
+    q.sched.alloc.check()
+    assert q.sched.alloc.live_pages == 0
+    assert "4 requests via continuous batching" in capsys.readouterr().out
+
+
+def test_serve_deepseek_queue_cli_runs_on_cpu_without_jax():
+    code = _BLOCK + textwrap.dedent("""
+        import runpy
+        sys.argv = ["serve"] + sys.argv[1:]
+        runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+        """)
+    res = subprocess.run(
+        [sys.executable, "-c", code, "--arch", "deepseek-v2-236b",
+         "--device", "cpu", "--scale", "smoke", "--queue", "--requests",
+         "3", "--prompt-len", "8", "--gen-tokens", "4", "--slots", "2",
+         "--page-size", "4"],
+        env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "deepseek-v2-236b: 3 requests via continuous batching" in \
+        res.stdout
+
+
+def test_serve_int8_kv_cache_from_the_environment(monkeypatch):
+    """ADSALA_KV_INT8=1 reaches make_ctx: the fixed batch serves on int8
+    caches, and the queue refuses as the reference does (no paged int8
+    cache)."""
+    from repro_torch.launch import serve
+
+    made = []
+
+    def spy(*a, **kw):
+        ctx = serve_make_ctx(*a, **kw)
+        made.append(ctx)
+        return ctx
+
+    serve_make_ctx = serve.make_ctx
+    monkeypatch.setattr(serve, "make_ctx", spy)
+    monkeypatch.setenv("ADSALA_KV_INT8", "1")
+    argv = ["--device", "cpu", "--requests", "2", "--prompt-len", "8",
+            "--gen-tokens", "3"]
+    res = serve.run(argv)
+    assert tuple(res.tokens.shape) == (2, 3)
+    assert torch.isfinite(res.prefill_logits).all()
+    assert [c.mode for c in made] == ["prefill", "decode"]
+    assert all(c.kv_quantized for c in made)
+    _, cache = res.model.prefill(res.params, res.prompts, made[0])
+    assert all(c.quantized and c.k.dtype == torch.int8 for c in cache)
+    with pytest.raises(NotImplementedError,
+                       match="paged decode with int8 KV cache"):
+        serve.run(argv + ["--queue"])
+
+
 def test_cuda_device_without_gpu_raises():
     from repro_torch.launch import serve
 
