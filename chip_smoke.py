@@ -13,7 +13,7 @@ Phases (any failure exits non-zero):
 3. kernels against plain: the flash-attention kernel in both KV walks
    against its plain PyTorch version on causal, windowed, non-causal,
    padded ragged, fully masked, GQA-broadcast and bf16 cases, every head
-   dim in both dtypes, rows not a multiple of the CTA's, fewer CTA rows
+   dim (16 to 256) in both dtypes, rows not a multiple of the CTA's, fewer CTA rows
    (bq 32, 64, Sq 12), windows starting mid-ring, and at the serving
    path's shape (dense and tri must be bitwise equal, and two launches
    too); then the
@@ -105,11 +105,28 @@ Phases (any failure exits non-zero):
    greedy tokens: max |dlogit| / max |logit| below 0.03 at every step,
    24 flash launches a prefill, the caches' bytes, warm decode steps
    of the two caches in turns and a profiler trace of each;
-13. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+13. the remaining families, after the same 2 GiB check, each at full
+   width through ``serve.serve_config`` with the phase-4 artifact (4 x
+   1024 + 16 unless said): (a) recurrentgemma-2b whole (26 layers,
+   13.3 GB): 8 flash launches (its local MQA layers, head dim 256,
+   window 2048); (b) the same weights on one request of 3072 tokens
+   (the window masks, the ring wraps when it is seeded): 8 launches;
+   (c) xlstm-125m whole: no launch, and the card's logits against the
+   same model on the CPU; (d) whisper-tiny whole (4 x 64 + 16, 1500
+   frames): 8 launches, 4 unmasked encoder and 4 causal decoder; (e)
+   chameleon-34b cut to 8 of 48 layers (qk-norm, 26.4 GB): 8 launches.
+   In (a), (b), (d) and (e) the kernel path against the plain path:
+   prefill and first decode step logits within ``FAMILY_TOL``, the
+   same greedy tokens; warm prefill, decode step and peak memory of
+   each; then the flash kernel at recurrentgemma's two attention shapes
+   against its plain version and SDPA;
+14. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
    line, one ``{"deepseek": {...}}`` line, one ``{"serving": {...}}``
-   line, one ``{"train": {...}}`` line, one ``{"kernels": [...]}``
+   line, one ``{"train": {...}}`` line, one ``{"families": {...}}``
+   line, one ``{"kernels": [...]}``
    line (one entry per measured shape:
-   flash attention at stablelm's and mixtral's prefill shapes and at
+   flash attention at stablelm's, mixtral's and recurrentgemma's
+   prefill shapes, recurrentgemma's long request and at
    the queue trace's longest prefill, each with
    its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
@@ -237,6 +254,21 @@ INT8_REL_TOL = 0.03
 #: the fp32 and int8 caches' warm decode steps: turns, steps a turn
 INT8_TURNS, INT8_ITERS = ("fp32", "int8", "int8", "fp32"), 20
 
+#: phase 13: the remaining families at full width through the launcher
+#: (fp32): recurrentgemma-2b whole (26 layers: 8 local MQA attention
+#: layers at head dim 256, window 2048, between RG-LRU blocks), then one
+#: request past its window; xlstm-125m whole (no attention); whisper-tiny
+#: whole (its encoder attends unmasked over 1500 frames); chameleon-34b
+#: cut to 8 of its 48 layers (26.4 GB in fp32; 48 need 137 GB)
+RG_ARCH, RG_LONG = "recurrentgemma-2b", 3072
+XL_ARCH = "xlstm-125m"
+WH_ARCH, WH_PROMPT = "whisper-tiny", 64
+CH_ARCH, CH_LAYERS = "chameleon-34b", 8
+#: kernel path against plain path (xlstm: the card against the CPU),
+#: prefill and first decode step logits: the paths differ in summation
+#: order only
+FAMILY_TOL = 1e-4
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -355,12 +387,14 @@ def trace_steps(fn, torch, steps: int = 3) -> dict:
 
 
 def flash_bound_ms(bh: int, sq: int, skv: int, d: int, causal: bool,
-                   itemsize: int) -> tuple[float, str]:
+                   itemsize: int, window: int | None = None
+                   ) -> tuple[float, str]:
     """Least time for the work: 4*D flops per visible (q, kv) pair
-    (QK^T and PV) at the fp32 CUDA-core rate, against q, k, v read and
-    o written once at the HBM rate."""
+    (QK^T and PV; a causal window of W leaves query i its last W keys)
+    at the fp32 CUDA-core rate, against q, k, v read and o written once
+    at the HBM rate."""
     if causal:
-        pairs = sum(min(i + 1, skv) for i in range(sq))
+        pairs = sum(min(i + 1, skv, window or skv) for i in range(sq))
     else:
         pairs = sq * skv
     t_ops = 4.0 * d * pairs * bh / FP32_FLOPS
@@ -426,6 +460,21 @@ def phase_kernels(fa, torch) -> dict:
          512),
         ("bf16_d128_window", 2, 1024, 1024, 128, bf16, True, 700, 512,
          512),
+        # head dim 256 (recurrentgemma's local attention): causal at its
+        # window, windowed mid-ring, ragged unmasked rows, fully masked
+        # rows, 16-row CTAs, bf16
+        ("d256_causal_window2048", 10, 1024, 1024, 256, f32, True, 2048,
+         512, 512),
+        ("d256_window300_bq256", 4, 1024, 1024, 256, f32, True, 300, 256,
+         128),
+        ("d256_noncausal_ragged", 3, 200, 150, 256, f32, False, None, 64,
+         64),
+        ("d256_fully_masked", 1, 96, 40, 256, f32, False, 8, 32, 16),
+        ("d256_cta_rows16_sq12", 2, 12, 12, 256, f32, True, None, 512, 512),
+        ("bf16_d256_window256", 4, 700, 700, 256, bf16, True, 256, 256,
+         128),
+        ("bf16_d256_sq12", 2, 12, 12, 256, bf16, True, None, 512, 512),
+        ("bf16_d256_noncausal", 3, 200, 150, 256, bf16, False, None, 64, 64),
     ]
     errs = {}
     for (name, bh, sq, skv, d, dt, causal, window, bq, bkv) in cases:
@@ -477,7 +526,8 @@ def time_flash(fa, torch, bh: int, s: int, d: int, bq: int, bkv: int,
                grid: str, window, seed: int) -> dict:
     """The flash kernel at one causal fp32 shape and block: checked
     against its plain version, then the kernel in both walks, the plain
-    version and SDPA timed, beside the bound and the launch plan."""
+    version and SDPA (the same mask) timed, beside the bound and the
+    launch plan."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
                for _ in range(3))
@@ -495,11 +545,17 @@ def time_flash(fa, torch, bh: int, s: int, d: int, bq: int, bkv: int,
     plain_ms = cuda_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
                        iters=3, warmup=1)
     # a window of at least S leaves the causal mask: SDPA's is_causal is
-    # then the same function
-    assert window is None or window >= s
-    sdpa_ms = cuda_ms(lambda: torch.nn.functional.
-                      scaled_dot_product_attention(q, k, v, is_causal=True))
-    bound, bound_by = flash_bound_ms(bh, s, s, d, True, 4)
+    # then the same function; a shorter one is a boolean band
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None or window >= s:
+        sdpa_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
+    else:
+        ids = torch.arange(s, device="cuda")
+        band = (ids[None, :] <= ids[:, None]) \
+            & (ids[None, :] > ids[:, None] - window)
+        sdpa_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=band))
+        del band
+    bound, bound_by = flash_bound_ms(bh, s, s, d, True, 4, window)
     plan = fa.flash_launch(s, s, d, bq, bkv, dtype=torch.float32,
                            grid=grid)
     print(f"[chip_smoke] flash {(bh, s, d)} fp32 causal window {window} "
@@ -1970,6 +2026,250 @@ def phase_int8(M, fa, G, torch) -> dict:
     return out
 
 
+def greedy_run(model, params, batch, prompt_len: int, gen: int, tuner,
+               torch) -> tuple:
+    """Prefill ``batch`` and decode ``gen - 1`` greedy steps: (prefill
+    logits, first decode step's logits, tokens (B, gen))."""
+    from repro_torch.train.step import make_ctx
+
+    cache_len = prompt_len + gen
+    pctx = make_ctx("prefill", cache_len=cache_len, tuner=tuner)
+    dctx = make_ctx("decode", cache_len=cache_len, tuner=tuner)
+    with torch.inference_mode():
+        first, cache = model.prefill(params, batch, pctx)
+        tok = torch.argmax(first, -1)[:, None]
+        toks, step1 = [tok], None
+        for i in range(gen - 1):
+            logits, cache = model.decode_step(params, tok, cache,
+                                              prompt_len + i, dctx)
+            step1 = logits if step1 is None else step1
+            tok = torch.argmax(logits, -1)[:, None]
+            toks.append(tok)
+    return first, step1, torch.cat(toks, dim=1)
+
+
+def paths_agree(name: str, kernel: tuple, other: tuple, torch,
+                what: str = "plain") -> dict:
+    """The kernel path against the plain path (or the CPU): prefill and
+    first decode step logits within FAMILY_TOL, the same greedy
+    tokens."""
+    out = {}
+    for i, step in enumerate(("prefill", "decode_step")):
+        got, want = kernel[i].float().cpu(), other[i].float().cpu()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"[chip_smoke] {name} {step} logits kernel vs {what}: "
+              f"max_abs_err={err:.3e} (max |logit| {scale:.3f}, tol "
+              f"{FAMILY_TOL:g})")
+        if not err <= FAMILY_TOL:
+            raise SystemExit(f"[chip_smoke] FAIL: {name} kernel and {what} "
+                             f"{step} logits disagree")
+        out[f"{step}_max_abs_err"] = err
+        out[f"{step}_max_abs_logit"] = scale
+    same = torch.equal(kernel[2].cpu(), other[2].cpu())
+    print(f"[chip_smoke] {name} greedy tokens kernel vs {what}: "
+          f"{'identical' if same else 'DIFFERENT'} "
+          f"({tuple(kernel[2].shape)})")
+    if not same:
+        raise SystemExit(f"[chip_smoke] FAIL: {name} kernel and {what} "
+                         "greedy tokens differ")
+    return out
+
+
+def serve_family(name: str, cfg, prompt_len: int, want_flash: int,
+                 art: Path, M, fa, G, torch) -> tuple:
+    """Serve ``cfg`` through ``serve.serve_config`` (REQUESTS x
+    ``prompt_len`` + GEN_TOKENS, fp32, the phase-4 artifact); check the
+    kernel launches, the output, and the kernel path against the plain
+    path (when it launches a kernel); time a warm prefill and decode
+    step.  Returns (the serve result, the report)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.step import make_ctx
+
+    args = serve.parse_args([
+        "--requests", str(REQUESTS), "--prompt-len", str(prompt_len),
+        "--gen-tokens", str(GEN_TOKENS), "--artifact", str(art),
+        "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(M, fa, G)
+    res = serve.serve_config(cfg, args)
+    n = kernel_counts(M, fa, G)
+    n_params = sum(t.numel() for t in tree_leaves(res.params))
+    kinds = sorted({s.kind for s in getattr(res.model, "plan", [])}) \
+        or ["encoder-decoder"]
+    print(f"[chip_smoke] {name}: {cfg.n_layers} layers ({', '.join(kinds)})"
+          f" x d_model {cfg.d_model}: {n_params / 1e9:.3f} B parameters "
+          f"(fp32, {4 * n_params / 1e9:.1f} GB); flash launches="
+          f"{n['flash']} (expected {want_flash}), grouped {n['grouped']}, "
+          f"matmul {n['matmul']} (expected 0)")
+    if n["flash"] != want_flash or n["grouped"] or n["matmul"]:
+        raise SystemExit(f"[chip_smoke] FAIL: {name} did not launch the "
+                         f"flash kernel {want_flash} times, or launched "
+                         "another kernel")
+    if not torch.isfinite(res.prefill_logits).all():
+        raise SystemExit(f"[chip_smoke] FAIL: non-finite {name} logits")
+    if tuple(res.tokens.shape) != (REQUESTS, GEN_TOKENS):
+        raise SystemExit(f"[chip_smoke] FAIL: {name} generated "
+                         f"{res.tokens.shape}")
+    batch = res.prompts if res.audio_emb is None else {
+        "tokens": res.prompts, "audio_emb": res.audio_emb}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "float32",
+           "parameters": n_params, "requests": REQUESTS,
+           "prompt_len": prompt_len, "gen_tokens": GEN_TOKENS,
+           "flash_launches": n["flash"],
+           "expected_flash_launches": want_flash,
+           "first_prefill_ms": res.prefill_s * 1e3,
+           "first_decode_tok_per_s": res.tok_per_s}
+    if want_flash:
+        # the block and walk the tuner gave the (causal) prefill attention
+        hd = cfg.resolved_head_dim
+        choice = res.tuner.select(prompt_len, hd, prompt_len, "attn")
+        out["flash_block"] = list(choice.flash_block)
+        out["flash_grid"] = choice.flash_grid
+        print(f"[chip_smoke] {name} tuner attn {prompt_len}x{hd}x"
+              f"{prompt_len}: flash_block={choice.flash_block} "
+              f"flash_grid={choice.flash_grid}")
+        kernel = greedy_run(res.model, res.params, batch, prompt_len,
+                            GEN_TOKENS, res.tuner, torch)
+        if not torch.equal(kernel[2], res.tokens):
+            raise SystemExit(f"[chip_smoke] FAIL: {name}'s kernel path "
+                             "does not repeat the launcher's tokens")
+        with plain_backend():
+            plain = greedy_run(res.model, res.params, batch, prompt_len,
+                               GEN_TOKENS, res.tuner, torch)
+        out.update(paths_agree(name, kernel, plain, torch))
+        del kernel, plain
+    cache_len = prompt_len + GEN_TOKENS
+    pctx = make_ctx("prefill", cache_len=cache_len, tuner=res.tuner)
+    dctx = make_ctx("decode", cache_len=cache_len, tuner=res.tuner)
+    steps = iter(range(10 ** 6))
+    with torch.inference_mode():
+        warm_p = cuda_ms(lambda: res.model.prefill(res.params, batch, pctx),
+                         iters=2, warmup=1)
+        _, cache = res.model.prefill(res.params, batch, pctx)
+        tok = res.tokens[:, :1]
+        warm_d = cuda_ms(lambda: res.model.decode_step(
+            res.params, tok, cache,
+            prompt_len + next(steps) % (GEN_TOKENS - 1), dctx),
+            iters=5, warmup=1)
+        del cache
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[chip_smoke] {name} warm prefill ({REQUESTS}x{prompt_len}) "
+          f"{warm_p:.1f} ms, warm decode step {warm_d:.2f} ms "
+          f"({REQUESTS / warm_d * 1e3:.1f} tok/s); first call prefill "
+          f"{res.prefill_s * 1e3:.1f} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    out.update({"warm_prefill_ms": warm_p, "warm_decode_step_ms": warm_d,
+                "warm_decode_tok_per_s": REQUESTS / warm_d * 1e3,
+                "max_memory_allocated": peak})
+    return res, out
+
+
+def phase_families(art: Path, M, fa, G, torch) -> tuple[dict, list]:
+    """Phase 13: recurrentgemma-2b (a, b), xlstm-125m (c), whisper-tiny
+    (d) and chameleon-34b (e) at full width through the launcher; the
+    flash kernel at recurrentgemma's two shapes.  Returns (the report,
+    (label, row, launches) of each flash timing)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import tree_map
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    held = torch.cuda.memory_allocated()
+    print(f"[chip_smoke] families: {held / 2 ** 30:.3f} GiB allocated at "
+          f"the start (at most {DS_HELD_MAX / 2 ** 30:g})")
+    if held > DS_HELD_MAX:
+        raise SystemExit("[chip_smoke] FAIL: earlier phases left memory "
+                         "allocated")
+    report: dict = {"card": card_line()}
+
+    # -- (a) recurrentgemma-2b, whole: one launch per local layer ---------------
+    cfg = get_config(RG_ARCH)
+    local = sum(cfg.pattern[i % len(cfg.pattern)] == "local"
+                for i in range(cfg.n_layers))
+    res, report["recurrentgemma"] = serve_family(
+        RG_ARCH, cfg, PROMPT_LEN, local, art, M, fa, G, torch)
+    rg_launches = report["recurrentgemma"]["flash_launches"]
+    tuner = res.tuner
+
+    # -- (b) one request past the window: the tri walk drops tiles, the
+    #    ring wraps when it is seeded ---------------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab, (1, RG_LONG), device="cuda",
+                           generator=gen)
+    reset_counts(M, fa, G)
+    kernel = greedy_run(res.model, res.params, prompt, RG_LONG, GEN_TOKENS,
+                        tuner, torch)
+    long_launches = fa.flash_attention_cuda.launches
+    print(f"[chip_smoke] {RG_ARCH} long request (1 x {RG_LONG} + "
+          f"{GEN_TOKENS}, window {cfg.local_window}): flash launches="
+          f"{long_launches} (expected {local})")
+    if long_launches != local:
+        raise SystemExit("[chip_smoke] FAIL: the long request did not run "
+                         "the flash kernel once per local layer")
+    with plain_backend():
+        plain = greedy_run(res.model, res.params, prompt, RG_LONG,
+                           GEN_TOKENS, tuner, torch)
+    report["recurrentgemma_long"] = {
+        "prompt_len": RG_LONG, "gen_tokens": GEN_TOKENS,
+        "flash_launches": long_launches,
+        **paths_agree(f"{RG_ARCH} long", kernel, plain, torch)}
+    del res, kernel, plain, prompt
+    free()
+
+    # the flash kernel at both shapes with the tuner's blocks
+    hd = cfg.resolved_head_dim
+    rows = []
+    for label, bh, s, n in (
+            ("recurrentgemma_prefill", REQUESTS * cfg.n_heads, PROMPT_LEN,
+             rg_launches),
+            ("recurrentgemma_long", cfg.n_heads, RG_LONG, long_launches)):
+        choice = tuner.select(s, hd, s, "attn")
+        rows.append((label, time_flash(
+            fa, torch, bh, s, hd, *choice.flash_block, choice.flash_grid,
+            cfg.local_window, seed=13), n))
+
+    # -- (c) xlstm-125m, whole: no kernel; the card against the CPU ----------
+    cfg = get_config(XL_ARCH)
+    res, report["xlstm"] = serve_family(XL_ARCH, cfg, PROMPT_LEN, 0, art,
+                                        M, fa, G, torch)
+    card = greedy_run(res.model, res.params, res.prompts, PROMPT_LEN, 2,
+                      None, torch)
+    t0 = time.perf_counter()
+    cpu = greedy_run(res.model, tree_map(lambda t: t.cpu(), res.params),
+                     res.prompts.cpu(), PROMPT_LEN, 2, None, torch)
+    report["xlstm"]["cpu_prefill_and_step_s"] = time.perf_counter() - t0
+    report["xlstm"].update(paths_agree(XL_ARCH, card, cpu, torch,
+                                       what="CPU"))
+    del res, card, cpu
+    free()
+
+    # -- (d) whisper-tiny, whole: 4 unmasked encoder + 4 causal decoder
+    #    launches ----------------------------------------------------------
+    cfg = get_config(WH_ARCH)
+    res, report["whisper"] = serve_family(
+        WH_ARCH, cfg, WH_PROMPT, cfg.n_encoder_layers + cfg.n_layers, art,
+        M, fa, G, torch)
+    report["whisper"]["encoder_len"] = cfg.encoder_len
+    del res
+    free()
+
+    # -- (e) chameleon-34b, 8 of 48 layers ---------------------------------------
+    cfg = dataclasses.replace(get_config(CH_ARCH), n_layers=CH_LAYERS)
+    res, report["chameleon"] = serve_family(CH_ARCH, cfg, PROMPT_LEN,
+                                            CH_LAYERS, art, M, fa, G, torch)
+    del res
+    free()
+    return report, rows
+
+
 START = time.perf_counter()
 
 
@@ -2139,7 +2439,14 @@ def main() -> int:
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
-    # -- 13. report ---------------------------------------------------------------
+    # -- 13. the remaining families ------------------------------------------------
+    t0 = time.perf_counter()
+    families, family_flash = phase_families(art, mm, fa, gm, torch)
+    families["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 13 took {families['phase_s']:.1f}s; the "
+          f"script {time.perf_counter() - START:.1f}s so far")
+
+    # -- 14. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs),
                flash_entry("flash_attention@mixtral_prefill",
@@ -2147,6 +2454,8 @@ def main() -> int:
                flash_entry("flash_attention@queue_prefill",
                            serving["queue"]["flash"],
                            serving["queue"]["flash_launches"])]
+    kernels += [flash_entry(f"flash_attention@{label}", row, n)
+                for label, row, n in family_flash]
     # one entry per measured shape: the tiled GEMM at 2048^3 (the main
     # entry) and the largest cube, the grouped kernel at mixtral's decode
     # bucket (the main entry: 180 of its 192 launches) and prefill bucket,
@@ -2184,6 +2493,7 @@ def main() -> int:
     print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"train": training}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

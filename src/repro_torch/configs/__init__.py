@@ -37,14 +37,11 @@ def get_smoke_config(arch_id: str) -> ArchConfig:
 
 
 def build_model(cfg: ArchConfig):
-    """The decoder-only LM of the dense family with GQA attention and of
-    the moe family with GQA (mixtral) or MLA attention (deepseek-v2);
-    other families are not ported yet."""
-    if not (cfg.family == "dense" and cfg.attn_kind == "gqa"
-            or cfg.family == "moe" and cfg.attn_kind in ("gqa", "mla")):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} attn {cfg.attn_kind!r} is "
-            "not ported yet (dense family with GQA attention, moe family "
-            "with GQA or MLA attention)")
+    """The reference's family dispatch: the encoder-decoder LM for the
+    ``audio`` family, the decoder-only LM for every other (dense, moe,
+    vlm, hybrid, ssm)."""
+    if cfg.family == "audio":
+        from repro_torch.models.encdec import build_encdec
+        return build_encdec(cfg)
     from repro_torch.models.transformer import build_lm
     return build_lm(cfg)

@@ -6,12 +6,14 @@
 A reference train state (``init_train_state``: params, AdamW moments,
 step) goes through :func:`state_from_jax` the same way.
 
-The reference keeps its layers as ``prefix`` / ``scan`` / ``suffix``,
-the ``scan`` unit's parameters stacked along a leading layer dimension.
-The port keeps one parameter dict per layer in ``state["layers"]``, in
-model order: prefix, then the scanned unit unstacked repeat by repeat,
-then suffix.  Every other name maps one to one.  Takes numpy arrays, so
-it needs no jax.
+The reference's decoder-only LM keeps its layers as ``prefix`` /
+``scan`` / ``suffix``, the ``scan`` unit's parameters stacked along a
+leading layer dimension.  The port keeps one parameter dict per layer in
+``state["layers"]``, in model order: prefix, then the scanned unit
+unstacked repeat by repeat (recurrentgemma's unit is rglru, rglru,
+local), then suffix.  Every other name maps one to one, and so does the
+whole encoder-decoder tree (its ``encoder`` and ``decoder`` are already
+per-layer lists).  Takes numpy arrays, so it needs no jax.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ def params_from_jax(tree: dict, device: torch.device | str = "cpu",
         t = torch.from_numpy(np.array(a, copy=True))
         return t.to(device=device, dtype=dtype or t.dtype)
 
+    if not any(k in tree for k in ("prefix", "scan", "suffix")):
+        return tree_map(leaf, tree)
     layers = list(tree.get("prefix", []))
     unit = tree.get("scan", [])
     if unit:

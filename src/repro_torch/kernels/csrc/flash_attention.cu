@@ -111,9 +111,17 @@
 //   bf16   32   64    3       128       78,336 B
 //   bf16   64   64    3       128      111,104 B
 //   bf16   128  64    2        64      105,728 B
+//   fp32   256  16    2        32      103,040 B
+//   bf16   256  16    3        64       90,880 B
 //
 // At D = 128 a lane holds 64 accumulators: 128 rows (256 threads) at two
-// CTAs an SM would cap it at 128 registers, so the CTA takes 64 rows.
+// CTAs an SM would cap it at 128 registers, so the CTA takes 64 rows.  At
+// D = 256 (recurrentgemma's local attention) a lane holds 128: the CTA
+// takes 32 rows in fp32 (64 in bf16, whose rows are half the bytes) and
+// the sub-tile 16 columns, which keeps two CTAs an SM within the shared
+// memory and leaves a lane the full 255 registers.  A 16-row CTA at
+// D = 256 has fewer threads than a row has 16-byte chunks, so copy_rows
+// gives each thread several chunks of a row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,11 +158,13 @@ template <> struct Plan<16> { static constexpr int BN = 64, STAGES = 3, ROWS = 1
 template <> struct Plan<32> { static constexpr int BN = 64, STAGES = 3, ROWS = 128; };
 template <> struct Plan<64> { static constexpr int BN = 32, STAGES = 3, ROWS = 128; };
 template <> struct Plan<128> { static constexpr int BN = 32, STAGES = 2, ROWS = 64; };
+template <> struct Plan<256> { static constexpr int BN = 16, STAGES = 2, ROWS = 32; };
 #else
 template <> struct Plan<16> { static constexpr int BN = 64, STAGES = 3, ROWS = 128; };
 template <> struct Plan<32> { static constexpr int BN = 64, STAGES = 3, ROWS = 128; };
 template <> struct Plan<64> { static constexpr int BN = 64, STAGES = 3, ROWS = 128; };
 template <> struct Plan<128> { static constexpr int BN = 64, STAGES = 2, ROWS = 64; };
+template <> struct Plan<256> { static constexpr int BN = 16, STAGES = 3, ROWS = 64; };
 #endif
 
 struct Params {
@@ -197,25 +207,40 @@ __device__ __forceinline__ void cp_async_wait() {
 // ROWS rows of D elements from src (row-major, D-fast) into dst (row
 // stride D + 16 bytes), in 16-byte chunks spread over NT threads: thread
 // t copies chunk t % CPR of rows t / CPR + i * NT / CPR, so its pointers
-// step by constants.  Rows from `valid` on are zero-filled.
+// step by constants; with fewer threads than a row has chunks, chunks
+// t + j * NT of every row.  Rows from `valid` on are zero-filled.
 template <int D, int ROWS, int NT, typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src, int valid,
                                           int tid) {
   constexpr int CH = 16 / sizeof(T);
   constexpr int CPR = D / CH;       // chunks a row
   constexpr int LD = D + CH;
-  constexpr int N = ROWS * CPR;
-  constexpr int STEP = NT / CPR;    // rows between a thread's chunks
-  static_assert(NT % CPR == 0, "a thread's chunks share one column");
-  const int r0 = tid / CPR, ch = tid % CPR;
-  dst += r0 * LD + ch * CH;
-  src += (size_t)r0 * D + ch * CH;
+  if constexpr (NT < CPR) {
+    static_assert(CPR % NT == 0, "a row's chunks split evenly");
 #pragma unroll
-  for (int it = 0; it < (N + NT - 1) / NT; ++it) {
-    if (N % NT == 0 || tid + it * NT < N) {
-      const bool ok = r0 + it * STEP < valid;
-      cp_async16(dst + it * STEP * LD, src + (ok ? (size_t)it * STEP * D : 0),
-                 ok ? 16 : 0);
+    for (int r = 0; r < ROWS; ++r) {
+      const bool ok = r < valid;
+#pragma unroll
+      for (int j = 0; j < CPR / NT; ++j) {
+        const int ch = tid + j * NT;
+        cp_async16(dst + r * LD + ch * CH,
+                   src + (ok ? (size_t)r * D + ch * CH : 0), ok ? 16 : 0);
+      }
+    }
+  } else {
+    constexpr int N = ROWS * CPR;
+    constexpr int STEP = NT / CPR;  // rows between a thread's chunks
+    static_assert(NT % CPR == 0, "a thread's chunks share one column");
+    const int r0 = tid / CPR, ch = tid % CPR;
+    dst += r0 * LD + ch * CH;
+    src += (size_t)r0 * D + ch * CH;
+#pragma unroll
+    for (int it = 0; it < (N + NT - 1) / NT; ++it) {
+      if (N % NT == 0 || tid + it * NT < N) {
+        const bool ok = r0 + it * STEP < valid;
+        cp_async16(dst + it * STEP * LD,
+                   src + (ok ? (size_t)it * STEP * D : 0), ok ? 16 : 0);
+      }
     }
   }
 }
@@ -369,10 +394,11 @@ __device__ __forceinline__ bool next_sub(const Params& p, Walk& w,
 // T is FlashT, a template argument so that ptxas names the type.
 // Registers: at most 128 a thread for CTAs of 64 or more rows at D <= 64
 // (two 256-thread CTAs an SM), else 255 (at D = 128 a lane holds 64
-// accumulators); asking for 512 / NT or 256 / NT blocks an SM sets it.
+// accumulators, at 256 128); asking for 512 / NT or 256 / NT blocks an SM
+// sets it.
 template <typename T, int D, int BM, int BN, int STAGES>
 __global__ void __launch_bounds__(
-    BM * 2, (D == 128 || BM < 64 ? 256 : 512) / (BM * 2))
+    BM * 2, (D >= 128 || BM < 64 ? 256 : 512) / (BM * 2))
 flash_fwd_kernel(const Params p) {
   constexpr int NT = BM * 2;              // BM / 16 warps
   constexpr int CH = 16 / sizeof(T);
@@ -474,7 +500,8 @@ flash_fwd_kernel(const Params p) {
       for (int i = 0; i < LANE_ROWS; ++i)
 #pragma unroll
         for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-      // one d step at a time at D <= 64 keeps 128 registers, unspilled
+      // one d step at a time at D <= 64 keeps 128 registers, unspilled;
+      // at D = 256 the 128 accumulators leave no room for more
 #pragma unroll (D == 128 ? 4 : 1)
       for (int d = 0; d < D; d += 4) {
         float qa[LANE_ROWS][4];
@@ -644,7 +671,9 @@ cudaError_t launch_plan(const Params& p, int rows, int bn, int stages,
   switch (rows) {
     case 16: return launch<D, 16>(p, grid, stream);
     case 32: return launch<D, 32>(p, grid, stream);
-    case 64: return launch<D, 64>(p, grid, stream);
+    case 64:
+      if constexpr (P::ROWS >= 64) return launch<D, 64>(p, grid, stream);
+      break;
     case 128:
       if constexpr (P::ROWS >= 128) return launch<D, 128>(p, grid, stream);
       break;
@@ -705,6 +734,7 @@ extern "C" int FLASH_TYPED(FLASH_ARGS) {
     case 32: return (int)launch_plan<32>(p, cta_rows, sub_cols, stages, grid, s);
     case 64: return (int)launch_plan<64>(p, cta_rows, sub_cols, stages, grid, s);
     case 128: return (int)launch_plan<128>(p, cta_rows, sub_cols, stages, grid, s);
+    case 256: return (int)launch_plan<256>(p, cta_rows, sub_cols, stages, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

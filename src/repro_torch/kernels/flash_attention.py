@@ -53,7 +53,7 @@ _NEG_INF = -1e30
 FLASH_GRID_KINDS = ("dense", "tri")
 
 #: head dims the CUDA kernel is instantiated for
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,6 +67,7 @@ FLASH_PLANS = {
     (torch.float32, 64): (32, 3, 128), (torch.float32, 128): (32, 2, 64),
     (torch.bfloat16, 16): (64, 3, 128), (torch.bfloat16, 32): (64, 3, 128),
     (torch.bfloat16, 64): (64, 3, 128), (torch.bfloat16, 128): (64, 2, 64),
+    (torch.float32, 256): (16, 2, 32), (torch.bfloat16, 256): (16, 3, 64),
 }
 
 

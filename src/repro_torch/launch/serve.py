@@ -23,7 +23,11 @@ by this machine's fingerprint:
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
 on a host without a GPU raises.  Weights and prompts are random, drawn
-from seeded ``torch.Generator``s on the device.
+from seeded ``torch.Generator``s on the device; an encoder-decoder arch
+(``audio`` family: whisper-tiny) also gets random frame embeddings
+``audio_emb`` (requests x encoder_len x d_model) from the prompts'
+generator, and serves fixed batches only (``--queue`` refuses it, as
+the reference's scheduler does).
 """
 
 from __future__ import annotations
@@ -82,6 +86,9 @@ class ServeResult:
     model: Any
     params: dict
     prompts: torch.Tensor          # (requests, prompt_len)
+    #: the ``audio`` family's frame embeddings (requests, encoder_len,
+    #: d_model), else None
+    audio_emb: torch.Tensor | None
     tuner: Any
     recs: dict                     # traffic class -> DispatchRecorder
     prefill_logits: torch.Tensor   # (requests, vocab)
@@ -248,15 +255,23 @@ def serve_config(cfg: ArchConfig, args: argparse.Namespace, *,
     pctx = make_ctx("prefill", cache_len=cache_len, tuner=tuner)
     dctx = make_ctx("decode", cache_len=cache_len, tuner=tuner)
 
+    gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(
         0, cfg.vocab, (args.requests, args.prompt_len), device=dev,
-        generator=torch.Generator(device=dev).manual_seed(1))
+        generator=gen)
+    audio_emb = None
+    batch: Any = prompts
+    if cfg.family == "audio":
+        audio_emb = torch.randn(
+            (args.requests, cfg.encoder_len, cfg.d_model), device=dev,
+            generator=gen)
+        batch = {"tokens": prompts, "audio_emb": audio_emb}
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
         with recs["prefill"]:
-            logits, cache = model.prefill(params, prompts, pctx)
+            logits, cache = model.prefill(params, batch, pctx)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
 
@@ -306,7 +321,7 @@ def serve_config(cfg: ArchConfig, args: argparse.Namespace, *,
           f"decoded {args.gen_tokens} toks at {tps:.1f} tok/s")
     print(f"[serve] sample continuation ids: {out[0, :8].tolist()}")
     _report_tail(args, cfg, recs, tuner, manager)
-    return ServeResult(cfg, model, params, prompts, tuner, recs,
+    return ServeResult(cfg, model, params, prompts, audio_emb, tuner, recs,
                        prefill_logits, out, t_prefill, tps)
 
 

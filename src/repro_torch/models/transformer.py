@@ -1,6 +1,9 @@
-"""Decoder-only LM: GQA attention layers (full or sliding-window KV
-cache, fp or int8) or MLA layers (latent cache) with a dense MLP or an
-MoE block.
+"""Decoder-only LM for every family but the encoder-decoder one: GQA
+attention layers (global or local, full or sliding-window KV cache, fp
+or int8), MLA layers (latent cache), RG-LRU recurrent blocks
+(:mod:`repro_torch.models.recurrent`) and mLSTM / sLSTM blocks
+(:mod:`repro_torch.models.xlstm`), each with a dense MLP, an MoE block
+or no feed-forward block at all (xLSTM's blocks carry their own).
 
 The reference groups layers into prefix / scanned unit / suffix and
 runs the unit under ``jax.lax.scan`` over stacked parameters.  Here the
@@ -16,7 +19,9 @@ table, decode reads and writes per-layer page pools instead
 each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
 set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
 layers take the reference's single-device path (its ``_moe_apply``
-without a mesh); recurrent and xLSTM layers are not ported yet.
+without a mesh).  A recurrent layer's prefill by-product is its final
+state, which is already the decode cache; its decode step returns a new
+state, where attention layers write their caches in place.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from repro_torch.kernels import recorder
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as REC
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params
 
@@ -91,26 +98,42 @@ def _moe_spec(cfg: ArchConfig) -> MOE.MoESpec:
         d_ff=cfg.d_ff_expert or cfg.d_ff, n_shared=cfg.n_shared_experts)
 
 
-def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.kind != "attn" or cfg.attn_kind not in ("gqa", "mla") \
-            or spec.mlp not in ("mlp", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind={spec.kind!r} attn={cfg.attn_kind!r} "
-            f"mlp={spec.mlp!r} is not ported yet (GQA or MLA attention "
-            "with an MLP or MoE block only)")
+def _rglru_spec(cfg: ArchConfig) -> REC.RGLRUSpec:
+    return REC.RGLRUSpec(d_model=cfg.d_model,
+                         width=cfg.lru_width or cfg.d_model,
+                         conv_width=cfg.conv_width)
+
+
+def _xlstm_spec(cfg: ArchConfig) -> XL.XLSTMSpec:
+    return XL.XLSTMSpec(d_model=cfg.d_model, n_heads=cfg.n_heads)
+
+
+def _is_attn(spec: LayerSpec) -> bool:
+    return spec.kind in ("attn", "local")
 
 
 def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
-    _check_ported(cfg, spec)
     d = cfg.d_model
-    mixer = (MLA.mla_defs(_mla_spec(cfg)) if cfg.attn_kind == "mla"
-             else L.attention_defs(_attn_spec(cfg, spec.kind)))
-    defs = {"ln1": L.norm_defs(d, cfg.norm_kind), "mixer": mixer,
-            "ln2": L.norm_defs(d, cfg.norm_kind)}
-    if spec.mlp == "moe":
-        defs["moe"] = MOE.moe_defs(_moe_spec(cfg))
+    defs: dict = {"ln1": L.norm_defs(d, cfg.norm_kind)}
+    if _is_attn(spec):
+        if cfg.attn_kind == "mla":
+            defs["mixer"] = MLA.mla_defs(_mla_spec(cfg))
+        else:
+            defs["mixer"] = L.attention_defs(_attn_spec(cfg, spec.kind))
+    elif spec.kind == "rglru":
+        defs["mixer"] = REC.rglru_block_defs(_rglru_spec(cfg))
+    elif spec.kind == "mlstm":
+        defs["mixer"] = XL.mlstm_defs(_xlstm_spec(cfg))
+    elif spec.kind == "slstm":
+        defs["mixer"] = XL.slstm_defs(_xlstm_spec(cfg))
     else:
+        raise ValueError(spec.kind)
+    if spec.mlp == "mlp":
+        defs["ln2"] = L.norm_defs(d, cfg.norm_kind)
         defs["mlp"] = L.mlp_defs(d, spec.d_ff, cfg.mlp_kind)
+    elif spec.mlp == "moe":
+        defs["ln2"] = L.norm_defs(d, cfg.norm_kind)
+        defs["moe"] = MOE.moe_defs(_moe_spec(cfg))
     return defs
 
 
@@ -152,7 +175,9 @@ def _cache_shape(cfg: ArchConfig, spec: LayerSpec, ctx: Ctx
 def _seed_cache(raw: Any, cfg: ArchConfig, spec: LayerSpec,
                 ctx: Ctx) -> Any:
     """Convert the mixer's prefill by-product (k/v projections, or MLA's
-    latents) into a decode cache."""
+    latents) into a decode cache; a recurrent state already is one."""
+    if not _is_attn(spec):
+        return raw
     if cfg.attn_kind == "mla":
         c_kv, k_rope = raw
         return MLA.seed_mla_cache(c_kv, k_rope, ctx.cache_len)
@@ -165,8 +190,15 @@ def _seed_cache(raw: Any, cfg: ArchConfig, spec: LayerSpec,
 def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                       ctx: Ctx, dtype: torch.dtype,
                       device: torch.device | str) -> Any:
-    """An empty decode cache: MLA's latent cache, or a (ring, int8)
-    KV cache."""
+    """An empty decode cache: MLA's latent cache, a (ring, int8) KV
+    cache, or a recurrent layer's zero state."""
+    if spec.kind == "rglru":
+        return REC.init_rglru_state(batch, _rglru_spec(cfg), dtype,
+                                    device=device)
+    if spec.kind == "mlstm":
+        return XL.init_mlstm_state(batch, _xlstm_spec(cfg), device=device)
+    if spec.kind == "slstm":
+        return XL.init_slstm_state(batch, _xlstm_spec(cfg), device=device)
     if cfg.attn_kind == "mla":
         return MLA.init_mla_cache(batch, ctx.cache_len, _mla_spec(cfg),
                                   dtype, device=device)
@@ -208,7 +240,10 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
                spec: LayerSpec, ctx: Ctx
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The layer's MLP or MoE block on the residual stream x: returns
-    (x + block(ln2(x)), the MoE's auxiliary loss or None)."""
+    (x + block(ln2(x)), the MoE's auxiliary loss or None); a layer
+    without one (``mlp="none"``) returns (x, None)."""
+    if spec.mlp == "none":
+        return x, None
     h = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     if spec.mlp == "moe":
         out, aux = MOE.apply_moe(p["moe"], h, _moe_spec(cfg),
@@ -224,7 +259,13 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     aux_loss is None for an MLP layer, cache is decode-format when
     ctx.mode == 'prefill', else None."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    if cfg.attn_kind == "mla":
+    if spec.kind == "rglru":
+        mix, raw = REC.rglru_block_train(p["mixer"], h)
+    elif spec.kind == "mlstm":
+        mix, raw = XL.mlstm_train(p["mixer"], h, _xlstm_spec(cfg))
+    elif spec.kind == "slstm":
+        mix, raw = XL.slstm_train(p["mixer"], h, _xlstm_spec(cfg))
+    elif cfg.attn_kind == "mla":
         mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
                                  tuner=ctx.tuner)
     else:
@@ -246,7 +287,13 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     per-sequence positions, ``plan`` the step's page plan) — the
     continuous-batching decode."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    if cfg.attn_kind == "mla":
+    if spec.kind == "rglru":
+        mix, cache = REC.rglru_block_decode(p["mixer"], h, cache)
+    elif spec.kind == "mlstm":
+        mix, cache = XL.mlstm_decode(p["mixer"], h, _xlstm_spec(cfg), cache)
+    elif spec.kind == "slstm":
+        mix, cache = XL.slstm_decode(p["mixer"], h, _xlstm_spec(cfg), cache)
+    elif cfg.attn_kind == "mla":
         if page_table is not None:
             mix, cache = MLA.mla_decode_paged(
                 p["mixer"], h, _mla_spec(cfg), cache, page_table, pos,

@@ -14,8 +14,11 @@
 * a CUDA backend on CPU tensors raises;
 * the launch planner ``flash_launch``: every plan fits shared memory,
   CTA rows never exceed the clamped bq, both walks get one plan, the
-  tuner's blocks give 128-row CTAs at D <= 64, and ``FLASH_PLANS`` is
-  the table the kernel compiles.
+  tuner's blocks give 128-row CTAs at D <= 64 (64 at D = 128, 32 in
+  fp32 at D = 256), and ``FLASH_PLANS`` is the table the kernel
+  compiles;
+* at head dim 256 (recurrentgemma's MQA local attention) the plain
+  version matches the Pallas kernel, causal and windowed on ragged Sq.
 
 The CUDA kernel itself is tested on the card by
 tests/test_torch_flash_cuda.py.  Inputs are made with numpy from a
@@ -167,6 +170,29 @@ def test_plain_matches_pallas_gqa_broadcast_kv():
         want = np.asarray(flash_attention_pallas(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bq=32, bkv=32,
             interpret=True, grid=grid))
+        np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
+
+
+@pytest.mark.parametrize("sq,bq,bkv,window", [(100, 32, 32, 40),
+                                               (77, 64, 32, 48),
+                                               (96, 32, 64, None)])
+def test_plain_matches_pallas_d256_mqa(sq, bq, bkv, window):
+    """recurrentgemma's local attention: head dim 256, one KV head shared
+    by every query head (MQA, broadcast before the flat call), causal
+    with a window, Sq not a multiple of bq."""
+    rng = np.random.default_rng(sq)
+    b, h, d = 2, 3, 256
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    kv = rng.standard_normal((2, b, 1, sq, d)).astype(np.float32)
+    k, v = (np.repeat(a, h, axis=1) for a in kv)
+    q, k, v = (a.reshape(b * h, sq, d) for a in (q, k, v))
+    kw = dict(bq=bq, bkv=bkv, causal=True, window=window)
+    got = F.flash_attention_torch(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), **kw).numpy()
+    for grid in F.FLASH_GRID_KINDS:
+        want = np.asarray(flash_attention_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True,
+            grid=grid, **kw))
         np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
 
 
@@ -462,6 +488,10 @@ def test_tuner_blocks_give_128_row_ctas(block, d, dtype):
     # lane cap 128-row CTAs at 128 registers)
     assert F.flash_launch(1024, 1024, 128, *block,
                           dtype=dtype).cta_rows == 64
+    # recurrentgemma's: 128 accumulators a lane; 32 rows in fp32 (64 in
+    # bf16) keep two CTAs an SM within its shared memory
+    assert F.flash_launch(1024, 1024, 256, *block, dtype=dtype).cta_rows \
+        == (32 if dtype == torch.float32 else 64)
 
 
 @pytest.mark.parametrize("dtype,d", _PLAN_KEYS)

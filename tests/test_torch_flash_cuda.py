@@ -8,7 +8,8 @@ that has only torch:
 The plain version is itself held to the JAX reference on the CPU by
 tests/test_torch_flash.py.  Tolerances are the reference's: 2e-5 in
 fp32 (TF32 off), 5e-2 in bf16; the dense and tri walks must be bitwise
-equal, and so must two launches.  The C entry takes the planner's
+equal, and so must two launches, at every head dim the kernel takes
+(16 to 256).  The C entry takes the planner's
 (CTA rows, sub-tile columns, stages) and refuses any plan it does not
 compile.
 """
@@ -78,6 +79,17 @@ def _qkv(bh, sq, skv, d, dtype, seed=0):
     (4, 600, 600, 32, torch.bfloat16, True, None, 128, 512),
     (8, 1024, 1024, 64, torch.bfloat16, True, None, 128, 512),
     (2, 1024, 1024, 128, torch.bfloat16, True, 700, 512, 512),
+    # head dim 256 (recurrentgemma's local attention): its window, ragged
+    # rows, 16-row CTAs (fewer threads than a row has 16-byte chunks),
+    # unmasked and fully masked rows, in both dtypes
+    (10, 1024, 1024, 256, torch.float32, True, 2048, 512, 512),
+    (4, 700, 700, 256, torch.float32, True, 256, 256, 128),
+    (2, 12, 12, 256, torch.float32, True, None, 512, 512),
+    (3, 200, 150, 256, torch.float32, False, None, 64, 64),
+    (1, 96, 40, 256, torch.float32, False, 8, 32, 16),
+    (4, 700, 700, 256, torch.bfloat16, True, 256, 256, 128),
+    (2, 12, 12, 256, torch.bfloat16, True, None, 512, 512),
+    (3, 200, 150, 256, torch.bfloat16, False, None, 64, 64),
 ])
 def test_kernel_matches_plain_and_walks_are_bitwise_equal(
         gpu, bh, sq, skv, d, dtype, causal, window, bq, bkv):

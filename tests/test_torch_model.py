@@ -4,9 +4,14 @@ The reference's ``init`` parameters go through
 :func:`repro_torch.convert.params_from_jax`; inputs are made with numpy
 from a seed.  Smoke configs of stablelm-1.6b (MHA, layernorm, partial
 RoPE), the GQA configs granite-8b (rmsnorm, swiglu) and starcoder2-3b
-(layernorm, gelu), and mixtral-8x22b (MoE, sliding window; its ring
-cache past the window is tested in tests/test_torch_moe.py).  Everything is fp32: single layers are
-held to 1e-5, logits after the whole stack to 1e-4.
+(layernorm, gelu), mixtral-8x22b (MoE, sliding window; its ring
+cache past the window is tested in tests/test_torch_moe.py) and
+chameleon-34b (qk-norm).  Everything is fp32: single layers are held to
+1e-5, logits after the whole stack to 1e-4.  Every arch builds, and the
+layers that have no paged cache (recurrent states, rings) and the
+encoder-decoder refuse continuous batching with the reference's
+messages.  The recurrent, xLSTM and encoder-decoder families have their
+own files (tests/test_torch_{recurrent,xlstm,encdec}.py).
 """
 
 import dataclasses
@@ -20,11 +25,18 @@ import torch
 from repro.configs import build_model as jax_build_model
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import layers as JL
+from repro.models import transformer as JT
 from repro.models.params import init_params as jax_init_params
+from repro.serve.scheduler import ContinuousBatchingScheduler as JScheduler
 from repro.train.step import make_ctx as jax_make_ctx
-from repro_torch.configs import build_model, get_smoke_config
+from repro_torch.configs import ARCH_IDS, build_model, get_config
+from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.params import tree_leaves
+from repro_torch.serve.scheduler import ContinuousBatchingScheduler
 from repro_torch.train.step import make_ctx
 
 # one intra-op thread: these tests share the host with timing-sensitive
@@ -33,7 +45,8 @@ torch.set_num_threads(1)
 
 LAYER_TOL = 1e-5
 LOGIT_TOL = 1e-4
-ARCHS = ["stablelm-1.6b", "granite-8b", "starcoder2-3b", "mixtral-8x22b"]
+ARCHS = ["stablelm-1.6b", "granite-8b", "starcoder2-3b", "mixtral-8x22b",
+         "chameleon-34b"]
 
 
 def _np(tree):
@@ -107,11 +120,80 @@ def test_attention_train_matches_reference(n_kv, fraction):
     _close(v, jv, LAYER_TOL)
 
 
-def test_unported_paths_raise():
-    for arch in ("whisper-tiny", "xlstm-125m", "recurrentgemma-2b",
-                 "chameleon-34b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_like_the_reference(arch):
+    """The reference's family dispatch: the encoder-decoder LM for the
+    audio family, the decoder-only LM for every other; the smoke
+    parameter tree holds the reference's leaves, and the full config
+    builds (its definitions only: nothing is allocated)."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    jm = jax_build_model(jax_smoke_config(arch))
+    assert isinstance(model, EncDecLM) == (cfg.family == "audio")
+    assert type(model).__name__ == type(jm).__name__
+    shapes = sorted(tuple(d.shape) for d in tree_leaves(model.defs))
+    jshapes = []
+    for d in jax.tree.leaves(jm.defs, is_leaf=lambda v: hasattr(v, "axes")):
+        scanned = d.axes[:1] == ("layers",)
+        reps = d.shape[0] if scanned else 1
+        jshapes += [tuple(d.shape[1:] if scanned else d.shape)] * reps
+    assert shapes == sorted(jshapes)
+    full = build_model(get_config(arch))
+    assert type(full) is type(model)
+
+
+def _refusal(fn):
+    with pytest.raises(NotImplementedError) as e:
+        fn()
+    return str(e.value)
+
+
+def _scheduler_refusal(arch):
+    """(the port's, the reference's) message when each builds the
+    scheduler on its smoke model."""
+    kw = dict(slots=1, n_pages=4, page_size=4, max_seq_len=8)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    jcfg = jax_smoke_config(arch)
+    jm = jax_build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    return (_refusal(lambda: ContinuousBatchingScheduler(
+                model, cfg, params, **kw)),
+            _refusal(lambda: JScheduler(jm, jcfg, jp, **kw)))
+
+
+def test_scheduler_refuses_rglru_layers_like_the_reference():
+    got, want = _scheduler_refusal("recurrentgemma-2b")
+    assert got == want and "'rglru'" in got and "not paged" in got
+
+
+def test_scheduler_refuses_mlstm_layers_like_the_reference():
+    got, want = _scheduler_refusal("xlstm-125m")
+    assert got == want and "'mlstm'" in got and "not paged" in got
+
+
+def test_scheduler_refuses_the_encoder_decoder_like_the_reference():
+    got, want = _scheduler_refusal("whisper-tiny")
+    assert got == want and "decoder-only" in got
+
+
+@pytest.mark.parametrize("kind", ["local", "slstm"])
+def test_paged_cache_refuses_ring_and_slstm_layers_like_the_reference(
+        kind):
+    """recurrentgemma's local layers keep a ring (its window bounds
+    their memory); sLSTM carries a recurrent state."""
+    arch = "recurrentgemma-2b" if kind == "local" else "xlstm-125m"
+    cfg = get_smoke_config(arch)
+    jcfg = jax_smoke_config(arch)
+    got = _refusal(lambda: T._init_layer_paged(
+        cfg, T.LayerSpec(kind, "none"), 4, 4,
+        make_ctx("decode", cache_len=8), torch.float32, "cpu"))
+    want = _refusal(lambda: JT._init_layer_paged(
+        jcfg, JT.LayerSpec(kind, "none"), 4, 4,
+        jax_make_ctx(None, "decode", cache_len=8), jnp.float32))
+    assert got == want
+    assert ("sliding-window" if kind == "local" else "recurrent") in got
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 * golden parity: every request through the scheduler (paged KV, ragged
   admission, slot reuse) decodes token for token like the port's
   fixed-batch ``prefill`` + ``decode_step`` path at batch 1 and the
-  same ``cap``, for stablelm-1.6b and for deepseek-v2-236b's latent
-  pools (the cases of tests/test_scheduler.py);
+  same ``cap``, for stablelm-1.6b, for chameleon-34b (qk-norm) and for
+  deepseek-v2-236b's latent pools (the cases of tests/test_scheduler.py);
 * admission under a tiny pool, ``max_new=1``, submit validation, and
   the refusals of unpageable layers with the reference's messages;
 * concurrent arrivals and live artifact swaps (tests/test_scheduler_race.py);
@@ -97,6 +97,11 @@ def _reference(model, params, prompt, max_new, cache_len):
 
 def test_golden_parity_vs_fixed_batch():
     _golden_parity("stablelm-1.6b")
+
+
+def test_golden_parity_vs_fixed_batch_qk_norm():
+    """chameleon-34b: GQA with qk-norm, through the same paged pools."""
+    _golden_parity("chameleon-34b")
 
 
 def test_golden_parity_vs_fixed_batch_mla():

@@ -201,6 +201,51 @@ def test_serve_int8_kv_cache_from_the_environment(monkeypatch):
         serve.run(argv + ["--queue"])
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-125m",
+                                  "whisper-tiny", "chameleon-34b"])
+def test_serve_runs_the_remaining_families_on_cpu(arch, capsys):
+    """The four families of the last model slice through the launcher at
+    smoke scale; whisper's prefill takes its seeded frame embeddings
+    (recurrentgemma's 40-token prompt passes its window of 32)."""
+    from repro_torch.launch import serve
+    from repro_torch.train.step import make_ctx
+
+    res = serve.run(["--arch", arch, "--scale", "smoke", "--device", "cpu",
+                     "--requests", "2", "--prompt-len", "40",
+                     "--gen-tokens", "4"])
+    assert tuple(res.tokens.shape) == (2, 4)
+    assert torch.isfinite(res.prefill_logits).all()
+    assert f"{arch}: 2 requests, prefill 40 toks" in capsys.readouterr().out
+    if arch == "whisper-tiny":
+        assert tuple(res.audio_emb.shape) == (2, res.cfg.encoder_len,
+                                              res.cfg.d_model)
+        # the same seeded draws give the same prefill
+        logits, _ = res.model.prefill(
+            res.params, {"tokens": res.prompts, "audio_emb": res.audio_emb},
+            make_ctx("prefill", cache_len=44))
+        torch.testing.assert_close(logits, res.prefill_logits, rtol=0,
+                                   atol=0)
+    else:
+        assert res.audio_emb is None
+    attn = [e for e in res.recs["prefill"].events if e.site == "attn.core"]
+    n_attn = {"recurrentgemma-2b": 1, "xlstm-125m": 0,
+              "whisper-tiny": res.cfg.n_encoder_layers + res.cfg.n_layers,
+              "chameleon-34b": res.cfg.n_layers}[arch]
+    assert len(attn) == n_attn
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("recurrentgemma-2b", "recurrent states are not paged"),
+    ("whisper-tiny", "continuous batching needs a decoder-only LM")])
+def test_serve_queue_refuses_unpageable_families(arch, match):
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match=match):
+        serve.run(["--arch", arch, "--device", "cpu", "--queue",
+                   "--requests", "2", "--prompt-len", "8",
+                   "--gen-tokens", "3"])
+
+
 def test_cuda_device_without_gpu_raises():
     from repro_torch.launch import serve
 
@@ -474,5 +519,7 @@ def test_scan_covers_the_serving_modules():
                 "ft/__init__.py", "ft/heartbeat.py", "launch/profile.py",
                 "launch/serve.py", "train/optim.py", "train/step.py",
                 "data/__init__.py", "data/pipeline.py", "ckpt/__init__.py",
-                "ckpt/checkpoint.py", "ft/driver.py", "launch/train.py"):
+                "ckpt/checkpoint.py", "ft/driver.py", "launch/train.py",
+                "models/recurrent.py", "models/xlstm.py",
+                "models/encdec.py"):
         assert rel in scanned, rel
