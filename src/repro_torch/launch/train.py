@@ -16,7 +16,10 @@ over the prefetching synthetic data pipeline.  Training runs on the
 port has a backward.  Runs on ``cuda`` unless ``--device cpu`` is
 given; asking for ``cuda`` on a host without a GPU raises.  Weights are
 drawn from a seeded ``torch.Generator`` on the device; with
-``--resume`` the data stream continues at the restored step.
+``--resume`` the data stream continues at the restored step.  Every
+family trains: the encoder-decoder's batches carry the frontend stub's
+frame embeddings ``audio_emb`` (B, encoder_len, d_model) beside the
+tokens, as in the reference.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from repro_torch.ckpt.checkpoint import latest_step
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.ft.driver import DriverConfig, TrainDriver
 from repro_torch.launch.serve import resolve_device
+from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import tree_leaves
 from repro_torch.train.optim import AdamWConfig
 from repro_torch.train.step import build_train_step, init_train_state
@@ -89,9 +93,16 @@ def _sync(dev: torch.device) -> None:
 def run(argv: list[str] | None = None) -> TrainResult:
     """Parse ``argv``, train, print the report."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
     cfg = (get_config if args.scale == "full"
            else get_smoke_config)(args.arch)
+    return train_config(cfg, args)
+
+
+def train_config(cfg: ArchConfig, args: argparse.Namespace) -> TrainResult:
+    """Train ``cfg`` with the options of ``args`` (as :func:`parse_args`
+    makes them; ``--arch`` and ``--scale`` are not read) and print the
+    report."""
+    dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -110,11 +121,14 @@ def run(argv: list[str] | None = None) -> TrainResult:
     state = init_train_state(model, cfg, opt_cfg,
                              torch.Generator(device=dev).manual_seed(0))
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    print(f"[train] {cfg.name} scale={args.scale} params={n_params:,} "
+    print(f"[train] {cfg.name} layers={cfg.n_layers} params={n_params:,} "
           f"batch={args.batch}x{args.seq} device={dev}")
 
     start = (latest_step(args.ckpt_dir) or 0) if args.resume else 0
-    data_src = SyntheticLM(cfg.vocab, args.seq, args.batch)
+    data_src = SyntheticLM(
+        cfg.vocab, args.seq, args.batch,
+        audio_dim=cfg.d_model if cfg.family == "audio" else None,
+        audio_len=cfg.encoder_len)
     prefetch = Prefetcher((data_src.batch_at(s)
                            for s in itertools.count(start)), depth=2)
     data = ({k: torch.from_numpy(v).to(dev) for k, v in b.items()}

@@ -13,7 +13,8 @@ Sq = Skv = encoder_len).  Cross-attention is the reference's einsum and
 softmax (no Pallas kernel there): ``torch.einsum`` here, recorded as the
 reference's ``attn.cross_qk`` event.  Encoder-decoder serving is fixed
 batch: the model has no paged cache, so the continuous-batching
-scheduler refuses it.
+scheduler refuses it.  :meth:`EncDecLM.loss` trains it, as the
+reference's does, without remat.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params
-from repro_torch.models.transformer import Ctx
+from repro_torch.models.transformer import Ctx, chunked_cross_entropy
 
 __all__ = ["EncDecLM", "build_encdec"]
 
@@ -149,6 +150,19 @@ class EncDecLM:
         return L.apply_norm(params["ln_f"], x, cfg.norm_kind), caches
 
     # -- public API -----------------------------------------------------------
+    def loss(self, params: dict, batch: dict, ctx: Ctx | None = None
+             ) -> torch.Tensor:
+        """Mean next-token CE of ``batch`` (``tokens``, ``labels``: (B,
+        S) ints; ``audio_emb`` (B, encoder_len, D)) over the tied
+        unembedding.  The default ctx trains on the ``library`` backend.
+        No layer is recomputed in the backward pass: the reference's
+        encoder-decoder has no remat."""
+        ctx = ctx or Ctx(mode="train", backend="library")
+        enc = self.encode(params, batch["audio_emb"], tuner=ctx.tuner,
+                          backend=ctx.backend)
+        x, _ = self._decode_seq(params, batch["tokens"], enc, ctx)
+        return chunked_cross_entropy(x, params["embed"].T, batch["labels"])
+
     def prefill(self, params: dict, batch: dict, ctx: Ctx
                 ) -> tuple[torch.Tensor, list]:
         """``batch``: ``tokens`` (B, S) ints and ``audio_emb`` (B,

@@ -75,6 +75,28 @@ def _layer_plan(cfg: ArchConfig) -> list[LayerSpec]:
     return plan
 
 
+def _segments(plan: list) -> tuple[list, list, int, list]:
+    """(prefix, unit, repeats, suffix) with unit = shortest cycle: the
+    reference's grouping of its layers, whose ``unit`` runs under
+    ``jax.lax.scan`` over parameters stacked across the repeats.  Here
+    the layers run one by one; the grouping still decides which tensors
+    the reference stacks (the int8 gradient compression's scale groups,
+    :func:`repro_torch.train.optim._scale_groups`).  ``plan`` is any
+    list of comparable layer descriptions."""
+    for start in range(0, min(4, len(plan))):
+        tail = plan[start:]
+        for clen in (1, 2, 3, 4):
+            if clen > len(tail):
+                break
+            unit = tail[:clen]
+            reps = len(tail) // clen
+            if reps >= 1 and all(
+                    tail[i] == unit[i % clen] for i in range(reps * clen)):
+                suffix = tail[reps * clen:]
+                return plan[:start], unit, reps, suffix
+    return plan, [], 0, []          # fully unrolled fallback
+
+
 def _attn_spec(cfg: ArchConfig, kind: str) -> L.AttnSpec:
     return L.AttnSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads,

@@ -10,9 +10,10 @@ parameters and both moments); the schedule, the clipping and the update
 are the reference's arithmetic, in fp32.
 
 The int8 compression is per tensor, as in the reference, where a
-tensor of the scanned layer stack holds one parameter of every layer:
-so here the parameters under ``"layers"`` share one scale per name
-across the layers (:func:`_scale_groups`).
+tensor of the scanned unit holds one parameter of the layers at one
+position of the unit, stacked across its repeats: so here those layers
+share one scale per name, and the layers before and after the unit keep
+their own (:func:`_scale_groups`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map, tree_paths
+from repro_torch.models.transformer import _segments
 
 __all__ = ["AdamWConfig", "STATE_MOMENTS", "init_state", "adamw_update",
            "cosine_lr", "clip_by_global_norm", "compress_int8",
@@ -111,14 +113,33 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _scale_groups(tree: Any) -> list[list[int]]:
-    """Leaf indices that share one int8 scale: every leaf alone, except
-    that ``layers[i][...]`` joins the same name in every other layer —
-    the reference's scan stacks those into one tensor."""
+    """Leaf indices that share one int8 scale: the reference's tensors.
+
+    Every leaf is alone, except under ``layers``, where the reference's
+    grouping (:func:`~repro_torch.models.transformer._segments`) stacks
+    the unit's layers across its repeats: ``layers[i][...]`` joins the
+    same name in the layers at i's position of the unit.  The grouping
+    is found from the layers' parameter names and shapes, which tell
+    every two layer kinds of a model apart but global and local
+    attention; no arch has both in one pattern."""
+    paths = tree_paths(tree)
+    shapes = [tuple(t.shape) for t in tree_leaves(tree)]
+    sigs: dict[int, list] = {}
+    for path, shape in zip(paths, shapes):
+        if path[:1] == ("layers",):
+            sigs.setdefault(path[1], []).append((path[2:], shape))
+    pre, unit, reps, _ = _segments([tuple(sigs[i]) for i in sorted(sigs)])
+    first, n_unit = len(pre), len(unit)
+
+    def owner(path: tuple) -> tuple:
+        if path[:1] == ("layers",) and \
+                first <= path[1] < first + n_unit * reps:
+            return ("scan", (path[1] - first) % n_unit) + path[2:]
+        return path
+
     groups: dict[tuple, list[int]] = {}
-    for i, path in enumerate(tree_paths(tree)):
-        key = ((path[0],) + path[2:] if path[:1] == ("layers",)
-               and len(path) > 1 else path)
-        groups.setdefault(key, []).append(i)
+    for i, path in enumerate(paths):
+        groups.setdefault(owner(path), []).append(i)
     return list(groups.values())
 
 
