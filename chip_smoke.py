@@ -16,7 +16,8 @@ Phases (any failure exits non-zero):
    dim (16 to 256) in both dtypes, rows not a multiple of the CTA's, fewer CTA rows
    (bq 32, 64, Sq 12), windows starting mid-ring, and at the serving
    path's shape (dense and tri must be bitwise equal, and two launches
-   too); then the
+   too), head dims between the kernel's (24, 80, 96, 192: zero-padded
+   to the next one) and float16 (run in float32); then the
    GEMM kernel against its plain version on the reference's matmul
    cases in fp32 and bf16, ragged shapes, every DEFAULT_TILES entry, a
    transposed-B view, syrk and trsm, and its bits on 10 launch shapes
@@ -137,18 +138,37 @@ Phases (any failure exits non-zero):
    checkpoint's GB and seconds, and the step's share of the fp32 peak
    (``roofline.step_flops`` over the median of steps 3–6, as phase 11's
    stablelm run); (c) whisper-tiny's ``--resume`` at the smoke scale;
-15. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+15. the mesh (the distribution layer): a one-rank NCCL world (an
+   in-process store) and a (1, 1) ("data", "model") mesh, held from
+   phase 11 to phase 12 (c); each part runs where its inputs live:
+   (c), (d) at the end of phase 11: its checkpoint restored onto the
+   mesh as DTensors by the state specs, bitwise the state in memory,
+   then MESH_TRAIN_STEPS sharded train steps from it against the
+   single-device step from the state, in turns: the losses within
+   MESH_TOL and every leaf of the two states bitwise equal after the
+   steps; (a) in phase 12 between (a) and (b): deepseek's weights
+   laid out on the mesh without a copy, ``serve.step.build_prefill``
+   (the MoE's expert-parallel path: the grouped kernel behind a one-rank
+   all_to_all, 9 tiled launches) and ``build_decode`` (135 thin) on the
+   same prompts: the logits within MESH_TOL of phase 12's and the same
+   greedy tokens; (b) after phase 12 (c): one mixtral-8x22b MoE layer at
+   full width through ``apply_moe_tp`` against ``apply_moe``: 3 tiled
+   launches, within the grouped bound; warm times of both paths in
+   turns (phase 12 (d), the int8 cache, runs after the mesh is gone);
+16. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
    line, one ``{"deepseek": {...}}`` line, one ``{"serving": {...}}``
    line, one ``{"train": {...}}`` line, one ``{"families": {...}}``
-   line, one ``{"train_families": {...}}`` line, one ``{"kernels": [...]}``
+   line, one ``{"train_families": {...}}`` line, one ``{"mesh": {...}}``
+   line, one ``{"kernels": [...]}``
    line (one entry per measured shape:
    flash attention at stablelm's, mixtral's and recurrentgemma's
-   prefill shapes, recurrentgemma's long request and at
-   the queue trace's longest prefill, each with
-   its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
+   prefill shapes, recurrentgemma's long request, the queue trace's
+   longest prefill and three padded head dims (their launches: those
+   the counted main paths made at that head dim, tallied from the
+   wrapper's ``launches_by_head_dim``), each with its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
-   four buckets; each with its body, ring stages and split
-   count), the card's line, and the ``{"ok": true, ...}`` last line.
+   four buckets, with its launches on the mesh paths; each with its
+   body, ring stages and split count), the card's line, and the ``{"ok": true, ...}`` last line.
 
 Exits non-zero without a result when no CUDA device is present or when
 the repository's ``src/repro_torch`` is not beside this file.
@@ -172,7 +192,7 @@ ARCH = "stablelm-1.6b"
 REQUESTS, PROMPT_LEN, GEN_TOKENS = 4, 1024, 16
 
 #: kernel vs plain, as tests/test_flash.py holds the reference
-TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+TOL = {"float32": 2e-5, "bfloat16": 5e-2, "float16": 5e-2}
 #: GEMM kernel vs plain, as tests/test_kernels.py holds the reference:
 #: the matmul oracle cases, random shapes and syrk, trsm
 GEMM_TOL = {"float32": 5e-5, "bfloat16": 1e-1}
@@ -315,6 +335,20 @@ CKPT_DISK_FACTOR = 1.2
 #: over positions of E[token] - E[label], telescopes to 0 (3.3 normwise
 #: apart between the card and the CPU)
 NOISE_FRACTION = 1e-6
+
+#: phase 15: the distribution layer on a one-rank NCCL mesh.  The mesh
+#: paths against the single-device ones on the same card: deepseek's
+#: prefill logits (max |diff| / max |logit|) and the sharded train
+#: step's losses (absolute), within MESH_TOL; a one-rank mesh cuts
+#: nothing, so both should be bitwise equal
+MESH_TOL = 1e-5
+MESH_TRAIN_STEPS = 2
+#: flash at head dims between the kernel's (zero-padded to 128, 128 and
+#: 256): (BH, S, D), causal, fp32
+FLASH_PADDED = [(64, 1024, 80), (64, 1024, 96), (32, 1024, 192)]
+#: the flash kernel's launches on the counted main-path runs, by the
+#: caller's head dim (tally_flash adds each run's to it)
+FLASH_PATH_BY_D: dict[int, int] = {}
 
 
 def card_line() -> str:
@@ -461,7 +495,7 @@ def phase_kernels(fa, torch) -> dict:
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     cases = [
         # name, bh, sq, skv, d, dtype, causal, window, bq, bkv
         ("causal_square", 2, 96, 96, 16, f32, True, None, 32, 32),
@@ -524,6 +558,16 @@ def phase_kernels(fa, torch) -> dict:
          128),
         ("bf16_d256_sq12", 2, 12, 12, 256, bf16, True, None, 512, 512),
         ("bf16_d256_noncausal", 3, 200, 150, 256, bf16, False, None, 64, 64),
+        # head dims between the kernel's (zero-padded to the next one)
+        # and float16 (run in float32)
+        ("d24_padded", 2, 200, 200, 24, f32, True, None, 64, 64),
+        ("d80_padded_window", 4, 700, 700, 80, f32, True, 100, 256, 128),
+        ("d96_padded_noncausal", 3, 200, 150, 96, f32, False, None, 64, 64),
+        ("d192_padded", 4, 1024, 1024, 192, f32, True, None, 512, 512),
+        ("bf16_d80_padded", 2, 300, 300, 80, bf16, True, None, 128, 128),
+        ("fp16_causal_d64", 4, 1024, 1024, 64, f16, True, None, 512, 512),
+        ("fp16_d96_padded_window", 2, 300, 300, 96, f16, True, 50, 128,
+         128),
     ]
     errs = {}
     for (name, bh, sq, skv, d, dt, causal, window, bq, bkv) in cases:
@@ -605,7 +649,8 @@ def time_flash(fa, torch, bh: int, s: int, d: int, bq: int, bkv: int,
         sdpa_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=band))
         del band
     bound, bound_by = flash_bound_ms(bh, s, s, d, True, 4, window)
-    plan = fa.flash_launch(s, s, d, bq, bkv, dtype=torch.float32,
+    kd = fa.kernel_head_dim(d)
+    plan = fa.flash_launch(s, s, kd, bq, bkv, dtype=torch.float32,
                            grid=grid)
     print(f"[chip_smoke] flash {(bh, s, d)} fp32 causal window {window} "
           f"block ({bq},{bkv}) plan {plan.cta_rows} rows x "
@@ -615,7 +660,8 @@ def time_flash(fa, torch, bh: int, s: int, d: int, bq: int, bkv: int,
           f"{bound:.3f} ms ({bound_by}), max_abs_err {err:.3e}")
     del q, k, v
     torch.cuda.empty_cache()
-    return {"shape": [bh, s, d], "block": [bq, bkv], "grid": grid,
+    return {"shape": [bh, s, d], "kernel_head_dim": kd,
+            "block": [bq, bkv], "grid": grid,
             "window": window, "max_abs_err": err, "ms": times[grid],
             "ms_by_grid": times, "plain_ms": plain_ms, "library_ms": sdpa_ms,
             "bound_ms": bound, "bound_by": bound_by,
@@ -950,7 +996,7 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
 
     # -- the main path: tuned calls, launches counted -----------------------
     M.matmul_cuda.launches = 0
-    fa.flash_attention_cuda.launches = 0
+    reset_flash(fa)
     G.grouped_matmul_cuda.launches = 0
     expected, checked = 0, 0
     picks: dict[str, list[int]] = {r: [] for r in ROUTINES3}
@@ -980,6 +1026,7 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     main_s = time.perf_counter() - t0
     launches = M.matmul_cuda.launches
     flash_launches = fa.flash_attention_cuda.launches
+    tally_flash(fa)
     print(f"[chip_smoke] tuned loop: {len(shapes)} shapes x "
           f"{len(ROUTINES3)} routines in {main_s:.1f}s ({checked} outputs "
           f"checked against the plain path); matmul kernel launches="
@@ -1114,8 +1161,20 @@ def kernel_counts(M, fa, G) -> dict:
 def reset_counts(M, fa, G) -> None:
     G.grouped_matmul_cuda.launches = 0
     G.grouped_matmul_cuda.launches_by_variant = {"thin": 0, "tiled": 0}
-    fa.flash_attention_cuda.launches = 0
+    reset_flash(fa)
     M.matmul_cuda.launches = 0
+
+
+def reset_flash(fa) -> None:
+    fa.flash_attention_cuda.launches = 0
+    fa.flash_attention_cuda.launches_by_head_dim = {}
+
+
+def tally_flash(fa) -> None:
+    """Add the flash launches by head dim of the main-path run just read
+    (since the counts were reset) to FLASH_PATH_BY_D."""
+    for d, n in fa.flash_attention_cuda.launches_by_head_dim.items():
+        FLASH_PATH_BY_D[d] = FLASH_PATH_BY_D.get(d, 0) + n
 
 
 def cache_bytes(caches) -> int:
@@ -1194,6 +1253,7 @@ def phase_mixtral(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
     reset_counts(M, fa, G)
     res = serve.serve_config(cfg, args)
     n = kernel_counts(M, fa, G)
+    tally_flash(fa)
     launches, by_variant = n["grouped"], n["grouped_by_variant"]
     flash_launches, gemm_launches = n["flash"], n["matmul"]
     moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
@@ -1417,6 +1477,7 @@ def phase_queue(M, fa, G, torch) -> dict:
     reset_counts(M, fa, G)
     res = serve.serve_config(get_config(ARCH), args, keep_logits=True)
     launches = fa.flash_attention_cuda.launches
+    tally_flash(fa)
     sched, cfg = res.sched, res.cfg
     want = cfg.n_layers * sched.admitted
     print(f"[chip_smoke] queue: flash launches={launches} (expected "
@@ -1710,10 +1771,11 @@ def fp32_peak_share(cfg, batch: int, seq: int, step_s: float) -> dict:
             "fp32_peak_share": flops / (step_s * PEAK_FLOPS)}
 
 
-def phase_train(M, fa, G, torch) -> dict:
+def phase_train(M, fa, G, torch, mesh) -> tuple[dict, dict]:
     """Phase 11: training on the card — card against CPU at 2 layers,
     the full-depth launcher run, its checkpoint restored bitwise, a
-    resume."""
+    resume; with phase 15 (c), (d) on ``mesh`` while the state and its
+    checkpoint live."""
     import dataclasses
     import shutil
     import statistics
@@ -1798,7 +1860,10 @@ def phase_train(M, fa, G, torch) -> dict:
                    "ckpt_gb": res.ckpt_bytes / 1e9, "ckpt_s": res.ckpt_s,
                    "restore_s": restore_s, "restore_bitwise": same,
                    "wall_s": res.wall_s}
-    del res, restored, live, back
+    del restored, live, back
+    torch.cuda.empty_cache()
+    on_mesh = mesh_train(res, full_dir, mesh, M, fa, G, torch)
+    del res
     shutil.rmtree(full_dir)
     torch.cuda.empty_cache()
 
@@ -1820,15 +1885,17 @@ def phase_train(M, fa, G, torch) -> dict:
     out["resume"] = {"saved_step": 3, "resumed_from": again.resumed_from,
                      "final_step": again.summary["step"]}
     shutil.rmtree(ckpt_root)
-    return out
+    return out, on_mesh
 
 
-def phase_deepseek(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
+def phase_deepseek(art: Path, M, fa, G, torch, mesh
+                   ) -> tuple[dict, dict, dict]:
     """Phase 12 (a)-(c): serve deepseek-v2-236b (full width, DS_LAYERS
     layers, fp32) through ``serve.serve_config`` and through the
     continuous-batching scheduler over latent page pools; count the
     grouped launches; check against the plain path and the fixed batch;
-    time the grouped kernel at deepseek's buckets."""
+    time the grouped kernel at deepseek's buckets.  Phase 15 (a) runs on
+    ``mesh`` between (a) and (b), on the same weights."""
     import dataclasses
     import gc
     import types
@@ -1968,6 +2035,8 @@ def phase_deepseek(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
            "latent_cache_bytes_per_token_layer": latent,
            "per_head_kv_bytes_per_token_layer": per_head}
 
+    on_mesh = mesh_deepseek(res, cfg, mesh, M, fa, G, torch)
+
     # -- (b) the paged trace over latent pools ------------------------------
     max_seq = DS_QUEUE_PROMPT + DS_QUEUE_GEN
     sched = ContinuousBatchingScheduler(
@@ -2031,7 +2100,7 @@ def phase_deepseek(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
              "launches_by_variant": n["grouped_by_variant"],
              "shapes": time_grouped(G, torch, tuner, DS_GROUPED_SHAPES,
                                     seed=8)}
-    return out, entry
+    return out, entry, on_mesh
 
 
 def phase_int8(M, fa, G, torch) -> dict:
@@ -2055,6 +2124,7 @@ def phase_int8(M, fa, G, torch) -> dict:
     finally:
         del os.environ["ADSALA_KV_INT8"]
     n = kernel_counts(M, fa, G)
+    tally_flash(fa)
     cfg = res.cfg
     print(f"[chip_smoke] int8: {ARCH} served with ADSALA_KV_INT8=1: flash "
           f"launches={n['flash']} (expected {cfg.n_layers})")
@@ -2080,6 +2150,7 @@ def phase_int8(M, fa, G, torch) -> dict:
             reset_counts(M, fa, G)
             logits, cache = res.model.prefill(res.params, res.prompts, pctx)
             flash = fa.flash_attention_cuda.launches
+            tally_flash(fa)
             if flash != cfg.n_layers or any(
                     c.quantized != bool(flag) for c in cache):
                 raise SystemExit(f"[chip_smoke] FAIL: the {name} prefill ran "
@@ -2215,6 +2286,7 @@ def serve_family(name: str, cfg, prompt_len: int, want_flash: int,
     reset_counts(M, fa, G)
     res = serve.serve_config(cfg, args)
     n = kernel_counts(M, fa, G)
+    tally_flash(fa)
     n_params = sum(t.numel() for t in tree_leaves(res.params))
     kinds = sorted({s.kind for s in getattr(res.model, "plan", [])}) \
         or ["encoder-decoder"]
@@ -2328,6 +2400,7 @@ def phase_families(art: Path, M, fa, G, torch) -> tuple[dict, list]:
     kernel = greedy_run(res.model, res.params, prompt, RG_LONG, GEN_TOKENS,
                         tuner, torch)
     long_launches = fa.flash_attention_cuda.launches
+    tally_flash(fa)
     print(f"[chip_smoke] {RG_ARCH} long request (1 x {RG_LONG} + "
           f"{GEN_TOKENS}, window {cfg.local_window}): flash launches="
           f"{long_launches} (expected {local})")
@@ -2520,6 +2593,282 @@ def phase_train_families(M, fa, G, torch) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distribution layer on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A one-rank NCCL world (an in-process store: no address, no port)
+    and its (1, 1) ("data", "model") mesh on the card, destroyed on
+    leaving."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def in_turns(fns: dict, torch, iters: int) -> dict:
+    """Each of two callables timed by CUDA events in the order a, b, b, a;
+    the mean of its two turns."""
+    (ka, fa_), (kb, fb) = fns.items()
+    t = {ka: [], kb: []}
+    for k, f in ((ka, fa_), (kb, fb), (kb, fb), (ka, fa_)):
+        t[k].append(cuda_ms(f, iters=iters, warmup=1))
+    return {k: sum(v) / len(v) for k, v in t.items()}
+
+
+def mesh_train(res, ckpt_dir, mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (c), (d), inside phase 11 while its state and checkpoint
+    live: (d) the checkpoint restored onto the mesh by the state specs,
+    bitwise the state in memory; (c) MESH_TRAIN_STEPS sharded steps from
+    that state against the single-device step from the state itself, in
+    turns on the same batches: the losses within MESH_TOL, and then
+    every leaf of the two states (params, moments, step) bitwise equal
+    (a one-rank mesh cuts nothing)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.data.pipeline import SyntheticLM, make_global_batch
+    from repro_torch.dist.sharding import partition_params, state_specs
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import build_train_step
+
+    cfg, model, live = res.cfg, res.model, res.driver.state
+    specs = state_specs(partition_params(model, cfg, mesh))
+    # -- (d) the checkpoint onto the mesh -----------------------------------
+    t0 = time.perf_counter()
+    on_mesh = restore_checkpoint(str(ckpt_dir), TRAIN_STEPS, live,
+                                 mesh=mesh, specs=specs)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves(live), tree_leaves(on_mesh)))
+    same = all(isinstance(b, DTensor) and b.dtype == a.dtype
+               and torch.equal(b.to_local(), a) for a, b in pairs)
+    print(f"[chip_smoke] mesh (d): phase 11's checkpoint restored onto "
+          f"the (1, 1) mesh as {len(pairs)} DTensors by the state specs in "
+          f"{restore_s:.1f}s; bitwise the state in memory: {same}")
+    if not same:
+        raise SystemExit("[chip_smoke] FAIL: the checkpoint restored onto "
+                         "the mesh differs from the state in memory")
+    del pairs
+    # -- (c) sharded steps against the single-device step -----------------
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step_m, _, b_specs = build_train_step(model, cfg, opt, shape=shape,
+                                          mesh=mesh)
+    step_1, _, _ = build_train_step(model, cfg, opt)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    reset_counts(M, fa, G)
+    losses = {"single": [], "mesh": []}
+    step_s = {"single": [], "mesh": []}
+    for i in range(MESH_TRAIN_STEPS):
+        batch = data.batch_at(TRAIN_STEPS + i)
+        for kind in ("single", "mesh") if i % 2 == 0 else ("mesh",
+                                                            "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "single":
+                live, m = step_1(live, make_global_batch(batch, None,
+                                                         device="cuda"))
+            else:
+                on_mesh, m = step_m(on_mesh, make_global_batch(
+                    batch, mesh, b_specs))
+            loss = float(m["loss"])
+            step_s[kind].append(time.perf_counter() - t0)
+            losses[kind].append(loss)
+    no_launches("the mesh train steps", M, fa, G)
+    err = max(abs(a - b) for a, b in zip(losses["single"], losses["mesh"]))
+    # the whole state after the steps (params, moments, step), leaf by
+    # leaf: the losses alone barely see a wrong update
+    pairs = list(zip(tree_leaves(live), tree_leaves(on_mesh)))
+    state_diff = sum(not (isinstance(b, DTensor) and torch.equal(
+        b.to_local(), a)) for a, b in pairs)
+    del pairs
+    print(f"[chip_smoke] mesh (c): {MESH_TRAIN_STEPS} sharded steps of "
+          f"{cfg.name} ({TRAIN_BATCH}x{TRAIN_SEQ}) from the restored state "
+          f"against the single-device step: losses mesh "
+          f"{losses['mesh']} single {losses['single']}, max |diff| "
+          f"{err:.3e} (tol {MESH_TOL:g}); state leaves that differ "
+          f"after the steps: {state_diff} of {len(tree_leaves(live))}; "
+          "step s mesh "
+          + " ".join(f"{t:.3f}" for t in step_s["mesh"]) + ", single "
+          + " ".join(f"{t:.3f}" for t in step_s["single"]))
+    if not err <= MESH_TOL or state_diff:
+        raise SystemExit("[chip_smoke] FAIL: the sharded train step "
+                         "disagrees with the single-device step")
+    del on_mesh
+    torch.cuda.empty_cache()
+    return {"restore_s": restore_s, "restore_bitwise": same,
+            "train_losses": losses, "train_loss_max_abs_err": err,
+            "train_state_leaves_differ": state_diff,
+            "train_step_s": step_s}
+
+
+def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (a), inside phase 12 while deepseek's weights live: the
+    same weights as DTensors on the mesh (no copy), ``build_prefill``
+    and ``build_decode`` on phase 12's prompts: the MoE on its expert-
+    parallel path (the grouped kernel behind a one-rank all_to_all) in
+    the prefill, the single-device path in decode; logits and greedy
+    tokens against phase 12's, launches counted, times in turns."""
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.dist.sharding import partition_params
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.models.transformer import moe_mesh_layout
+    from repro_torch.serve.step import build_decode, build_prefill
+    from repro_torch.train.step import make_ctx
+
+    cache_len = PROMPT_LEN + GEN_TOKENS
+    it = iter(tree_leaves(partition_params(res.model, cfg, mesh),
+                          is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), res.params)
+    no_copy = all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        tree_leaves(sharded), tree_leaves(res.params)))
+    if not no_copy:
+        raise SystemExit("[chip_smoke] FAIL: laying deepseek's weights "
+                         "out on the mesh copied them")
+    prefill, _, b_specs = build_prefill(
+        res.model, cfg, ShapeSpec("prefill", cache_len, REQUESTS,
+                                  "prefill"), mesh, tuner=res.tuner)
+    decode, _, _ = build_decode(
+        res.model, cfg, ShapeSpec("decode", cache_len, REQUESTS, "decode"),
+        mesh, tuner=res.tuner)
+    batch = {"tokens": distribute(res.prompts, mesh, b_specs["tokens"])}
+    path = moe_mesh_layout(cfg, mesh, PROMPT_LEN)[0]
+    moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
+    with torch.inference_mode():
+        reset_counts(M, fa, G)
+        logits, cache = prefill(sharded, batch)
+        torch.cuda.synchronize()
+        n_pre = kernel_counts(M, fa, G)
+        toks = logits.argmax(-1)[:, None]
+        gen = [toks]
+        for i in range(GEN_TOKENS - 1):
+            step_logits, cache = decode(sharded, toks, cache,
+                                        PROMPT_LEN + i)
+            toks = step_logits.argmax(-1)[:, None]
+            gen.append(toks)
+        torch.cuda.synchronize()
+        n_all = kernel_counts(M, fa, G)
+        scale = res.prefill_logits.abs().max().item()
+        rel = (logits - res.prefill_logits).abs().max().item() / scale
+        same_tokens = torch.equal(torch.cat(gen, dim=1), res.tokens)
+        del cache
+        want_pre = {"tiled": 3 * moe_layers, "thin": 0}
+        want_dec = 3 * moe_layers * (GEN_TOKENS - 1)
+        print(f"[chip_smoke] mesh (a): deepseek on the (1, 1) mesh (MoE "
+              f"path {path!r}, weights laid out without a copy: "
+              f"{no_copy}): prefill grouped launches "
+              f"{n_pre['grouped_by_variant']} (expected {want_pre}), "
+              f"decode {n_all['grouped'] - n_pre['grouped']} thin "
+              f"(expected {want_dec}), flash {n_all['flash']}, matmul "
+              f"{n_all['matmul']}; prefill logits max rel err {rel:.3e} "
+              f"(tol {MESH_TOL:g}) against phase 12's; {GEN_TOKENS} greedy "
+              f"tokens the same: {same_tokens}")
+        if path != "ep" or n_pre["grouped_by_variant"] != want_pre \
+                or n_all["grouped"] - n_pre["grouped"] != want_dec \
+                or n_all["flash"] or n_all["matmul"]:
+            raise SystemExit("[chip_smoke] FAIL: the mesh path did not run "
+                             "the grouped kernel as expected")
+        if not (rel <= MESH_TOL and same_tokens):
+            raise SystemExit("[chip_smoke] FAIL: deepseek on the mesh "
+                             "disagrees with the single-device path")
+        pctx = make_ctx("prefill", cache_len=cache_len, tuner=res.tuner)
+        dctx = make_ctx("decode", cache_len=cache_len, tuner=res.tuner)
+        prefill_ms = in_turns({
+            "single": lambda: res.model.prefill(res.params, res.prompts,
+                                                pctx)[0],
+            "mesh": lambda: prefill(sharded, batch)[0]}, torch, iters=2)
+        _, c1 = res.model.prefill(res.params, res.prompts, pctx)
+        _, cm = prefill(sharded, batch)
+        tok = res.tokens[:, :1]
+        decode_ms = in_turns({
+            "single": lambda: res.model.decode_step(
+                res.params, tok, c1, PROMPT_LEN, dctx)[0],
+            "mesh": lambda: decode(sharded, tok, cm, PROMPT_LEN)[0]},
+            torch, iters=5)
+        del c1, cm
+    print(f"[chip_smoke] mesh (a) warm, in turns: prefill single "
+          f"{prefill_ms['single']:.1f} ms, mesh {prefill_ms['mesh']:.1f} "
+          f"ms; decode step single {decode_ms['single']:.2f} ms, mesh "
+          f"{decode_ms['mesh']:.2f} ms")
+    del sharded, batch
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "moe_path": path,
+            "weights_copied": not no_copy,
+            "prefill_launches": n_pre["grouped_by_variant"],
+            "decode_launches": n_all["grouped"] - n_pre["grouped"],
+            "prefill_logits_max_rel_err": rel, "same_tokens": same_tokens,
+            "prefill_ms": prefill_ms, "decode_step_ms": decode_ms}
+
+
+def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (b): one mixtral-8x22b MoE layer at full width (10.4 GB of
+    experts, fp32) through ``apply_moe_tp`` on the mesh (each rank's FF
+    slice: on one rank the whole weights, and a one-rank all-reduce)
+    against ``apply_moe`` on the same weights and 4 x 1024 tokens;
+    launches counted, times in turns."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import _moe_spec
+
+    cfg = get_config(MIX_ARCH)
+    spec = dataclasses.replace(_moe_spec(cfg), ep_axis="model")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    p = init_params(MOE.moe_defs(spec), gen)
+    x = torch.randn((REQUESTS, PROMPT_LEN, cfg.d_model), generator=gen,
+                    device="cuda")
+    with torch.inference_mode():
+        reset_counts(M, fa, G)
+        want, want_aux = MOE.apply_moe(p, x, spec)
+        torch.cuda.synchronize()
+        n_dense = kernel_counts(M, fa, G)
+        reset_counts(M, fa, G)
+        got, aux = MOE.apply_moe_tp(p, x, spec, mesh=mesh)
+        torch.cuda.synchronize()
+        n_tp = kernel_counts(M, fa, G)
+        err = (got - want).abs().max().item()
+        close = torch.allclose(got, want, atol=GEMM_TOL["float32"],
+                               rtol=GEMM_TOL["float32"])
+        aux_err = (aux - want_aux).abs().item()
+        ms = in_turns({
+            "single": lambda: MOE.apply_moe(p, x, spec)[0],
+            "mesh": lambda: MOE.apply_moe_tp(p, x, spec, mesh=mesh)[0]},
+            torch, iters=2)
+    print(f"[chip_smoke] mesh (b): mixtral MoE layer ({spec.n_experts} "
+          f"experts x d_ff {spec.d_ff}, {REQUESTS}x{PROMPT_LEN} tokens) "
+          f"through apply_moe_tp on the mesh: grouped launches "
+          f"{n_tp['grouped_by_variant']} (single-device "
+          f"{n_dense['grouped_by_variant']}), max_abs_err {err:.3e} "
+          f"(tol {GEMM_TOL['float32']:g}), aux err {aux_err:.3e}; warm "
+          f"in turns single {ms['single']:.1f} ms, mesh {ms['mesh']:.1f} "
+          "ms")
+    if not close or n_tp["grouped"] != 3 \
+            or n_tp["grouped_by_variant"] != n_dense["grouped_by_variant"]:
+        raise SystemExit("[chip_smoke] FAIL: apply_moe_tp disagrees with "
+                         "apply_moe, or did not run the grouped kernel 3 "
+                         "times")
+    del p, x, got, want
+    torch.cuda.empty_cache()
+    return {"arch": MIX_ARCH, "tokens": REQUESTS * PROMPT_LEN,
+            "launches": n_tp["grouped_by_variant"], "max_abs_err": err,
+            "aux_abs_err": aux_err, "layer_ms": ms}
+
+
 START = time.perf_counter()
 
 
@@ -2578,11 +2927,12 @@ def main() -> int:
     argv = ["--arch", ARCH, "--scale", "full", "--requests", str(REQUESTS),
             "--prompt-len", str(PROMPT_LEN), "--gen-tokens",
             str(GEN_TOKENS), "--artifact", str(art), "--device", "cuda"]
-    fa.flash_attention_cuda.launches = 0
+    reset_flash(fa)
     mm.matmul_cuda.launches = 0
     gm.grouped_matmul_cuda.launches = 0
     res = serve.run(argv)
     launches = fa.flash_attention_cuda.launches
+    tally_flash(fa)
     print(f"[chip_smoke] serve: matmul kernel launches="
           f"{mm.matmul_cuda.launches} (the projections go to torch.matmul),"
           f" grouped kernel launches={gm.grouped_matmul_cuda.launches} "
@@ -2646,6 +2996,10 @@ def main() -> int:
     # the kernel at the serving path's shape and the tuner's config
     flash_row = time_flash(fa, torch, REQUESTS * cfg.n_heads, PROMPT_LEN,
                            hd, bq, bkv, choice.flash_grid, None, seed=1)
+    # head dims between the kernel's: zero-padded, on no served path
+    padded_rows = [(d, time_flash(fa, torch, bh, s, d, 512, 512, "tri",
+                                  None, seed=20 + d))
+                   for bh, s, d in FLASH_PADDED]
 
     # -- 6. measured install ----------------------------------------------------
     del res, cache, ctx, dctx, logits_t
@@ -2674,18 +3028,24 @@ def main() -> int:
           f"{serving['closed_loop']['phase_s']:.1f}s; the script "
           f"{time.perf_counter() - START:.1f}s so far")
 
-    # -- 11. train ----------------------------------------------------------------
-    t0 = time.perf_counter()
-    training = phase_train(mm, fa, gm, torch)
-    training["phase_s"] = time.perf_counter() - t0
-    print(f"[chip_smoke] phase 11 took {training['phase_s']:.1f}s; the "
-          f"script {time.perf_counter() - START:.1f}s so far")
+    # -- 11., 12. train, deepseek and int8; 15. the mesh -------------------------
+    mesh_out = {"card": card_line(), "world": "nccl, 1 rank",
+                "mesh": {"data": 1, "model": 1}}
+    with one_rank_mesh(torch) as mesh:
+        t0 = time.perf_counter()
+        training, mesh_out["train"] = phase_train(mm, fa, gm, torch, mesh)
+        training["phase_s"] = time.perf_counter() - t0
+        print(f"[chip_smoke] phase 11 took {training['phase_s']:.1f}s; "
+              f"the script {time.perf_counter() - START:.1f}s so far")
 
-    # -- 12. deepseek and int8 ------------------------------------------------------
-    t0 = time.perf_counter()
-    deepseek, ds_grouped = phase_deepseek(art, mm, fa, gm, torch)
+        t0 = time.perf_counter()
+        deepseek, ds_grouped, mesh_out["deepseek"] = phase_deepseek(
+            art, mm, fa, gm, torch, mesh)
+        t1 = time.perf_counter()
+        mesh_out["mixtral_tp"] = mesh_mixtral_tp(mesh, mm, fa, gm, torch)
+        mesh_out["mixtral_tp_s"] = time.perf_counter() - t1
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
-    deepseek["phase_s"] = time.perf_counter() - t0
+    deepseek["phase_s"] = time.perf_counter() - t0 - mesh_out["mixtral_tp_s"]
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
@@ -2705,7 +3065,8 @@ def main() -> int:
 
     # -- 15. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
-                           case_max_abs_err=errs),
+                           case_max_abs_err=errs,
+                           path_launches_by_head_dim=FLASH_PATH_BY_D),
                flash_entry("flash_attention@mixtral_prefill",
                            mixtral["flash"], mixtral["flash_launches"]),
                flash_entry("flash_attention@queue_prefill",
@@ -2713,11 +3074,23 @@ def main() -> int:
                            serving["queue"]["flash_launches"])]
     kernels += [flash_entry(f"flash_attention@{label}", row, n)
                 for label, row, n in family_flash]
+    # the padded head dims' launches on the counted main paths, by head
+    # dim (no served model has one of them)
+    kernels += [flash_entry(f"flash_attention@d{d}_padded", row,
+                            FLASH_PATH_BY_D.get(d, 0),
+                            on_path=d in FLASH_PATH_BY_D)
+                for d, row in padded_rows]
     # one entry per measured shape: the tiled GEMM at 2048^3 (the main
     # entry) and the largest cube, the grouped kernel at mixtral's decode
     # bucket (the main entry: 180 of its 192 launches) and prefill bucket,
     # and at deepseek-v2's four buckets with the launches of deepseek's
     # path (no main entry there)
+    # the grouped kernel's launches on the mesh paths (phase 15)
+    grouped_entry["mesh_launches"] = {
+        "mixtral_tp_call": mesh_out["mixtral_tp"]["launches"]}
+    ds_grouped["mesh_launches"] = {
+        "deepseek_prefill_ep": mesh_out["deepseek"]["prefill_launches"],
+        "deepseek_decode": mesh_out["deepseek"]["decode_launches"]}
     for name, source, replaces, entry, errs_, main in (
             ("matmul", "matmul.cu", "src/repro/kernels/matmul.py:57",
              gemm_entry, gemm_errs, f"gemm_{LARGE_CUBE}"),
@@ -2742,6 +3115,8 @@ def main() -> int:
                 "dtype": "float32",
                 **({"launches_by_variant": entry["launches_by_variant"]}
                    if "launches_by_variant" in entry else {}),
+                **({"mesh_launches": entry["mesh_launches"]}
+                   if "mesh_launches" in entry else {}),
                 **({"case_max_abs_err": errs_} if key == main else {}),
                 **{k: v for k, v in row.items()
                    if k in ("cta", "k_step", "group", "ms_by_tile")}})
@@ -2752,6 +3127,7 @@ def main() -> int:
     print(json.dumps({"train": training}))
     print(json.dumps({"families": families}))
     print(json.dumps({"train_families": train_families}))
+    print(json.dumps({"mesh": mesh_out}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

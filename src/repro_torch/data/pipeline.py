@@ -2,9 +2,8 @@
 
 The reference's numpy stream, batch for batch: a stateless function of
 (seed, step), so restarts resume mid-epoch exactly (the checkpoint
-stores only the step counter).  Its ``make_global_batch`` places a
-batch on a mesh and waits for the port of ``dist/``; a single-device
-caller moves the numpy arrays to its device itself.
+stores only the step counter).  :func:`make_global_batch` places a host
+batch on a mesh as DTensors, or on one device.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "Prefetcher"]
+__all__ = ["SyntheticLM", "Prefetcher", "make_global_batch"]
 
 
 class SyntheticLM:
@@ -55,6 +54,24 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_global_batch(batch: dict[str, np.ndarray], mesh,
+                      specs: dict | None = None, *, device=None) -> dict:
+    """Host numpy -> tensors: DTensors laid out on ``mesh`` by the spec
+    tree (each rank keeps its piece of the same global batch), or, with
+    ``mesh=None``, plain tensors on ``device`` (default: the current
+    CUDA device where there is one, else the CPU)."""
+    import torch
+
+    if mesh is None:
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        return {k: torch.from_numpy(np.asarray(v)).to(device)
+                for k, v in batch.items()}
+    from repro_torch.dist.collectives import distribute
+    return {k: distribute(torch.from_numpy(np.asarray(v)).to(
+        mesh.device_type), mesh, specs[k]) for k, v in batch.items()}
 
 
 class Prefetcher:

@@ -1,0 +1,167 @@
+"""Collectives of the mesh paths, with the gradients a sharded train
+step needs, and the moves of a DTensor between layouts.
+
+The reference runs its expert- and tensor-parallel MoE inside
+``shard_map`` and lets JAX transpose the collectives.  Here each
+collective is an autograd function whose backward follows one rule,
+the **replicated-loss convention**: every rank of a data-parallel group
+computes the same loss (activations are replicated over ``model``
+outside the MoE layers), ranks of different data groups hold different
+batches, and a rank's backward gives the gradient of its own group's
+loss with respect to its local tensors.  The sharded train step then
+averages the gradients over the data axes.  Under that rule:
+
+* :func:`all_to_all` — equal blocks along dim 0 to every rank; its
+  backward is the same exchange, reversed.
+* :func:`copy_to` — identity forward; the gradient summed over the
+  group: a tensor replicated over the group that each rank uses on its
+  own share of the work (the router on a sequence shard, an
+  activation against an FF slice of the experts).
+* :func:`reduce_from` — a sum over the group forward; the gradient
+  passes unchanged (it is already the same on every rank).
+* :func:`pmean` — a mean over the group forward; the gradient is
+  scaled by ``grad_scale``: ``1 / size`` where each rank's term depends
+  on its own shard and the shared weights' gradients are summed by
+  :func:`copy_to`, 1 where every rank holds the same term.
+
+:func:`local_at` moves a DTensor (or a full tensor, taken as
+replicated) to the placements a computation wants and returns the local
+piece, differentiably, without a copy where only mesh dims of size 1
+differ; :func:`distribute` lays a whole tensor out by a spec.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_to_all", "copy_to", "reduce_from", "pmean", "local_at",
+           "distribute", "replicated", "axis_size"]
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of one named mesh axis."""
+    return int(mesh.size(list(mesh.mesh_dim_names).index(axis)))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Rank r's block i of ``x`` (dim 0 cut into group-size equal
+    blocks) becomes rank i's block r."""
+    return _AllToAll.apply(x, group)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the gradient is summed over ``group``."""
+    return _CopyTo.apply(x, group)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; the gradient passes unchanged."""
+    return _ReduceFrom.apply(x, group)
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, grad_scale):
+        ctx.grad_scale = grad_scale
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale, None, None
+
+
+def pmean(x: torch.Tensor, group, grad_scale: float = 1.0) -> torch.Tensor:
+    """The mean of ``x`` over ``group``; the gradient times
+    ``grad_scale`` (see the module's convention)."""
+    return _PMean.apply(x, group, grad_scale)
+
+
+def _same_layout(mesh, a: Sequence, b: Sequence) -> bool:
+    """Do two placement lists cut the tensor alike (a mesh dim of size 1
+    cuts nothing, whatever its placement)?"""
+    return all(pa == pb or mesh.size(i) == 1
+               for i, (pa, pb) in enumerate(zip(a, b)))
+
+
+def replicated(mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() for _ in range(mesh.ndim))
+
+
+def local_at(t: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
+    """The local piece of ``t`` laid out by ``placements`` on ``mesh``.
+
+    ``t`` is a DTensor, or a plain tensor taken as the whole (replicated)
+    value.  The move is a DTensor redistribute, so it is differentiable
+    with DTensor's own rule (a gradient of a replicated layout is the
+    same on every rank); it is skipped, with no copy, when the layouts
+    differ only on mesh dims of size 1.
+    """
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, replicated(mesh), run_check=False)
+    if _same_layout(mesh, t.placements, placements):
+        return t.to_local()
+    return t.redistribute(mesh, tuple(placements)).to_local()
+
+
+def distribute(t: torch.Tensor, mesh, spec: tuple):
+    """A DTensor laid out by ``spec`` from the whole tensor ``t``, which
+    every rank holds: each keeps its own piece (no communication, and
+    no copy where the mesh does not cut ``t``)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.sharding import to_placements
+
+    placements = to_placements(spec, mesh)
+    return DTensor.from_local(local_at(t, mesh, placements).contiguous(),
+                              mesh, placements, run_check=False)

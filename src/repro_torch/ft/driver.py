@@ -15,9 +15,9 @@ Responsibilities at fleet scale (and their single-host test analogues):
   coordinator watching mtimes detects dead hosts and triggers the
   elastic-restore path (restore onto the surviving mesh).
 
-Single device: the reference's ``mesh`` / ``specs`` (restore onto a
-mesh) wait for the port of ``dist/``; the state is restored onto its
-template's devices instead.
+With ``mesh`` / ``specs`` (a torch ``DeviceMesh`` and the state's spec
+tree) a resume restores the state onto the mesh, as the reference's
+does; without them, onto its template's devices.
 """
 
 from __future__ import annotations
@@ -54,11 +54,13 @@ class DriverConfig:
 class TrainDriver:
     def __init__(self, cfg: DriverConfig, step_fn: Callable,
                  state: Any, data: Iterator, *,
-                 state_template: Any = None):
+                 state_template: Any = None, mesh=None, specs: Any = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.state = state
         self.data = data
+        self.mesh = mesh
+        self.specs = specs
         self.state_template = state_template if state_template is not None \
             else state
         self.ckpt = AsyncCheckpointer(cfg.ckpt_dir)
@@ -75,7 +77,8 @@ class TrainDriver:
         last = latest_step(self.cfg.ckpt_dir)
         if last is not None:
             self.state = restore_checkpoint(
-                self.cfg.ckpt_dir, last, self.state_template)
+                self.cfg.ckpt_dir, last, self.state_template,
+                mesh=self.mesh, specs=self.specs)
             self.step = last
         return self.step
 

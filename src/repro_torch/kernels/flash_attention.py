@@ -17,9 +17,12 @@ register tiles is what keeps it from that bound.
 * :func:`flash_launch` — the launch plan: CTA rows, sub-tile columns,
   ring stages and shared bytes, for a head dim, dtype and the tuner's
   (bq, bkv).  The C entry refuses any plan it does not compile.
-* :func:`flash_attention_cuda` — the wrapper: checks, plans, allocates
+* :func:`flash_attention_cuda` — the wrapper: checks, pads a head dim
+  the kernel lacks to the next one it has (:func:`kernel_head_dim`,
+  :func:`pad_head_dim`) and runs float16 in float32, plans, allocates
   the output, launches on the current stream, raises on a CUDA error,
-  and counts its launches in ``flash_attention_cuda.launches``.
+  and counts its launches in ``flash_attention_cuda.launches`` (and by
+  the caller's head dim in ``launches_by_head_dim``).
 * :func:`flash_attention_torch` — the plain version of the same
   function (fp32 math, the same masks, and the reference's value on a
   row with no visible key: see :func:`_visible`).
@@ -46,7 +49,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_torch",
            "flash_tile_map", "flash_grid_counts", "flash_launch",
-           "FlashLaunch", "FLASH_GRID_KINDS", "SUPPORTED_HEAD_DIMS"]
+           "FlashLaunch", "FLASH_GRID_KINDS", "SUPPORTED_HEAD_DIMS",
+           "kernel_head_dim", "pad_head_dim"]
 
 _NEG_INF = -1e30
 
@@ -271,6 +275,28 @@ def _tri_walk(sq: int, skv: int, bq: int, bkv: int, causal: bool,
             torch.from_numpy(kvt).to(device))
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs a call of head dim ``d`` at: the
+    smallest entry of :data:`SUPPORTED_HEAD_DIMS` that holds it.  No
+    plan is instantiated past 256 (a wider fp32 tile does not fit in
+    shared memory at 2 stages), so a larger ``d`` is refused."""
+    for kd in SUPPORTED_HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise ValueError(f"flash_attention_cuda: head dim {d} above "
+                     f"{max(SUPPORTED_HEAD_DIMS)}, the widest the kernel "
+                     f"takes ({SUPPORTED_HEAD_DIMS})")
+
+
+def pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` (BH, S, D) zero-padded on its last dim to ``d``.  Zero
+    columns of q and k add exact zeros to every q.k product, and zero
+    columns of v give zero output columns, which the caller drops."""
+    if t.shape[-1] == d:
+        return t
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1])).contiguous()
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, bq: int = 512, bkv: int = 512,
                          causal: bool = True, window: int | None = None,
@@ -278,8 +304,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          grid: str = "dense") -> torch.Tensor:
     """Launch the Hopper flash-attention kernel on (BH, S, D) CUDA
     tensors: q (BH, Sq, D), k/v (BH, Skv, D), contiguous, one dtype
-    (float32 or bfloat16), D in :data:`SUPPORTED_HEAD_DIMS`.
+    (float32, bfloat16 or float16), D at most 256.
 
+    A head dim between the kernel's (:data:`SUPPORTED_HEAD_DIMS`) runs
+    zero-padded to the next one (:func:`pad_head_dim`) at the true
+    ``D ** -0.5`` scale, its output sliced back to D; float16 runs in
+    float32 (exact on the inputs) and its output is cast back.
     ``bq``/``bkv`` are the tuner's logical blocks, planned by
     :func:`flash_launch`; ``grid`` picks the dense or tri KV walk.
     Raises on any input the kernel does not take, under autograd (it has
@@ -287,6 +317,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     _check(q, k, v, grid)
     _build.refuse_grad("flash_attention_cuda", q, k, v)
+    bh, sq, d = (int(s) for s in q.shape)
+    skv = int(k.shape[1])
+    kd = kernel_head_dim(d)
+    if not (0 < bh <= 65535) or sq == 0 or skv == 0:
+        raise ValueError(f"flash_attention_cuda: unsupported extents "
+                         f"BH={bh} Sq={sq} Skv={skv}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention_cuda: window {window} <= 0")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on "
@@ -303,21 +341,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention_cuda: {name} is not "
                              "16-byte aligned")
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPE_CODES and q.dtype != torch.float16:
         raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not "
-                         "supported (float32, bfloat16)")
-    bh, sq, d = (int(s) for s in q.shape)
-    skv = int(k.shape[1])
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
-    if not (0 < bh <= 65535) or sq == 0 or skv == 0:
-        raise ValueError(f"flash_attention_cuda: unsupported extents "
-                         f"BH={bh} Sq={sq} Skv={skv}")
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention_cuda: window {window} <= 0")
+                         "supported (float32, bfloat16, float16)")
     sm_scale = sm_scale if sm_scale is not None else float(d) ** -0.5
-    plan = flash_launch(sq, skv, d, bq, bkv, dtype=q.dtype, grid=grid)
+    out_dtype = q.dtype
+    if q.dtype == torch.float16:
+        q, k, v = q.float(), k.float(), v.float()
+    q, k, v = (pad_head_dim(t, kd) for t in (q, k, v))
+    plan = flash_launch(sq, skv, kd, bq, bkv, dtype=q.dtype, grid=grid)
     if -(-sq // plan.bq) * -(-plan.bq // plan.cta_rows) > 65535:
         raise ValueError(f"flash_attention_cuda: Sq={sq} needs more than "
                          "65535 row blocks")
@@ -331,7 +363,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, sq, skv, d, plan.bq, plan.bkv, int(bool(causal)),
+        bh, sq, skv, kd, plan.bq, plan.bkv, int(bool(causal)),
         0 if window is None else int(window), ctypes.c_float(sm_scale),
         _DTYPE_CODES[q.dtype],
         None if row_ptr is None else row_ptr.data_ptr(),
@@ -343,9 +375,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{lib.flash_attention_error_string(err).decode()} "
             f"(cudaError {err})")
     flash_attention_cuda.launches += 1
-    return out
+    by_d = flash_attention_cuda.launches_by_head_dim
+    by_d[d] = by_d.get(d, 0) + 1
+    if kd != d:
+        out = out[..., :d].contiguous()
+    return out.to(out_dtype)
 
 
 #: launches of the CUDA kernel since the count was last set to 0
 flash_attention_cuda.launches = 0
+#: the same launches by the caller's head dim (before any padding)
+flash_attention_cuda.launches_by_head_dim = {}
 

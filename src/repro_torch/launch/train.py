@@ -7,7 +7,8 @@ Scales:
   smoke — the reduced config (CPU-sized)
   full  — the assigned config at full width and depth on ONE card, at
           ``--batch`` x ``--seq`` (the reference trains it on its
-          production mesh, which waits for the port of ``dist/``)
+          production mesh; the port's mesh step is
+          ``train.step.build_train_step(..., shape=, mesh=)``)
 
 As ``repro.launch.train``: the step loop runs in the fault-tolerant
 driver (checkpoint/restart, preemption handling, straggler detection)

@@ -24,7 +24,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import ParamDef, init_params
+from repro_torch.models.params import ParamDef, init_params, param_specs
 from repro_torch.models.transformer import Ctx, chunked_cross_entropy
 
 __all__ = ["EncDecLM", "build_encdec"]
@@ -102,6 +102,11 @@ class EncDecLM:
              dtype: torch.dtype = torch.float32) -> dict:
         """Random weights drawn from ``gen`` on ``gen``'s device."""
         return init_params(self.defs, gen, dtype)
+
+    def param_partition_specs(self, rules: dict) -> dict:
+        """One spec per parameter from a logical-axis rule table
+        (:func:`repro_torch.dist.sharding.param_rules`)."""
+        return param_specs(self.defs, rules)
 
     # -- encoder -----------------------------------------------------------
     def encode(self, params: dict, audio_emb: torch.Tensor, tuner=None,

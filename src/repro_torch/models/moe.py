@@ -11,9 +11,12 @@ expert in flat (token-major) order, so the buckets are the same rows.
 
 The expert products are three :func:`repro_torch.kernels.ops.
 grouped_matmul` dispatches (sites ``moe.wi`` / ``moe.wg`` /
-``moe.wo``), into the Hopper grouped GEMM on CUDA tensors.  The
-expert-parallel and expert-TP paths (``apply_moe_ep`` / ``apply_moe_tp``)
-need collectives and wait for the port of ``dist/``.
+``moe.wo``), into the Hopper grouped GEMM on CUDA tensors.  On a mesh
+(:func:`repro_torch.models.transformer._moe_apply` picks the path) the
+same kernel runs on each rank's local experts: behind an expert-axis
+``all_to_all`` in :func:`apply_moe_ep`, or on an FF slice of every
+expert ahead of one all-reduce in :func:`apply_moe_tp`; the
+collectives' gradients follow :mod:`repro_torch.dist.collectives`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ from repro_torch.models.layers import linear
 from repro_torch.models.params import ParamDef
 
 __all__ = ["MoESpec", "moe_defs", "apply_moe", "apply_moe_ep",
-           "apply_moe_tp"]
+           "apply_moe_tp", "is_expert_weight"]
+
+#: the expert weights, which a mesh path lays out by expert (EP) or by
+#: FF slice (TP); the router and the shared experts are replicated
+EXPERT_WEIGHTS = ("wi", "wg", "wo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +68,13 @@ def moe_defs(s: MoESpec) -> dict:
         defs["shared_wg"] = ParamDef((d, s.n_shared * f), ("embed", "ff"))
         defs["shared_wo"] = ParamDef((s.n_shared * f, d), ("ff", "embed"))
     return defs
+
+
+def is_expert_weight(path: tuple) -> bool:
+    """Is the parameter at ``path`` (dict keys and list indices from the
+    model's root) an MoE layer's expert weight?"""
+    return len(path) > 1 and path[-2] == "moe" \
+        and path[-1] in EXPERT_WEIGHTS
 
 
 def _route(p: dict, xf: torch.Tensor, s: MoESpec
@@ -152,15 +166,91 @@ def apply_moe(p: dict, x: torch.Tensor, s: MoESpec, tuner=None,
     return out.reshape(b, sl, d), aux
 
 
-def apply_moe_ep(p: dict, x: torch.Tensor, s: MoESpec, tuner=None):
-    """Expert-parallel MoE (``all_to_all`` over the expert axis)."""
-    raise NotImplementedError(
-        "apply_moe_ep is not ported yet: it needs the expert-axis "
-        "all_to_all of the dist/ port")
+def apply_moe_ep(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
+                 mesh, backend: str = "auto"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE (n_experts divisible by the ep axis).
+
+    Runs on one rank of ``mesh`` with ``x`` this rank's shard (B_loc,
+    S_loc, D), the expert weights this rank's experts (E/ep, ...) and
+    the router whole — the reference's ``shard_map`` body.
+
+    Steps: local top-k route -> sort-based bucket build -> all_to_all
+    over ``s.ep_axis`` (experts) -> grouped GEMM on the local experts ->
+    all_to_all back -> combine.  The aux loss is averaged over the ep
+    axis; each rank's term depends on its own tokens, so its gradient
+    is 1/ep of the mean's (:mod:`repro_torch.dist.collectives`).
+    """
+    from repro_torch.dist import collectives as C
+
+    group = mesh.get_group(s.ep_axis)
+    ep = C.axis_size(mesh, s.ep_axis)
+    b, sl, d = x.shape
+    n_tok = b * sl
+    xf = x.reshape(n_tok, d)
+    cap = s.capacity(n_tok)
+    gate_vals, gate_idx, aux = _route(p, xf, s)
+    aux = C.pmean(aux, group, grad_scale=1.0 / ep)
+
+    buckets, dest, order, valid = _dispatch(xf, gate_idx, s, cap)
+
+    # (E, C, D) -> (E/ep, ep*C, D): rows for my local experts from all
+    # peers, peer-major
+    e_loc = s.n_experts // ep
+    recv = C.all_to_all(buckets, group)
+    buckets = recv.reshape(ep, e_loc, cap, d).transpose(0, 1) \
+        .reshape(e_loc, ep * cap, d)
+    hi = ops.grouped_matmul(buckets, p["wi"], tuner=tuner, site="moe.wi",
+                            backend=backend)
+    hg = ops.grouped_matmul(buckets, p["wg"], tuner=tuner, site="moe.wg",
+                            backend=backend)
+    y = ops.grouped_matmul(F.silu(hg) * hi, p["wo"], tuner=tuner,
+                           site="moe.wo", backend=backend)
+    # (E/ep, ep*C, D) -> peer-major blocks -> (E, C, D) of my tokens
+    y = y.reshape(e_loc, ep, cap, d).transpose(0, 1).contiguous()
+    y = C.all_to_all(y, group).reshape(s.n_experts, cap, d)
+
+    out = _combine(y, dest, order, valid, gate_vals, n_tok, s)
+    if s.n_shared:
+        out = out + _shared_ffn(p, xf, tuner)
+    return out.reshape(b, sl, d), aux
 
 
-def apply_moe_tp(p: dict, x: torch.Tensor, s: MoESpec, tuner=None):
-    """Expert-TP MoE (experts sharded on the FF dim, one psum)."""
-    raise NotImplementedError(
-        "apply_moe_tp is not ported yet: it needs the tensor-parallel "
-        "psum of the dist/ port")
+def apply_moe_tp(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
+                 mesh, backend: str = "auto"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-TP MoE for small expert counts (mixtral: 8 experts on a
+    16-way model axis).  Runs on one rank of ``mesh`` with ``x``
+    replicated over the tp axis ``s.ep_axis`` (tokens sharded over the
+    data axes only) and the expert weights this rank's FF slice
+    (wi/wg last dim, wo middle dim).
+
+    Every tp member computes all experts on its FF slice; a single
+    all-reduce (sum) over the tp axis rebuilds the expert outputs — the
+    standard Megatron-style tensor parallelism applied per expert.
+    """
+    from repro_torch.dist import collectives as C
+
+    group = mesh.get_group(s.ep_axis)
+    b, sl, d = x.shape
+    n_tok = b * sl
+    xf = x.reshape(n_tok, d)
+    cap = s.capacity(n_tok)
+    gate_vals, gate_idx, aux = _route(p, xf, s)
+    aux = C.pmean(aux, group)
+
+    buckets, dest, order, valid = _dispatch(xf, gate_idx, s, cap)
+    # each rank's FF slice sees the same buckets: their gradients sum
+    buckets = C.copy_to(buckets, group)
+    hi = ops.grouped_matmul(buckets, p["wi"], tuner=tuner,
+                            site="moe.wi", backend=backend)  # (E, C, F/tp)
+    hg = ops.grouped_matmul(buckets, p["wg"], tuner=tuner, site="moe.wg",
+                            backend=backend)
+    y = ops.grouped_matmul(F.silu(hg) * hi, p["wo"], tuner=tuner,
+                           site="moe.wo", backend=backend)  # partial sums
+    y = C.reduce_from(y, group)
+
+    out = _combine(y, dest, order, valid, gate_vals, n_tok, s)
+    if s.n_shared:
+        out = out + _shared_ffn(p, xf, tuner)
+    return out.reshape(b, sl, d), aux

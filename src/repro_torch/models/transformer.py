@@ -18,10 +18,12 @@ table, decode reads and writes per-layer page pools instead
 (continuous batching, :mod:`repro_torch.serve.scheduler`).  In training
 each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
 set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
-layers take the reference's single-device path (its ``_moe_apply``
-without a mesh).  A recurrent layer's prefill by-product is its final
-state, which is already the decode cache; its decode step returns a new
-state, where attention layers write their caches in place.
+layers choose their path as the reference's ``_moe_apply`` does: the
+single-device one without a mesh or in decode, else expert or tensor
+parallelism on the ctx's torch ``DeviceMesh``.  A recurrent layer's
+prefill by-product is its final state, which is already the decode
+cache; its decode step returns a new state, where attention layers
+write their caches in place.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import recurrent as REC
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import ParamDef, init_params
+from repro_torch.models.params import ParamDef, init_params, param_specs
 
 __all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy"]
 
@@ -166,6 +168,10 @@ def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     mode: str                      # train | prefill | decode
+    mesh: Any = None               # torch DeviceMesh of the MoE's mesh
+                                   # paths (None: one device)
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
     cache_len: int = 0             # decode capacity
     tuner: Any = None              # AdsalaTuner threaded to every
                                    # routine-aware call site (None = the
@@ -258,6 +264,96 @@ def _init_layer_paged(cfg: ArchConfig, spec: LayerSpec, n_pages: int,
                             a.head_dim, dtype, device=device)
 
 
+def moe_mesh_layout(cfg: ArchConfig, mesh, seq_len: int
+                    ) -> tuple[str, dict[str, tuple], tuple]:
+    """The MoE's path on ``mesh`` and its layout, as the reference's
+    ``shard_map`` in_specs give it: ``("ep" | "tp", weight specs by
+    name, x spec)``.
+
+    * E divisible by the tp size and S too -> expert parallelism
+      (deepseek): experts ``(tp, None, None)``, x ``(dp, tp, None)``;
+    * otherwise -> expert tensor parallelism (mixtral: 8 experts on a
+      16-way axis): wi / wg ``(None, None, tp)``, wo ``(None, tp,
+      None)``, x ``(dp, None, None)``;
+    * the router and the shared experts replicated.
+    """
+    from repro_torch.dist.collectives import axis_size
+    from repro_torch.dist.sharding import TP_AXIS, data_axes
+
+    spec = _moe_spec(cfg)
+    tp = axis_size(mesh, TP_AXIS)
+    dp = data_axes(mesh)
+    dp_entry = dp[0] if len(dp) == 1 else (dp or None)
+    ep_mode = spec.n_experts % tp == 0 and seq_len % tp == 0
+    names = ["router", "wi", "wg", "wo"]
+    if spec.n_shared:
+        names += ["shared_wi", "shared_wg", "shared_wo"]
+    w_specs: dict[str, tuple] = {}
+    for k in names:
+        if k not in MOE.EXPERT_WEIGHTS:
+            w_specs[k] = ()
+        elif ep_mode:
+            w_specs[k] = (TP_AXIS, None, None)
+        elif k == "wo":
+            w_specs[k] = (None, TP_AXIS, None)
+        else:
+            w_specs[k] = (None, None, TP_AXIS)
+    x_spec = (dp_entry, TP_AXIS if ep_mode else None, None)
+    return ("ep" if ep_mode else "tp"), w_specs, x_spec
+
+
+def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MoE dispatch-path selection.
+
+    * no mesh / decode step  -> the single-device path,
+    * E divisible by tp size -> expert parallelism (deepseek),
+    * otherwise              -> expert tensor parallelism (mixtral).
+
+    On a mesh, ``x`` is this rank's (B_loc, S, D) rows, replicated over
+    the tp axis; the weights are DTensors (their stored layout) or whole
+    tensors.  Each is moved to the layout of :func:`moe_mesh_layout`,
+    the path runs on the local pieces, and the output is rebuilt as the
+    rank's whole rows; the aux loss is averaged over every mesh axis.
+    """
+    spec = _moe_spec(cfg)
+    if ctx.mesh is None or ctx.mode == "decode":
+        return MOE.apply_moe(p, x, spec, tuner=ctx.tuner,
+                             backend=ctx.backend)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import to_placements
+
+    mesh, tp = ctx.mesh, ctx.tp_axis
+    path, w_specs, x_spec = moe_mesh_layout(cfg, mesh, x.shape[1])
+    spec = dataclasses.replace(spec, ep_axis=tp)
+    tp_group = mesh.get_group(tp)
+    p_local = {k: C.local_at(w, mesh, to_placements(w_specs[k], mesh))
+               for k, w in p.items()}
+    # the rank's rows: sharded over the data axes, whole over tp
+    rows = to_placements((x_spec[0], None, None), mesh)
+    x_at = to_placements(x_spec, mesh)
+    if path == "ep":
+        # the router and the shared experts see this rank's sequence
+        # shard only: their gradients sum over tp
+        for k in p_local:
+            if k not in MOE.EXPERT_WEIGHTS:
+                p_local[k] = C.copy_to(p_local[k], tp_group)
+        x_in = C.local_at(DTensor.from_local(x, mesh, rows,
+                                             run_check=False), mesh, x_at)
+        out, aux = MOE.apply_moe_ep(p_local, x_in, spec, tuner=ctx.tuner,
+                                    mesh=mesh, backend=ctx.backend)
+        out = C.local_at(DTensor.from_local(out, mesh, x_at,
+                                            run_check=False), mesh, rows)
+    else:
+        out, aux = MOE.apply_moe_tp(p_local, x, spec, tuner=ctx.tuner,
+                                    mesh=mesh, backend=ctx.backend)
+    for axis in (*ctx.dp_axes, tp):
+        aux = C.pmean(aux, mesh.get_group(axis))
+    return out, aux
+
+
 def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
                spec: LayerSpec, ctx: Ctx
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -268,8 +364,7 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
         return x, None
     h = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     if spec.mlp == "moe":
-        out, aux = MOE.apply_moe(p["moe"], h, _moe_spec(cfg),
-                                 tuner=ctx.tuner, backend=ctx.backend)
+        out, aux = _moe_apply(p["moe"], h, cfg, ctx)
         return x + out, aux
     return x + L.apply_mlp(p["mlp"], h, cfg.mlp_kind, tuner=ctx.tuner), None
 
@@ -395,6 +490,11 @@ class LM:
              dtype: torch.dtype = torch.float32) -> dict:
         """Random weights drawn from ``gen`` on ``gen``'s device."""
         return init_params(self.defs, gen, dtype)
+
+    def param_partition_specs(self, rules: dict) -> dict:
+        """One spec per parameter from a logical-axis rule table
+        (:func:`repro_torch.dist.sharding.param_rules`)."""
+        return param_specs(self.defs, rules)
 
     # -- forward --------------------------------------------------------------
     def _unembed_weight(self, params: dict) -> torch.Tensor:

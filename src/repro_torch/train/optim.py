@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -79,9 +79,12 @@ def init_state(params: Any, cfg: AdamWConfig | None = None) -> dict:
     return state
 
 
-def _global_norm(grads: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(grads)))
+def _global_norm(grads: Any, reduce: Callable | None = None
+                 ) -> torch.Tensor:
+    sums = (torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
+    if reduce is not None:
+        sums = (reduce(t, i, "sum") for i, t in enumerate(sums))
+    return torch.sqrt(sum(sums))
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -143,13 +146,18 @@ def _scale_groups(tree: Any) -> list[list[int]]:
     return list(groups.values())
 
 
-def _compress_group(gs: list[torch.Tensor], es: list[torch.Tensor]
+def _compress_group(gs: list[torch.Tensor], es: list[torch.Tensor],
+                    maxes: Callable[[list[torch.Tensor]], list] | None = None
                     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """(g', ef') per leaf of one scale group: the group's tensors
-    quantised as one, like :func:`compress_int8` on their stack."""
+    quantised as one, like :func:`compress_int8` on their stack.
+    ``maxes`` makes each leaf's max |g + ef| whole-tensor when the
+    leaves are shards."""
     tots = [g.float() + e for g, e in zip(gs, es)]
-    scale = torch.stack([torch.max(torch.abs(t)) for t in tots]).max() \
-        / 127.0 + 1e-30
+    peaks = [torch.max(torch.abs(t)) for t in tots]
+    if maxes is not None:
+        peaks = maxes(peaks)
+    scale = torch.stack(peaks).max() / 127.0 + 1e-30
     out = []
     for g, tot in zip(gs, tots):
         q = torch.clamp(torch.round(tot / scale), -127, 127).to(torch.int8)
@@ -174,8 +182,8 @@ def compressed_grads(grads: Any, ef: Any) -> tuple[Any, Any]:
 
 
 @torch.no_grad()
-def adamw_update(state: dict, grads: Any, cfg: AdamWConfig
-                 ) -> tuple[dict, dict]:
+def adamw_update(state: dict, grads: Any, cfg: AdamWConfig, *,
+                 reduce: Callable | None = None) -> tuple[dict, dict]:
     """One AdamW step; returns (new_state, metrics).
 
     ``params``, ``m``, ``v`` (and ``ef`` when compressing) are updated in
@@ -183,9 +191,15 @@ def adamw_update(state: dict, grads: Any, cfg: AdamWConfig
     trees with a new ``step``; ``grads`` is left as it is.  Metrics
     ``grad_norm`` (before clipping) and ``lr`` are scalar tensors on
     the state's device.
+
+    The leaves may be shards of a sharded state (the sharded train
+    step): ``reduce(value, leaf_index, op)`` then turns a leaf's local
+    sum of squares (``op="sum"``) or max |x| (``op="max"``) into the
+    whole tensor's, so the clipping norm and the int8 scales are the
+    unsharded step's.
     """
     step = state["step"] + 1
-    gn = _global_norm(grads)
+    gn = _global_norm(grads, reduce)
     scale = _clip_scale(gn, cfg.clip_norm)
     compress = cfg.compress and "ef" in state
     lr = cosine_lr(cfg, step)
@@ -198,7 +212,10 @@ def adamw_update(state: dict, grads: Any, cfg: AdamWConfig
     for group in _scale_groups(grads):
         gs = [g_all[i] * scale for i in group]
         if compress:
-            pairs = _compress_group(gs, [ef[i] for i in group])
+            maxes = None if reduce is None else (
+                lambda ts, group=group: [reduce(t, i, "max")
+                                         for t, i in zip(ts, group)])
+            pairs = _compress_group(gs, [ef[i] for i in group], maxes)
             gs = [g for g, _ in pairs]
             for i, (_, new_e) in zip(group, pairs):
                 ef[i].copy_(new_e)

@@ -1,29 +1,39 @@
-"""Train-step builder (loss -> grad -> AdamW) and the runtime context.
+"""Train-step builder (loss -> grad -> AdamW), mesh-aware, and the
+runtime context.
 
-``build_train_step`` returns ``(step_fn, None, None)``, as the
-reference's does without a mesh: the port has no sharded path yet, so
-there are no state or batch partition specs to return.
+``build_train_step`` returns ``(step_fn, state_specs, batch_specs)``
+with a mesh, ``(step_fn, None, None)`` without one, as the reference's
+does.  On a mesh the state is a tree of DTensors laid out by the state
+specs and the batch DTensors laid out by the batch specs; the step
+computes as :func:`sharded_train_step` says.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any
 
 import torch
 
+from repro_torch.dist.sharding import TP_AXIS, data_axes
 from repro_torch.kernels import recorder
 from repro_torch.kernels.ops import BACKENDS
-from repro_torch.models.config import ArchConfig
-from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.models.config import ArchConfig, ShapeSpec
+from repro_torch.models.params import abstract_params, is_spec, \
+    tree_leaves, tree_map, tree_paths
 from repro_torch.models.transformer import Ctx
-from repro_torch.train.optim import AdamWConfig, adamw_update, init_state
+from repro_torch.train.optim import STATE_MOMENTS, AdamWConfig, \
+    adamw_update, init_state
 
-__all__ = ["make_ctx", "build_train_step", "init_train_state"]
+__all__ = ["make_ctx", "build_train_step", "init_train_state",
+           "abstract_state", "train_batch_sds"]
 
 
-def make_ctx(mode: str, *, cache_len: int = 0, remat: bool = True,
-             tuner=None, backend: str = "auto") -> Ctx:
-    """Ctx for ``mode`` (train | prefill | decode) on a single device.
+def make_ctx(mode: str, *, mesh=None, cache_len: int = 0,
+             remat: bool = True, tuner=None, backend: str = "auto") -> Ctx:
+    """Ctx for ``mode`` (train | prefill | decode), on one device or on
+    ``mesh`` (a torch ``DeviceMesh``, or a ``MeshShape`` for deriving
+    specs only; its data axes are every axis but 'model').
 
     Training runs on the ``library`` backend on any device, whatever
     ``backend`` says: no CUDA kernel has a backward.
@@ -37,13 +47,52 @@ def make_ctx(mode: str, *, cache_len: int = 0, remat: bool = True,
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{BACKENDS}")
-    return Ctx(mode=mode, cache_len=cache_len, remat=remat, tuner=tuner,
+    if mesh is None:
+        return Ctx(mode=mode, cache_len=cache_len, remat=remat,
+                   tuner=tuner, kv_quantized=kv_q, backend=backend)
+    return Ctx(mode=mode, mesh=mesh, dp_axes=data_axes(mesh),
+               tp_axis=TP_AXIS,
+               cache_len=cache_len, remat=remat, tuner=tuner,
                kv_quantized=kv_q, backend=backend)
 
 
+def abstract_state(model, cfg: ArchConfig, opt_cfg: AdamWConfig,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The train state as tensors on the ``meta`` device (no storage):
+    parameters in ``dtype``, fp32 moments (and ``ef`` when compressing),
+    an int32 step."""
+    p = abstract_params(model.defs, dtype)
+
+    def f32() -> Any:
+        return tree_map(lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                              device="meta"), p)
+
+    state: dict = {"params": p}
+    for key in STATE_MOMENTS:
+        state[key] = f32()
+    state["step"] = torch.empty((), dtype=torch.int32, device="meta")
+    if opt_cfg.compress:
+        state["ef"] = f32()
+    return state
+
+
+def train_batch_sds(cfg: ArchConfig, shape: ShapeSpec,
+                    dtype: torch.dtype = torch.bfloat16) -> dict:
+    """One global training batch as ``meta`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    sds = {"tokens": torch.empty((b, s), dtype=torch.int32, device="meta"),
+           "labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    if cfg.family == "audio":
+        sds["audio_emb"] = torch.empty((b, cfg.encoder_len, cfg.d_model),
+                                       dtype=dtype, device="meta")
+    return sds
+
+
 def build_train_step(model, cfg: ArchConfig,
-                     opt_cfg: AdamWConfig | None = None, tuner=None):
-    """Returns ``(train_step, None, None)``.
+                     opt_cfg: AdamWConfig | None = None, tuner=None, *,
+                     shape: ShapeSpec | None = None, mesh=None):
+    """Returns ``(train_step, state_specs, batch_specs)``: the specs are
+    ``None`` without ``mesh``; with one, ``shape`` gives the batch.
 
     ``train_step(state, batch) -> (state, metrics)``: the loss on
     ``batch`` (``tokens`` / ``labels`` (B, S) int tensors on the state's
@@ -60,6 +109,11 @@ def build_train_step(model, cfg: ArchConfig,
     (see :func:`~repro_torch.kernels.recorder.suppressed`).
     """
     opt_cfg = opt_cfg or AdamWConfig()
+    if mesh is not None:
+        if shape is None:
+            raise ValueError("build_train_step on a mesh needs the batch "
+                             "shape")
+        return sharded_train_step(model, cfg, shape, mesh, opt_cfg, tuner)
     ctx = make_ctx("train", tuner=tuner)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
@@ -81,6 +135,107 @@ def build_train_step(model, cfg: ArchConfig,
         return new_state, metrics
 
     return train_step, None, None
+
+
+def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
+                       opt_cfg: AdamWConfig, tuner=None):
+    """The mesh half of :func:`build_train_step`: ``(step, state specs,
+    batch specs)``.
+
+    The state's DTensors keep the reference's layout (its state specs);
+    the compute differs from the reference's GSPMD partitioning:
+
+    * each weight is gathered whole for the forward (dense compute is
+      data-parallel), except the MoE experts, which are moved to the
+      layout of their expert- or tensor-parallel path
+      (:func:`~repro_torch.models.transformer.moe_mesh_layout`) and
+      stay local;
+    * each rank differentiates its own group's loss
+      (:mod:`repro_torch.dist.collectives`); each gradient is averaged
+      over the data axes and moved to its parameter's stored layout;
+    * AdamW runs on the local shards, with the clipping norm and the
+      int8 scales taken over whole tensors.
+    """
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import batch_specs, partition_params, \
+        state_specs, to_placements
+    from repro_torch.models.moe import is_expert_weight
+    from repro_torch.models.transformer import moe_mesh_layout
+
+    p_specs = partition_params(model, cfg, mesh)
+    s_specs = state_specs(p_specs, compress=opt_cfg.compress)
+    b_specs = batch_specs(cfg, shape, mesh)
+    ctx = make_ctx("train", mesh=mesh, tuner=tuner)
+    names = tuple(mesh.mesh_dim_names)
+    dp_groups = [mesh.get_group(a) for a in ctx.dp_axes]
+    n_dp = 1
+    for a in ctx.dp_axes:
+        n_dp *= C.axis_size(mesh, a)
+    paths = tree_paths(model.defs)
+    stored = [to_placements(sp, mesh)
+              for sp in tree_leaves(p_specs, is_leaf=is_spec)]
+    # the mesh dims that cut each parameter (sums and maxes over them)
+    cuts = [[names[i] for i, pl in enumerate(pls)
+             if pl.is_shard() and mesh.size(i) > 1] for pls in stored]
+    _, w_specs, _ = moe_mesh_layout(cfg, mesh, shape.seq_len) \
+        if cfg.n_experts else (None, {}, None)
+    compute = [to_placements(w_specs[path[-1]], mesh)
+               if is_expert_weight(path) else C.replicated(mesh)
+               for path in paths]
+
+    def reduce(value: torch.Tensor, i: int, op: str) -> torch.Tensor:
+        for axis in cuts[i]:
+            dist.all_reduce(value, op=dist.ReduceOp.SUM if op == "sum"
+                            else dist.ReduceOp.MAX,
+                            group=mesh.get_group(axis))
+        return value
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        stored_leaves = tree_leaves(state["params"])
+        local = [C.local_at(t, mesh, pl).detach().requires_grad_(True)
+                 for t, pl in zip(stored_leaves, compute)]
+        fwd = [DTensor.from_local(t, mesh, pl, run_check=False)
+               if pl != C.replicated(mesh) else t
+               for t, pl in zip(local, compute)]
+        it = iter(fwd)
+        params = tree_map(lambda _: next(it), state["params"])
+        rows = {k: v.to_local() if isinstance(v, DTensor) else v
+                for k, v in batch.items()}
+        n0 = recorder.active_event_count()
+        loss = model.loss(params, rows, ctx)
+        grad_leaves = torch.autograd.grad(loss, local)
+        del params, fwd, local
+        recorder.record_backward(since=n0, tuner=tuner)
+        grads = []
+        with torch.no_grad():
+            for g, pl_c, pl_s in zip(grad_leaves, compute, stored):
+                g = g.contiguous()
+                for group in dp_groups:
+                    dist.all_reduce(g, group=group)
+                if n_dp > 1:
+                    g.div_(n_dp)
+                grads.append(C.local_at(DTensor.from_local(
+                    g, mesh, pl_c, run_check=False), mesh, pl_s))
+        del grad_leaves
+        it = iter(grads)
+        grads_tree = tree_map(lambda _: next(it), state["params"])
+        local_state = {k: tree_map(lambda t: t.to_local(), v)
+                       for k, v in state.items()}
+        new_local, metrics = adamw_update(local_state, grads_tree, opt_cfg,
+                                          reduce=reduce)
+        new_state = dict(state)
+        new_state["step"] = DTensor.from_local(
+            new_local["step"], mesh, C.replicated(mesh), run_check=False)
+        loss = loss.detach().clone()
+        for group in dp_groups:
+            dist.all_reduce(loss, group=group)
+        metrics["loss"] = loss / n_dp
+        return new_state, metrics
+
+    return step, s_specs, b_specs
 
 
 def init_train_state(model, cfg: ArchConfig, opt_cfg: AdamWConfig,

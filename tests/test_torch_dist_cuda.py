@@ -1,0 +1,100 @@
+"""The MoE's expert-parallel mesh path on the card: a one-rank NCCL
+world, a (1, 1) ("data", "model") mesh, the grouped-GEMM kernel behind
+a one-rank ``all_to_all``.  Marked ``cuda``: without a CUDA device every
+test here skips.  Imports no jax, so it runs on a GPU host that has only
+torch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_dist_cuda.py
+
+The multi-rank paths are held to the JAX reference on gloo worlds on
+the CPU by tests/test_torch_dist.py.  Tolerance: the grouped oracle's
+5e-5 in fp32 (TF32 off); one rank holds every expert, so the buckets are
+the single-device path's and the kernel's bits are too.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import build_model, get_smoke_config
+from repro_torch.kernels import grouped_matmul as G
+from repro_torch.models import moe as MOE
+from repro_torch.models import transformer as T
+from repro_torch.models.params import init_params
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the grouped kernel has no CPU "
+                    "mode (the mesh paths are tested on gloo on the CPU)")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_ep_moe_on_a_one_rank_mesh_matches_the_dense_path(nccl_mesh):
+    from repro_torch.train.step import make_ctx
+
+    cfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"),
+                              d_model=256, d_ff_expert=512, n_experts=16)
+    spec = T._moe_spec(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(MOE.moe_defs(spec), gen)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device="cuda")
+    assert T.moe_mesh_layout(cfg, nccl_mesh, 64)[0] == "ep"
+    with torch.no_grad():
+        want, want_aux = MOE.apply_moe(p, x, spec)
+        before = G.grouped_matmul_cuda.launches
+        got, aux = T._moe_apply(p, x, cfg, make_ctx("prefill",
+                                                    mesh=nccl_mesh))
+        torch.cuda.synchronize()
+    assert G.grouped_matmul_cuda.launches - before == 3
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(aux, want_aux, atol=1e-6, rtol=1e-6)
+
+
+def test_mesh_prefill_of_a_smoke_model_on_the_card(nccl_mesh):
+    """build_prefill on the (1, 1) mesh: DTensor weights laid out by the
+    param specs, the EP path on the kernel, the single-device logits."""
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.step import build_prefill
+    from repro_torch.train.step import make_ctx
+
+    cfg = get_smoke_config("deepseek-v2-236b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    prefill, p_specs, _ = build_prefill(model, cfg,
+                                        ShapeSpec("p", 32, 2, "prefill"),
+                                        nccl_mesh)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, nccl_mesh, next(it)), params)
+    assert all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        tree_leaves(sharded), tree_leaves(params)))      # no copy
+    tokens = torch.randint(0, cfg.vocab, (2, 32), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    with torch.no_grad():
+        before = G.grouped_matmul_cuda.launches
+        logits, _ = prefill(sharded, {"tokens": tokens})
+        moe = sum(s.mlp == "moe" for s in model.plan)
+        assert G.grouped_matmul_cuda.launches - before == 3 * moe
+        want, _ = model.prefill(params, tokens,
+                                make_ctx("prefill", cache_len=32))
+    torch.testing.assert_close(logits, want, atol=1e-5, rtol=1e-5)

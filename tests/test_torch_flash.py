@@ -524,3 +524,53 @@ def test_flash_planner_rejects_what_the_kernel_does_not_take():
         F.flash_launch(64, 64, 64, 32, 32, grid="diag")
     with pytest.raises(ValueError, match="bad flash extents"):
         F.flash_launch(0, 64, 64, 32, 32)
+
+
+# ---------------------------------------------------------------------------
+# head dims between the kernel's: zero-padded to the next one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,kd", [(24, 32), (80, 128), (96, 128),
+                                  (192, 256)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+def test_padded_plain_call_matches_unpadded(d, kd, causal, window):
+    """The wrapper's repair of a head dim the kernel lacks: q, k, v
+    zero-padded to ``kernel_head_dim(d)`` at the true d**-0.5 scale,
+    the output sliced back, agree with the unpadded call within the
+    flash bound; at d = 80 both agree with the reference's kernel."""
+    assert F.kernel_head_dim(d) == kd
+    q, k, v = (torch.from_numpy(a) for a in _qkv(70, 90, d=d, bh=3,
+                                                 seed=d))
+    kw = dict(bq=32, bkv=32, causal=causal, window=window)
+    want = F.flash_attention_torch(q, k, v, **kw)
+    padded = [F.pad_head_dim(t, kd) for t in (q, k, v)]
+    assert all(t.shape[-1] == kd and t.is_contiguous() for t in padded)
+    assert torch.equal(padded[0][..., d:], torch.zeros_like(
+        padded[0][..., d:]))
+    got = F.flash_attention_torch(*padded, sm_scale=d ** -0.5, **kw)
+    assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    if d == 80:
+        ref = np.asarray(flash_attention_pallas(
+            jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+            jnp.asarray(v.numpy()), interpret=True, **kw))
+        np.testing.assert_allclose(got[..., :d].numpy(), ref,
+                                   atol=FP32_TOL, rtol=FP32_TOL)
+
+
+def test_head_dim_above_256_is_refused():
+    """No plan past 256: the wrapper's argument check refuses it before
+    it looks at the device (a deliberate departure from the reference's
+    kernel, which takes any head dim)."""
+    assert F.kernel_head_dim(256) == 256
+    assert F.kernel_head_dim(1) == 16
+    for d in (257, 320, 512):
+        with pytest.raises(ValueError, match="above 256"):
+            F.kernel_head_dim(d)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(16, 16, d=320, bh=1))
+    with pytest.raises(ValueError, match=r"head dim 320 above 256"):
+        F.flash_attention_cuda(q, k, v)
+    # the plain version takes any head dim
+    assert F.flash_attention_torch(q, k, v).shape == q.shape

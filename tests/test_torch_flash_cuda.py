@@ -9,7 +9,8 @@ The plain version is itself held to the JAX reference on the CPU by
 tests/test_torch_flash.py.  Tolerances are the reference's: 2e-5 in
 fp32 (TF32 off), 5e-2 in bf16; the dense and tri walks must be bitwise
 equal, and so must two launches, at every head dim the kernel takes
-(16 to 256).  The C entry takes the planner's
+(16 to 256); a head dim between those runs zero-padded, and float16 in
+float32 (at bf16's bound).  The C entry takes the planner's
 (CTA rows, sub-tile columns, stages) and refuses any plan it does not
 compile.
 """
@@ -119,12 +120,11 @@ def test_launch_counter_and_dispatch(gpu):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gpu):
     q, k, v = _qkv(2, 32, 32, 64, torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
-        F.flash_attention_cuda(q[..., :48].contiguous(),
-                               k[..., :48].contiguous(),
-                               v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="head dim 320 above 256"):
+        wide = _qkv(2, 32, 32, 320, torch.float32)
+        F.flash_attention_cuda(*wide)
     with pytest.raises(ValueError, match="dtype"):
-        F.flash_attention_cuda(q.half(), k.half(), v.half())
+        F.flash_attention_cuda(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="mixed dtypes"):
         F.flash_attention_cuda(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -135,6 +135,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gpu):
     off = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         F.flash_attention_cuda(off, k, v)
+
+
+@pytest.mark.parametrize("d", [24, 48, 80, 96, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None)])
+def test_padded_head_dims_and_fp16_match_plain(gpu, d, dtype, causal,
+                                               window):
+    """A head dim between the kernel's runs zero-padded to the next one
+    and sliced back; float16 runs in float32 and is cast back.  One
+    launch a call, counted under the caller's head dim, the caller's
+    dtype and shape, the plain version's values within the flash bounds
+    (fp16 at bf16's)."""
+    q, k, v = _qkv(3, 300, 300, d, dtype, seed=d)
+    kw = dict(bq=128, bkv=128, causal=causal, window=window)
+    want = F.flash_attention_torch(q, k, v, **kw).float()
+    before = F.flash_attention_cuda.launches
+    by_d = F.flash_attention_cuda.launches_by_head_dim.get(d, 0)
+    dense = F.flash_attention_cuda(q, k, v, grid="dense", **kw)
+    tri = F.flash_attention_cuda(q, k, v, grid="tri", **kw)
+    torch.cuda.synchronize()
+    assert F.flash_attention_cuda.launches == before + 2
+    assert F.flash_attention_cuda.launches_by_head_dim[d] == by_d + 2
+    assert dense.dtype == dtype and dense.shape == q.shape
+    assert torch.equal(dense, tri)
+    tol = TOL.get(dtype, TOL[torch.bfloat16])
+    torch.testing.assert_close(tri.float(), want, atol=tol, rtol=tol)
 
 
 def test_c_entry_refuses_a_plan_it_does_not_compile(gpu):

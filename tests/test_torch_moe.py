@@ -211,12 +211,32 @@ def test_apply_moe_records_one_event_per_expert(moe, moe_artifact, tuned):
 
 
 def test_ep_and_tp_paths_are_not_ported(moe):
+    """The expert-parallel and expert-TP paths (which raised before the
+    distribution layer was ported) need a mesh, and on a one-rank mesh
+    equal the single-device path bit for bit: one rank holds every
+    expert and the whole FF width.  Multi-rank worlds:
+    tests/test_torch_dist.py."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
     _, spec, _, p = moe
-    x = torch.zeros(1, 8, spec.d_model)
-    with pytest.raises(NotImplementedError, match="apply_moe_ep"):
+    x = torch.from_numpy(_tokens(np.random.default_rng(3), 2, 8,
+                                 spec.d_model))
+    with pytest.raises(TypeError, match="mesh"):
         MOE.apply_moe_ep(p, x, spec)
-    with pytest.raises(NotImplementedError, match="apply_moe_tp"):
+    with pytest.raises(TypeError, match="mesh"):
         MOE.apply_moe_tp(p, x, spec)
+    want, want_aux = MOE.apply_moe(p, x, spec)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        for fn in (MOE.apply_moe_ep, MOE.apply_moe_tp):
+            out, aux = fn(p, x, spec, mesh=mesh)
+            assert torch.equal(out, want) and torch.equal(aux, want_aux)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_shared_experts_match_reference():
