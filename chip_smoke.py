@@ -155,11 +155,26 @@ Phases (any failure exits non-zero):
    full width through ``apply_moe_tp`` against ``apply_moe``: 3 tiled
    launches, within the grouped bound; warm times of both paths in
    turns (phase 12 (d), the int8 cache, runs after the mesh is gone);
-16. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
+   phase 16 (b) runs inside (a);
+16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
+   cuda --mesh single`` on a fake 256-rank world, in two processes run
+   together: stablelm-1.6b on every shape (long_500k skipped) and
+   mixtral-8x22b on decode_32k; each cell's status, trace seconds,
+   FLOPs a rank against ``step_flops / n_devices``, peak bytes a rank,
+   collective bytes by kind, the kernels' ops traced (stablelm's
+   prefill must trace the flash op once per layer, mixtral's decode the
+   grouped op) and ``roofline_for_cell``'s three terms; the records
+   folded by ``launch.profile --dryrun-dir`` into a profile; (b) in
+   phase 15 (a), on its one-rank NCCL mesh: deepseek's mesh prefill
+   traced on fake tensors laid out like its real inputs — its grouped-op
+   calls must equal the real prefill's tiled launches; its FLOPs
+   against ``fwd_flops`` and its peak bytes against the real
+   ``max_memory_allocated`` are printed as ratios;
+17. report: one ``{"adsala": {...}}`` line, one ``{"mixtral": {...}}``
    line, one ``{"deepseek": {...}}`` line, one ``{"serving": {...}}``
    line, one ``{"train": {...}}`` line, one ``{"families": {...}}``
    line, one ``{"train_families": {...}}`` line, one ``{"mesh": {...}}``
-   line, one ``{"kernels": [...]}``
+   line, one ``{"dryrun": {...}}`` line, one ``{"kernels": [...]}``
    line (one entry per measured shape:
    flash attention at stablelm's, mixtral's and recurrentgemma's
    prefill shapes, recurrentgemma's long request, the queue trace's
@@ -346,6 +361,9 @@ MESH_TRAIN_STEPS = 2
 #: flash at head dims between the kernel's (zero-padded to 128, 128 and
 #: 256): (BH, S, D), causal, fp32
 FLASH_PADDED = [(64, 1024, 80), (64, 1024, 96), (32, 1024, 192)]
+#: phase 16 (a): (arch, shape or every shape) of each dry-run process
+DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k")]
+DRYRUN_TIMEOUT = 300
 #: the flash kernel's launches on the counted main-path runs, by the
 #: caller's head dim (tally_flash adds each run's to it)
 FLASH_PATH_BY_D: dict[int, int] = {}
@@ -471,16 +489,13 @@ def flash_bound_ms(bh: int, sq: int, skv: int, d: int, causal: bool,
                    itemsize: int, window: int | None = None
                    ) -> tuple[float, str]:
     """Least time for the work: 4*D flops per visible (q, kv) pair
-    (QK^T and PV; a causal window of W leaves query i its last W keys)
-    at the fp32 CUDA-core rate, against q, k, v read and o written once
-    at the HBM rate."""
-    if causal:
-        pairs = sum(min(i + 1, skv, window or skv) for i in range(sq))
-    else:
-        pairs = sq * skv
+    (QK^T and PV; a window of W leaves query i its last W keys) at the
+    fp32 CUDA-core rate (``flash_flops``, the flash op's FLOP formula),
+    against q, k, v read and o written once at the HBM rate."""
+    from repro_torch.kernels.flash_attention import flash_flops
     from repro_torch.roofline import HBM_BW, PEAK_FLOPS
 
-    t_ops = 4.0 * d * pairs * bh / PEAK_FLOPS
+    t_ops = flash_flops(bh, sq, skv, d, causal, window) / PEAK_FLOPS
     t_bytes = itemsize * d * bh * (2 * sq + 2 * skv) / HBM_BW
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
@@ -678,9 +693,13 @@ def flash_entry(name: str, row: dict, launches: int, **extra) -> dict:
 
 
 def gemm_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
-    """Least time for an fp32 GEMM: 2mkn flops at the CUDA-core rate
-    against A, B read and C written once at the HBM rate."""
-    return _bound(2.0 * m * k * n, 4.0 * (m * k + k * n + m * n))
+    """Least time for an fp32 GEMM: 2mkn flops (``matmul_flops``, the
+    GEMM op's FLOP formula) at the CUDA-core rate against A, B read and C
+    written once at the HBM rate."""
+    from repro_torch.kernels.matmul import matmul_flops
+
+    return _bound(float(matmul_flops(m, k, n)),
+                  4.0 * (m * k + k * n + m * n))
 
 
 def syrk_bound_ms(m: int, k: int) -> tuple[float, str]:
@@ -1145,9 +1164,13 @@ def phase_tuned_loop(art: Path, M, fa, G, torch) -> tuple[dict, dict]:
 
 
 def grouped_bound_ms(e: int, c: int, d: int, f: int) -> tuple[float, str]:
-    """Least time for an fp32 grouped GEMM: 2ecdf flops at the CUDA-core
-    rate against X, W read and Y written once at the HBM rate."""
-    return _bound(2.0 * e * c * d * f, 4.0 * e * (c * d + d * f + c * f))
+    """Least time for an fp32 grouped GEMM: 2ecdf flops (``grouped_flops``,
+    the grouped op's FLOP formula) at the CUDA-core rate against X, W
+    read and Y written once at the HBM rate."""
+    from repro_torch.kernels.grouped_matmul import grouped_flops
+
+    return _bound(float(grouped_flops(e, c, d, f)),
+                  4.0 * e * (c * d + d * f + c * f))
 
 
 def kernel_counts(M, fa, G) -> dict:
@@ -2749,9 +2772,11 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
     moe_layers = sum(s.mlp == "moe" for s in res.model.plan)
     with torch.inference_mode():
         reset_counts(M, fa, G)
+        torch.cuda.reset_peak_memory_stats()
         logits, cache = prefill(sharded, batch)
         torch.cuda.synchronize()
         n_pre = kernel_counts(M, fa, G)
+        real_peak = torch.cuda.max_memory_allocated()
         toks = logits.argmax(-1)[:, None]
         gen = [toks]
         for i in range(GEN_TOKENS - 1):
@@ -2784,6 +2809,10 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
         if not (rel <= MESH_TOL and same_tokens):
             raise SystemExit("[chip_smoke] FAIL: deepseek on the mesh "
                              "disagrees with the single-device path")
+    trace = trace_mesh_prefill(res, cfg, mesh, prefill, b_specs,
+                               n_pre["grouped_by_variant"]["tiled"],
+                               real_peak, torch)
+    with torch.inference_mode():
         pctx = make_ctx("prefill", cache_len=cache_len, tuner=res.tuner)
         dctx = make_ctx("decode", cache_len=cache_len, tuner=res.tuner)
         prefill_ms = in_turns({
@@ -2810,7 +2839,63 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
             "prefill_launches": n_pre["grouped_by_variant"],
             "decode_launches": n_all["grouped"] - n_pre["grouped"],
             "prefill_logits_max_rel_err": rel, "same_tokens": same_tokens,
-            "prefill_ms": prefill_ms, "decode_step_ms": decode_ms}
+            "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+            "trace": trace}
+
+
+def trace_mesh_prefill(res, cfg, mesh, prefill, b_specs, tiled: int,
+                       real_peak: int, torch) -> dict:
+    """Phase 16 (b), inside phase 15 (a): the mesh prefill that phase 15
+    (a) ran traced on fake tensors laid out like its inputs (fp32
+    weights by the param specs, the prompts by the batch specs) under
+    the dry run's trace mode: its grouped-op calls must equal the tiled
+    launches of the real prefill; its FLOPs against the analytic forward
+    count of the config and its peak bytes against the real peak are
+    printed as ratios."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist.sharding import partition_params
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import abstract_params
+    from repro_torch.roofline import fwd_flops
+
+    t0 = time.perf_counter()
+    prompts = torch.empty(tuple(res.prompts.shape), dtype=res.prompts.dtype,
+                          device="meta")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = dryrun.lay_out(abstract_params(res.model.defs,
+                                                torch.float32),
+                                partition_params(res.model, cfg, mesh),
+                                mesh, "cuda")
+        batch = dryrun.lay_out({"tokens": prompts}, b_specs, mesh, "cuda")
+        seen = dryrun.trace_cell(prefill, (params, batch), "cuda")
+        del params, batch
+    traced = seen["kernel_ops"].get("repro_torch::grouped_matmul", 0)
+    analytic = fwd_flops(cfg, ShapeSpec("prefill", PROMPT_LEN, REQUESTS,
+                                        "prefill"))
+    out = {"grouped_op_calls": traced, "tiled_launches": tiled,
+           "kernel_ops": seen["kernel_ops"], "trace_s": seen["trace_s"],
+           "flops": seen["flops"], "analytic_fwd_flops": analytic,
+           "flops_ratio": seen["flops"] / analytic,
+           "peak_bytes": seen["peak_bytes"],
+           "argument_bytes": seen["argument_bytes"],
+           "real_peak_bytes": real_peak,
+           "peak_ratio": seen["peak_bytes"] / real_peak,
+           "phase_s": time.perf_counter() - t0}
+    print(f"[chip_smoke] dry run (b): deepseek's mesh prefill traced on "
+          f"fake tensors in {seen['trace_s']:.2f}s: grouped op calls "
+          f"{traced} (real tiled launches {tiled}), kernel ops "
+          f"{seen['kernel_ops']}; FLOPs {seen['flops']:.4e} against "
+          f"fwd_flops {analytic:.4e} (ratio {out['flops_ratio']:.4f}); "
+          f"traced peak {seen['peak_bytes'] / 2 ** 30:.2f} GiB (inputs "
+          f"{seen['argument_bytes'] / 2 ** 30:.2f}) against the real "
+          f"max_memory_allocated {real_peak / 2 ** 30:.2f} GiB (ratio "
+          f"{out['peak_ratio']:.4f})")
+    if traced != tiled:
+        raise SystemExit("[chip_smoke] FAIL: the trace's grouped-op calls "
+                         "differ from the real prefill's launches")
+    return out
 
 
 def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
@@ -2867,6 +2952,119 @@ def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
     return {"arch": MIX_ARCH, "tokens": REQUESTS * PROMPT_LEN,
             "launches": n_tp["grouped_by_variant"], "max_abs_err": err,
             "aux_abs_err": aux_err, "layer_ms": ms}
+
+
+def phase_dryrun(torch) -> dict:
+    """Phase 16 (a): ``python -m repro_torch.launch.dryrun --device cuda
+    --mesh single`` in subprocesses (a fake world is global to its
+    process), one per entry of DRYRUN_CELLS, run together; each cell's
+    record read back beside the reference count ``step_flops /
+    n_devices`` and ``roofline_for_cell``'s terms; the records folded
+    by ``launch.profile --dryrun-dir`` into a profile (no install)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.workload import WorkloadProfile
+    from repro_torch.launch import profile
+    from repro_torch.models.config import SHAPES
+    from repro_torch.roofline import roofline_for_cell, step_flops
+
+    out = WORK / "dryrun_torch"
+    for old in out.glob("*.json"):
+        old.unlink()
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+         "cuda", "--mesh", "single", "--out", str(out), "--arch", arch]
+        + (["--shape", shape] if shape else []), env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CELLS]
+    failed = []
+    for (arch, _), proc in zip(DRYRUN_CELLS, procs):
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise SystemExit(f"[chip_smoke] FAIL: the dry run of {arch} "
+                             f"took more than {DRYRUN_TIMEOUT}s")
+        for line in log.splitlines():
+            print(f"[chip_smoke]   {line}")
+        if proc.returncode != 0:
+            failed.append(arch)
+    wall = time.perf_counter() - t0
+    if failed:
+        raise SystemExit(f"[chip_smoke] FAIL: the dry run failed for "
+                         f"{failed}")
+    cells = []
+    for path in sorted(out.glob("*.json")):
+        rec = json.loads(path.read_text())
+        row = {"arch": rec["arch"], "shape": rec["shape"],
+               "mesh": rec["mesh"], "status": rec["status"]}
+        cells.append(row)
+        if rec["status"] != "ok":
+            row["reason"] = rec.get("reason", rec.get("error"))
+            print(f"[chip_smoke] dry run (a): {rec['arch']} x "
+                  f"{rec['shape']}: {rec['status']} ({row['reason']})")
+            continue
+        cfg, shape = get_config(rec["arch"]), SHAPES[rec["shape"]]
+        terms = roofline_for_cell(cfg, shape, rec["mesh"], rec)
+        ref = step_flops(cfg, shape) / rec["n_devices"]
+        flops = rec["cost"]["flops_per_device"]
+        row.update({
+            "trace_s": rec["lower_s"], "flops_per_device": flops,
+            "reference_flops_per_device": ref, "flops_ratio": flops / ref,
+            "peak_gib": rec["memory"]["peak_bytes"] / 2 ** 30,
+            "argument_gib": rec["memory"]["argument_bytes"] / 2 ** 30,
+            "collective_bytes": {k: v["bytes"] for k, v in
+                                 rec["collectives"].items()},
+            "collective_counts": {k: v["count"] for k, v in
+                                  rec["collectives"].items()},
+            "kernel_ops": rec["kernel_ops"],
+            "roofline": {"compute_s": terms.compute_s,
+                         "memory_s": terms.memory_s,
+                         "collective_s": terms.collective_s,
+                         "dominant": terms.dominant}})
+        print(f"[chip_smoke] dry run (a): {rec['arch']} x {rec['shape']} "
+              f"x {rec['mesh']}: ok, traced in {rec['lower_s']}s; FLOPs a "
+              f"rank {flops:.4e} against step_flops / {rec['n_devices']} "
+              f"{ref:.4e} (ratio {flops / ref:.3f}); peak "
+              f"{row['peak_gib']:.2f} GiB a rank (inputs "
+              f"{row['argument_gib']:.2f}); collective bytes "
+              f"{row['collective_bytes']}; kernel ops {rec['kernel_ops']}; "
+              f"roofline compute {terms.compute_s:.4e} s, memory "
+              f"{terms.memory_s:.4e} s, collective {terms.collective_s:.4e}"
+              f" s: {terms.dominant}-bound")
+    by_cell = {(c["arch"], c["shape"]): c for c in cells}
+    want = {("stablelm-1.6b", s) for s in SHAPES} | {
+        ("mixtral-8x22b", "decode_32k")}
+    if set(by_cell) != want:
+        raise SystemExit(f"[chip_smoke] FAIL: dry-run cells "
+                         f"{sorted(by_cell)}, expected {sorted(want)}")
+    for key, c in by_cell.items():
+        if c["status"] != ("skipped" if key[1] == "long_500k" else "ok"):
+            raise SystemExit(f"[chip_smoke] FAIL: dry-run cell {key} "
+                             f"{c['status']}")
+    n_flash = by_cell["stablelm-1.6b", "prefill_32k"]["kernel_ops"].get(
+        "repro_torch::flash_attention", 0)
+    n_grouped = by_cell["mixtral-8x22b", "decode_32k"]["kernel_ops"].get(
+        "repro_torch::grouped_matmul", 0)
+    n_layers = get_config("stablelm-1.6b").n_layers
+    print(f"[chip_smoke] dry run (a): stablelm prefill_32k traced the "
+          f"flash op {n_flash} times (expected {n_layers}, one a layer); "
+          f"mixtral decode_32k the grouped op {n_grouped} times; "
+          f"{wall:.1f}s for both processes")
+    if n_flash != n_layers or n_grouped <= 0:
+        raise SystemExit("[chip_smoke] FAIL: the dry run did not trace "
+                         "the kernels' ops")
+    dest = WORK / "dryrun_profile.json"
+    profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
+    prof = WorkloadProfile.load(str(dest))
+    return {"card": card_line(), "world": "fake, 256 ranks",
+            "mesh": {"data": 16, "model": 16}, "cells": cells,
+            "processes_s": wall,
+            "profile": {"routine_weights": prof.routine_weights,
+                        "total": prof.total, "by": prof.by}}
 
 
 START = time.perf_counter()
@@ -3063,7 +3261,15 @@ def main() -> int:
     print(f"[chip_smoke] phase 14 took {train_families['phase_s']:.1f}s; "
           f"the script {time.perf_counter() - START:.1f}s so far")
 
-    # -- 15. report ---------------------------------------------------------------
+    # -- 16. the dry run -------------------------------------------------------------
+    t0 = time.perf_counter()
+    dryrun = phase_dryrun(torch)
+    dryrun["trace_vs_card"] = mesh_out["deepseek"]["trace"]
+    dryrun["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] phase 16 took {dryrun['phase_s']:.1f}s; the "
+          f"script {time.perf_counter() - START:.1f}s so far")
+
+    # -- 17. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs,
                            path_launches_by_head_dim=FLASH_PATH_BY_D),
@@ -3128,6 +3334,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"train_families": train_families}))
     print(json.dumps({"mesh": mesh_out}))
+    print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

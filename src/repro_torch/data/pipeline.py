@@ -57,16 +57,19 @@ class SyntheticLM:
 
 
 def make_global_batch(batch: dict[str, np.ndarray], mesh,
-                      specs: dict | None = None, *, device=None) -> dict:
+                      specs: dict | None = None, *,
+                      device="cuda") -> dict:
     """Host numpy -> tensors: DTensors laid out on ``mesh`` by the spec
     tree (each rank keeps its piece of the same global batch), or, with
-    ``mesh=None``, plain tensors on ``device`` (default: the current
-    CUDA device where there is one, else the CPU)."""
+    ``mesh=None``, plain tensors on ``device`` (the card unless the
+    caller asks for the CPU; raises for ``cuda`` without a card)."""
     import torch
 
     if mesh is None:
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+        if torch.device(device).type == "cuda" \
+                and not torch.cuda.is_available():
+            raise ValueError("make_global_batch: no CUDA device; pass "
+                             "device='cpu' to place the batch on the CPU")
         return {k: torch.from_numpy(np.asarray(v)).to(device)
                 for k, v in batch.items()}
     from repro_torch.dist.collectives import distribute

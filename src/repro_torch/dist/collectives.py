@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "copy_to", "reduce_from", "pmean", "local_at",
-           "distribute", "replicated", "axis_size"]
+           "local_rows", "distribute", "replicated", "axis_size"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -152,6 +152,21 @@ def local_at(t: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
     if _same_layout(mesh, t.placements, placements):
         return t.to_local()
     return t.redistribute(mesh, tuple(placements)).to_local()
+
+
+def local_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a batch input: a DTensor's piece cut on dim 0
+    as its layout cuts it and whole along every other dim (a spec may
+    also cut a wider dim over 'model', as the audio frame embeddings'
+    does, where the computation wants the rows whole).  A plain tensor
+    passes unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    rows = tuple(p if not p.is_shard() or p.dim == 0 else Replicate()
+                 for p in t.placements)
+    return local_at(t, t.device_mesh, rows)
 
 
 def distribute(t: torch.Tensor, mesh, spec: tuple):

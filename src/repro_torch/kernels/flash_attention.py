@@ -17,12 +17,16 @@ register tiles is what keeps it from that bound.
 * :func:`flash_launch` — the launch plan: CTA rows, sub-tile columns,
   ring stages and shared bytes, for a head dim, dtype and the tuner's
   (bq, bkv).  The C entry refuses any plan it does not compile.
-* :func:`flash_attention_cuda` — the wrapper: checks, pads a head dim
-  the kernel lacks to the next one it has (:func:`kernel_head_dim`,
-  :func:`pad_head_dim`) and runs float16 in float32, plans, allocates
-  the output, launches on the current stream, raises on a CUDA error,
-  and counts its launches in ``flash_attention_cuda.launches`` (and by
-  the caller's head dim in ``launches_by_head_dim``).
+* :func:`flash_attention_cuda` — the wrapper: checks, then calls the
+  torch op ``repro_torch::flash_attention``, whose real implementation
+  pads a head dim the kernel lacks to the next one it has
+  (:func:`kernel_head_dim`, :func:`pad_head_dim`) and runs float16 in
+  float32, plans, allocates the output, launches on the current stream,
+  raises on a CUDA error, and counts its launches in
+  ``flash_attention_cuda.launches`` (and by the caller's head dim in
+  ``launches_by_head_dim``); its fake implementation and FLOP formula
+  (:func:`flash_flops`) let a trace on fake tensors see the kernel
+  without launching it.
 * :func:`flash_attention_torch` — the plain version of the same
   function (fp32 math, the same masks, and the reference's value on a
   row with no visible key: see :func:`_visible`).
@@ -44,11 +48,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_torch",
-           "flash_tile_map", "flash_grid_counts", "flash_launch",
+           "flash_flops", "visible_pairs", "flash_tile_map",
+           "flash_grid_counts", "flash_launch",
            "FlashLaunch", "FLASH_GRID_KINDS", "SUPPORTED_HEAD_DIMS",
            "kernel_head_dim", "pad_head_dim"]
 
@@ -243,8 +249,11 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
     p = torch.where(mask, p, 0.0)
     out = torch.einsum("bqk,bkd->bqd", p, v.float())
     out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    empty = ~mask.any(dim=-1)
-    if bool(empty.any()):
+    # the rows with no visible key follow from the shapes alone: find
+    # them on the host, so that a trace on fake tensors needs no data
+    lo, hi = _key_span(sq, skv, causal, window)
+    empty = np.flatnonzero(lo > hi)
+    if empty.size:
         bq_, bkv_ = _clamp_blocks(sq, skv, bq, bkv)
         gq, gkv = -(-sq // bq_), -(-skv // bkv_)
         vis = _visible(np.arange(gq)[:, None] * bq_,
@@ -255,7 +264,7 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor,
         n_cols = vis.sum(dim=1).clamp_min(1) * bkv_          # (gq,)
         vbar = torch.einsum("gk,bkd->bgd", cols.float(), v.float()) \
             / n_cols[None, :, None]
-        rows = torch.nonzero(empty).squeeze(1)
+        rows = torch.as_tensor(empty, device=q.device)
         out[:, rows] = vbar[:, rows // bq_]
     return out.to(q.dtype)
 
@@ -338,32 +347,80 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_cuda: {name} is not "
                              "contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} is not "
-                             "16-byte aligned")
     if q.dtype not in _DTYPE_CODES and q.dtype != torch.float16:
         raise ValueError(f"flash_attention_cuda: dtype {q.dtype} not "
                          "supported (float32, bfloat16, float16)")
-    sm_scale = sm_scale if sm_scale is not None else float(d) ** -0.5
+    # float16 runs in float32
+    run_dtype = torch.float32 if q.dtype == torch.float16 else q.dtype
+    plan = flash_launch(sq, skv, kd, bq, bkv, dtype=run_dtype, grid=grid)
+    if -(-sq // plan.bq) * -(-plan.bq // plan.cta_rows) > 65535:
+        raise ValueError(f"flash_attention_cuda: Sq={sq} needs more than "
+                         "65535 row blocks")
+    sm_scale = float(sm_scale) if sm_scale is not None \
+        else float(d) ** -0.5
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, bq, bkv, bool(causal), window, sm_scale, grid)
+
+
+def _key_span(sq: int, skv: int, causal: bool, window: int | None
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """(lo, hi) per query row: the first and last key the mask leaves
+    visible (empty where lo > hi).  Query i sees key j < skv when j <= i
+    (causal) and j > i - window (a window)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = (np.maximum(i - window + 1, 0) if window is not None
+          else np.zeros(sq, np.int64))
+    return lo, hi
+
+
+def visible_pairs(sq: int, skv: int, causal: bool,
+                  window: int | None) -> int:
+    """The (query, key) pairs the mask leaves visible."""
+    lo, hi = _key_span(sq, skv, causal, window)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(bh: int, sq: int, skv: int, d: int, causal: bool,
+                window: int | None) -> int:
+    """The operations attention needs on (BH, S, D): 4·D per visible
+    (query, key) pair and batch-head (Q·Kᵀ and P·V), at the caller's
+    head dim; the zeros a padded head dim adds and the masked entries
+    of the tiles the kernel visits are not counted."""
+    return 4 * bh * d * visible_pairs(sq, skv, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
+              bkv: int, causal: bool, window: int | None, sm_scale: float,
+              grid: str) -> torch.Tensor:
+    """The launch, as a torch op (checked by :func:`flash_attention_cuda`):
+    the alignment check, the pad to the kernel's head dim, the tri walk's
+    device tile list and the counters live here, because a trace on fake
+    tensors takes the fake implementation below and touches no storage."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    kd = kernel_head_dim(d)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_cuda: {name} is not "
+                             "16-byte aligned")
     out_dtype = q.dtype
     if q.dtype == torch.float16:
         q, k, v = q.float(), k.float(), v.float()
     q, k, v = (pad_head_dim(t, kd) for t in (q, k, v))
     plan = flash_launch(sq, skv, kd, bq, bkv, dtype=q.dtype, grid=grid)
-    if -(-sq // plan.bq) * -(-plan.bq // plan.cta_rows) > 65535:
-        raise ValueError(f"flash_attention_cuda: Sq={sq} needs more than "
-                         "65535 row blocks")
     row_ptr = kv_list = None
     if grid == "tri":
-        row_ptr, kv_list = _tri_walk(sq, skv, plan.bq, plan.bkv,
-                                     bool(causal), window, q.device)
+        row_ptr, kv_list = _tri_walk(sq, skv, plan.bq, plan.bkv, causal,
+                                     window, q.device)
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, sq, skv, kd, plan.bq, plan.bkv, int(bool(causal)),
+        bh, sq, skv, kd, plan.bq, plan.bkv, int(causal),
         0 if window is None else int(window), ctypes.c_float(sm_scale),
         _DTYPE_CODES[q.dtype],
         None if row_ptr is None else row_ptr.data_ptr(),
@@ -380,6 +437,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kd != d:
         out = out[..., :d].contiguous()
     return out.to(out_dtype)
+
+
+@_flash_op.register_fake
+def _(q, k, v, bq, bkv, causal, window, sm_scale, grid):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_op_flops(q_shape, k_shape, v_shape, bq, bkv, causal, window,
+                    *args, out_shape=None, **kwargs) -> int:
+    bh, sq, d = q_shape
+    return flash_flops(bh, sq, k_shape[1], d, causal, window)
 
 
 #: launches of the CUDA kernel since the count was last set to 0

@@ -19,11 +19,14 @@ first use and bound through ``ctypes`` (see
   bucket's rows by 256 columns and streams W through a deep ring, with
   split-K where the CTAs would not fill the card.
 
-* :func:`grouped_matmul_cuda` — the wrapper: checks, allocates the
-  output and the split-K workspace, launches all experts in one launch
-  on the current stream, raises on a CUDA error, and counts its
-  launches in ``grouped_matmul_cuda.launches`` (and by body in
-  ``grouped_matmul_cuda.launches_by_variant``).  Operands are read
+* :func:`grouped_matmul_cuda` — the wrapper: checks, then calls the
+  torch op ``repro_torch::grouped_matmul``, whose real implementation
+  allocates the output and the split-K workspace, launches all experts
+  in one launch on the current stream, raises on a CUDA error, and
+  counts its launches in ``grouped_matmul_cuda.launches`` (and by body
+  in ``grouped_matmul_cuda.launches_by_variant``); its fake
+  implementation and FLOP formula (:func:`grouped_flops`) let a trace
+  on fake tensors see the kernel without launching it.  Operands are read
   through their strides (an expert-transposed weight launches without a
   copy), and the ragged edges in C, d and f are masked in the kernel
   instead of padded.
@@ -36,12 +39,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import (_DTYPE_CODES, _check_tile,
                                         launch_shape, ring_stages)
 
-__all__ = ["grouped_matmul_cuda", "grouped_matmul_torch",
+__all__ = ["grouped_matmul_cuda", "grouped_matmul_torch", "grouped_flops",
            "check_grouped_shapes", "grouped_launch", "GroupedLaunch"]
 
 #: the kernel's grid axis for the expert (CUDA's gridDim.y limit)
@@ -181,6 +185,23 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
             or not 0 < e <= MAX_EXPERTS:
         raise ValueError(f"grouped_matmul_cuda: unsupported extents e={e} "
                          f"c={c} d={d} f={f}")
+    _check_tile(bm, bk, bn)
+    return torch.ops.repro_torch.grouped_matmul(x, w, bm, bk, bn, out_dtype)
+
+
+def grouped_flops(e: int, c: int, d: int, f: int) -> int:
+    """The operations of E products (c, d) @ (d, f): 2ecdf."""
+    return 2 * e * c * d * f
+
+
+@torch.library.custom_op("repro_torch::grouped_matmul", mutates_args=())
+def _grouped_op(x: torch.Tensor, w: torch.Tensor, bm: int, bk: int, bn: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """The launch, as a torch op (checked by :func:`grouped_matmul_cuda`):
+    a trace on fake tensors takes the fake implementation below and
+    launches nothing, so only this function counts launches."""
+    e, c, d = x.shape
+    f = w.shape[2]
     plan = grouped_launch(e, c, d, f, bm, bk, bn)
     out = torch.empty((e, c, f), dtype=out_dtype, device=x.device)
     ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
@@ -202,6 +223,18 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
     grouped_matmul_cuda.launches += 1
     grouped_matmul_cuda.launches_by_variant[plan.variant] += 1
     return out
+
+
+@_grouped_op.register_fake
+def _(x, w, bm, bk, bn, out_dtype):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]),
+                       dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.grouped_matmul)
+def _grouped_op_flops(x_shape, w_shape, *args, out_shape=None, **kwargs
+                      ) -> int:
+    return grouped_flops(*x_shape, w_shape[2])
 
 
 #: launches of the CUDA kernel since the count was last set to 0

@@ -10,9 +10,14 @@ first use and bound through ``ctypes`` (see
 it on the H100 and how the TPU tile becomes a launch shape
 (:func:`launch_shape`).
 
-* :func:`matmul_cuda` — the wrapper: checks, allocates the output,
-  launches on the current stream, raises on a CUDA error, and counts
-  its launches in ``matmul_cuda.launches``.  Operands are read through
+* :func:`matmul_cuda` — the wrapper: checks, then calls the torch op
+  ``repro_torch::matmul``, whose real implementation allocates the
+  output, launches on the current stream, raises on a CUDA error, and
+  counts its launches in ``matmul_cuda.launches``; its fake
+  implementation gives the output's shape and type without storage, and
+  its FLOP formula (:func:`matmul_flops`) lets
+  ``torch.utils.flop_counter`` count it, so a trace on fake tensors
+  (``repro_torch.launch.dryrun``) sees the kernel.  Operands are read through
   their strides, so a transposed view launches without a copy, and the
   ragged edge is masked in the kernel instead of padded.
 * :func:`matmul_torch` — the plain version of the same function: fp32
@@ -26,10 +31,11 @@ no fallback from one to the other.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
-__all__ = ["matmul_cuda", "matmul_torch", "launch_shape",
+__all__ = ["matmul_cuda", "matmul_torch", "matmul_flops", "launch_shape",
            "ring_stages", "check_gemm_shapes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,6 +137,23 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if min(m, k, n) <= 0 or max(m, k, n) >= 2 ** 31:
         raise ValueError(f"matmul_cuda: unsupported extents m={m} k={k} "
                          f"n={n}")
+    _check_tile(bm, bk, bn)
+    return torch.ops.repro_torch.matmul(a, b, bm, bk, bn, out_dtype)
+
+
+def matmul_flops(m: int, k: int, n: int) -> int:
+    """The operations of C = A (m, k) @ B (k, n): 2mkn."""
+    return 2 * m * k * n
+
+
+@torch.library.custom_op("repro_torch::matmul", mutates_args=())
+def _matmul_op(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int, bn: int,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The launch, as a torch op (checked by :func:`matmul_cuda`): a
+    trace on fake tensors takes the fake implementation below and
+    launches nothing, so only this function counts launches."""
+    m, k = a.shape
+    n = b.shape[1]
     cta_m, cta_n, k_step, stages, group_m, group_n = launch_shape(bm, bk,
                                                                    bn)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
@@ -149,6 +172,17 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
             f"{lib.matmul_error_string(err).decode()} (cudaError {err})")
     matmul_cuda.launches += 1
     return out
+
+
+@_matmul_op.register_fake
+def _(a, b, bm, bk, bn, out_dtype):
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul)
+def _matmul_op_flops(a_shape, b_shape, *args, out_shape=None, **kwargs
+                     ) -> int:
+    return matmul_flops(a_shape[0], a_shape[1], b_shape[1])
 
 
 #: launches of the CUDA kernel since the count was last set to 0

@@ -3,8 +3,9 @@
 Functions, not module-level constants: importing this module builds no
 mesh and touches no process group.  Each mesh is built with
 ``init_device_mesh`` over the current process group (which the caller
-initialises, with as many ranks as the mesh has) on the current device
-type: ``cuda`` where a card is present, else ``cpu``.
+initialises, with as many ranks as the mesh has) on ``device_type``:
+``cuda`` unless the caller asks for ``cpu``.  Without a card a ``cuda``
+mesh raises; nothing falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ __all__ = ["make_production_mesh", "make_mesh", "dp_axes", "tp_axis"]
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str | None = None):
+                         device_type: str = "cuda"):
     """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips).
 
     ADSALA_TP overrides the model-axis degree (total chips preserved) —
@@ -32,14 +33,16 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
-              device_type: str | None = None):
+              device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the current
-    process group (ranks laid out row-major)."""
+    process group (ranks laid out row-major) on ``device_type``; raises
+    for ``cuda`` without a card."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise ValueError("make_mesh: no CUDA device for a 'cuda' mesh; "
+                         "pass device_type='cpu' to build it on the CPU")
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
 

@@ -1,7 +1,8 @@
 """Workload profiling entry point: recorded mixes -> profile -> install.
 
-Folds the per-cell ``dispatch`` blocks that the reference's
-``repro.launch.dryrun`` persists (and/or serve profiles written by
+Folds the per-cell ``dispatch`` blocks that
+``repro_torch.launch.dryrun`` writes under ``results/dryrun_torch``
+(and/or serve profiles written by
 ``repro_torch.launch.serve --profile-out``) into one merged
 :class:`~repro_torch.core.workload.WorkloadProfile`, writes it out, and
 optionally runs a mix-weighted ADSALA install driven by it:
@@ -73,7 +74,8 @@ def build_profile(args: argparse.Namespace) -> WorkloadProfile:
     if not profiles:
         sys.exit(f"[profile] no dispatch blocks under "
                  f"{args.dryrun_dir!r} and no --profile files; run "
-                 "repro.launch.dryrun (or serve --profile-out) first")
+                 "repro_torch.launch.dryrun (or serve --profile-out) "
+                 "first")
     if len(profiles) == 1:
         return profiles[0]
     return WorkloadProfile.merge(profiles)
@@ -83,8 +85,9 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         description="fold recorded dispatch mixes into a WorkloadProfile "
                     "and (optionally) run a mix-weighted install")
-    ap.add_argument("--dryrun-dir", default="results/dryrun",
-                    help="directory of repro.launch.dryrun cell JSONs")
+    ap.add_argument("--dryrun-dir", default="results/dryrun_torch",
+                    help="directory of repro_torch.launch.dryrun cell "
+                         "JSONs")
     ap.add_argument("--profile", action="append", default=None,
                     help="extra WorkloadProfile JSON(s) to merge in "
                          "(e.g. from serve --profile-out); repeatable")

@@ -112,7 +112,11 @@ def _dispatch(xf: torch.Tensor, gate_idx: torch.Tensor, s: MoESpec,
     flat_expert = gate_idx.reshape(-1)                     # (T*k,)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    counts = torch.bincount(flat_expert, minlength=s.n_experts)
+    # bincount's length depends on the data; a scatter's does not, so a
+    # trace on fake tensors can run it
+    counts = torch.zeros(s.n_experts, dtype=torch.long,
+                         device=xf.device).scatter_add_(
+        0, flat_expert.long(), torch.ones_like(flat_expert, dtype=torch.long))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n_tok * s.top_k, device=xf.device) \
         - starts[sorted_expert]

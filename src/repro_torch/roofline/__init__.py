@@ -9,9 +9,10 @@ from repro_torch.roofline.analytic import (
     analytic_hbm_bytes,
     ctx_enc,
     fwd_flops,
+    roofline_for_cell,
     step_flops,
 )
 
 __all__ = ["fwd_flops", "step_flops", "analytic_hbm_bytes",
-           "analytic_collective_bytes", "ctx_enc", "RooflineTerms",
-           "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
+           "analytic_collective_bytes", "ctx_enc", "roofline_for_cell",
+           "RooflineTerms", "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]

@@ -16,9 +16,8 @@ Constants (NVIDIA H100 SXM5 80GB data sheet, dense rates):
                                 GB/s both ways), the collective term's
                                 rate per card
 
-``roofline_for_cell`` (the production mesh's per-chip terms from a
-dry-run record) waits for the port of ``launch/dryrun.py`` and
-``launch/mesh.py``.
+:func:`roofline_for_cell` gives the production mesh's per-card terms
+for a cell of the dry run (:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -28,8 +27,8 @@ import dataclasses
 from repro_torch.models.config import ArchConfig, ShapeSpec
 
 __all__ = ["fwd_flops", "step_flops", "analytic_hbm_bytes",
-           "analytic_collective_bytes", "ctx_enc", "RooflineTerms",
-           "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
+           "analytic_collective_bytes", "ctx_enc", "roofline_for_cell",
+           "RooflineTerms", "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
 
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
@@ -295,3 +294,31 @@ class RooflineTerms:
     def roofline_fraction(self) -> float:
         """compute term / total — 1.0 means perfectly compute-bound."""
         return self.compute_s / max(self.total_s, 1e-30)
+
+
+def roofline_for_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str,
+                      record: dict) -> RooflineTerms:
+    """The per-card compute, memory and collective terms of one cell on
+    the production mesh (256 cards, or 512 for ``"multi"``), with the
+    traced FLOPs and peak bytes of its dry-run ``record``
+    (:mod:`repro_torch.launch.dryrun`).  The reference's arithmetic,
+    with :data:`NVLINK_BW` as the collective term's rate."""
+    n_dev = 512 if mesh_name == "multi" else 256
+    mesh_shape = ({"pod": 2, "data": 16, "model": 16}
+                  if mesh_name == "multi" else {"data": 16, "model": 16})
+    flops = step_flops(cfg, shape)
+    hbm = analytic_hbm_bytes(cfg, shape, n_dev)
+    coll = analytic_collective_bytes(cfg, shape, mesh_shape)
+    n_tok = shape.tokens if shape.kind != "decode" else shape.global_batch
+    factor = 6 if shape.kind == "train" else 2
+    return RooflineTerms(
+        arch=cfg.name, shape=shape.name, mesh=mesh_name, n_devices=n_dev,
+        compute_s=flops / (n_dev * PEAK_FLOPS),
+        memory_s=hbm / HBM_BW,
+        collective_s=coll / NVLINK_BW,
+        model_flops=factor * cfg.active_param_count() * n_tok,
+        analytic_flops=flops,
+        hlo_flops_per_dev=record.get("cost", {}).get(
+            "flops_per_device", 0.0),
+        peak_bytes=record.get("memory", {}).get("peak_bytes", 0),
+    )

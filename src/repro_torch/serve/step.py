@@ -158,9 +158,9 @@ def forward_params(params: Any, mesh, *, keep_experts: bool) -> Any:
 
 
 def _rows(t: Any) -> Any:
-    """This rank's rows of a batch input (a DTensor's local piece)."""
-    from torch.distributed.tensor import DTensor
-    return t.to_local() if isinstance(t, DTensor) else t
+    """This rank's rows of a batch input (whole along its other dims)."""
+    from repro_torch.dist.collectives import local_rows
+    return local_rows(t)
 
 
 def build_prefill(model, cfg: ArchConfig, shape: ShapeSpec, mesh,

@@ -202,8 +202,7 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
                for t, pl in zip(local, compute)]
         it = iter(fwd)
         params = tree_map(lambda _: next(it), state["params"])
-        rows = {k: v.to_local() if isinstance(v, DTensor) else v
-                for k, v in batch.items()}
+        rows = {k: C.local_rows(v) for k, v in batch.items()}
         n0 = recorder.active_event_count()
         loss = model.loss(params, rows, ctx)
         grad_leaves = torch.autograd.grad(loss, local)

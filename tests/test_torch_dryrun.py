@@ -1,0 +1,559 @@
+"""Port vs reference: the dry run (``repro_torch.launch.dryrun``), the
+per-cell roofline (``roofline_for_cell``), the kernels bound as torch
+ops, and the three examples, on the CPU.
+
+* ``roofline_for_cell`` for every arch x shape x mesh against the
+  reference's, whose module constants are set to the H100's for the
+  call (relative 1e-12);
+* ``cell_is_runnable`` and the record's keys against the reference's
+  source, read with ``ast`` (importing ``repro.launch.dryrun`` would set
+  ``XLA_FLAGS`` for 512 host devices in this process);
+* one smoke cell per kind traced with ``device="cpu"`` on rank 0 of a
+  fake 4-rank (2, 2) world (the kernels' plain versions), its FLOPs
+  against the analytic count, its routine mix against the reference's
+  prefill lowered under its ``DispatchRecorder``, its records folded by
+  ``launch.profile``;
+* the kernels' torch ops on fake CUDA tensors: their fake outputs
+  against the plain versions' shapes and types, and a fake-CUDA trace
+  of stablelm's smoke prefill that dispatches ``repro_torch::
+  flash_attention`` once per layer, counted by its formula, without
+  building the kernels.  This CPU-only torch has no CUDA device guard,
+  which Python indexing takes, so the trace runs indexing on ``meta``
+  twins (``_CudaIndexing``);
+* the examples at a small size with ``--device cpu``.
+
+FLOP tolerances (``_expected_flops``): the port's mesh steps gather the
+dense weights, so a rank computes its data group's rows through the
+whole model: ``step_flops / dp``.  Train
+and decode count the same einsums as the analytic model, so they agree
+to rounding (1e-9).  A prefill differs by two known terms, computed
+here exactly: the port's prefill takes the logits of the last position
+only, and the plain attention computes every (query, key) score where
+the analytic count averages a causal context of S / 2.
+"""
+
+import ast
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_map as pytree_map
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as jax_get_config
+from repro.models.config import SHAPES as JSHAPES
+from repro.roofline import analytic as JA
+from repro_torch.configs import build_model, get_config, get_smoke_config
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import grouped_matmul as G
+from repro_torch.kernels import matmul as M
+from repro_torch.launch import dryrun as D
+from repro_torch.models.config import SHAPES
+from repro_torch.roofline import analytic as A
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_DRYRUN = os.path.join(ROOT, "src", "repro", "launch", "dryrun.py")
+EXAMPLES = os.path.join(ROOT, "examples")
+
+#: the smoke cells: (seq_len, global_batch) on the (2, 2) world
+SMOKE_SHAPES = {"train_4k": (64, 4), "prefill_32k": (64, 4),
+                "decode_32k": (64, 4)}
+EXACT = 1e-9
+
+
+# ---------------------------------------------------------------------------
+# roofline_for_cell and the reference's source
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("shape_name", list(SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_roofline_for_cell_matches_reference(monkeypatch, arch, shape_name,
+                                             mesh_name):
+    monkeypatch.setattr(JA, "PEAK_FLOPS", A.PEAK_FLOPS)
+    monkeypatch.setattr(JA, "HBM_BW", A.HBM_BW)
+    monkeypatch.setattr(JA, "ICI_BW", A.NVLINK_BW)
+    record = {"cost": {"flops_per_device": 1.25e15},
+              "memory": {"peak_bytes": 3 * 2 ** 30}}
+    got = A.roofline_for_cell(get_config(arch), SHAPES[shape_name],
+                              mesh_name, record)
+    want = JA.roofline_for_cell(jax_get_config(arch), JSHAPES[shape_name],
+                                mesh_name, record)
+    got_d, want_d = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert got_d.keys() == want_d.keys()
+    for key, value in want_d.items():
+        if isinstance(value, str):
+            assert got_d[key] == value, key
+        else:
+            assert got_d[key] == pytest.approx(value, rel=1e-12), key
+    for prop in ("dominant", "total_s", "useful_ratio",
+                 "roofline_fraction"):
+        assert getattr(got, prop) == pytest.approx(getattr(want, prop),
+                                                   rel=1e-12)
+
+
+def _reference_tree() -> ast.Module:
+    with open(REF_DRYRUN) as f:
+        return ast.parse(f.read(), REF_DRYRUN)
+
+
+def test_cell_is_runnable_matches_reference():
+    tree = _reference_tree()
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.Assign)
+                and any(getattr(t, "id", None) == "LONG_OK"
+                        for t in n.targets))
+            or (isinstance(n, ast.FunctionDef)
+                and n.name == "cell_is_runnable")]
+    assert len(keep) == 2
+    ns: dict = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), REF_DRYRUN,
+                 "exec"), ns)
+    assert D.LONG_OK == ns["LONG_OK"]
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            assert D.cell_is_runnable(arch, shape) == \
+                ns["cell_is_runnable"](arch, shape), (arch, shape)
+
+
+def _dict_keys(node: ast.Dict) -> dict:
+    """{key: nested keys or None} of a dict literal."""
+    out = {}
+    for k, v in zip(node.keys, node.values):
+        if isinstance(k, ast.Constant):
+            out[k.value] = _dict_keys(v) if isinstance(v, ast.Dict) \
+                else None
+    return out
+
+
+def reference_record_keys() -> dict:
+    """The keys ``run_cell`` of the reference writes for an ok cell:
+    the initial record's and ``record.update``'s, nested."""
+    fn = next(n for n in _reference_tree().body
+              if isinstance(n, ast.FunctionDef) and n.name == "run_cell")
+    keys: dict = {}
+    for node in ast.walk(fn):
+        if isinstance(node, ast.AnnAssign) and isinstance(node.value,
+                                                          ast.Dict):
+            keys.update(_dict_keys(node.value))
+        if isinstance(node, ast.Call) and getattr(node.func, "attr",
+                                                  None) == "update":
+            keys.update(_dict_keys(node.args[0]))
+    keys["status"] = None
+    return keys
+
+
+# ---------------------------------------------------------------------------
+# smoke cells on a fake (2, 2) world
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def fake_mesh():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    D.fake_world(4)
+    try:
+        yield make_mesh((2, 2), ("data", "model"), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _smoke_shape(name: str):
+    s, b = SMOKE_SHAPES[name]
+    return dataclasses.replace(SHAPES[name], seq_len=s, global_batch=b)
+
+
+@pytest.fixture(scope="module")
+def smoke_records(fake_mesh, tmp_path_factory):
+    """stablelm's smoke config, one cell per kind, written as the
+    launcher writes them."""
+    out = tmp_path_factory.mktemp("dryrun_torch")
+    cfg = get_smoke_config("stablelm-1.6b")
+    recs = {}
+    for name in SMOKE_SHAPES:
+        rec = D.run_cell("stablelm-1.6b", name, False, device="cpu",
+                         cfg=cfg, shape=_smoke_shape(name), mesh=fake_mesh)
+        with open(out / f"stablelm-1.6b_{name}_single.json", "w") as f:
+            json.dump(rec, f)
+        recs[name] = rec
+    return out, recs
+
+
+def _expected_flops(cfg, shape) -> float:
+    """The analytic count for rank 0 of the (2, 2) world, with the
+    prefill's two known differences (module docstring)."""
+    from repro_torch.roofline import step_flops
+
+    want = step_flops(cfg, shape) / 2           # dp = the data axis
+    if shape.kind == "prefill":
+        rows = shape.global_batch // 2          # the data axis of (2, 2)
+        s, hd = shape.seq_len, cfg.resolved_head_dim
+        want -= rows * (s - 1) * 2 * cfg.d_model * cfg.vocab
+        want += rows * s * cfg.n_layers * 4 * cfg.n_heads * hd * (s / 2)
+    return want
+
+
+@pytest.mark.parametrize("kind", list(SMOKE_SHAPES))
+def test_smoke_cell_traces_on_a_fake_world(smoke_records, kind):
+    _, recs = smoke_records
+    rec = recs[kind]
+    assert rec["status"] == "ok" and rec["n_devices"] == 4
+    ref = reference_record_keys()
+    assert set(rec) == set(ref) | {"kernel_ops", "device"}
+    for key, sub in ref.items():
+        if sub is not None:
+            assert set(rec[key]) == set(sub), key
+    assert set(rec["collectives"]) == set(D.COLL_KINDS)
+    for v in rec["collectives"].values():
+        assert set(v) == {"count", "bytes", "loop_count", "loop_bytes"}
+        assert v["loop_count"] == v["loop_bytes"] == 0
+    # the weights cut over 'model' are gathered for the forward; a train
+    # step also averages its gradients over 'data'
+    gather = rec["collectives"]["all-gather"]
+    assert gather["count"] > 0 and gather["bytes"] > 0
+    if kind == "train_4k":
+        assert rec["collectives"]["all-reduce"]["count"] > 0
+    mem = rec["memory"]
+    assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
+    assert mem["peak_bytes"] >= mem["argument_bytes"]
+    assert mem["temp_bytes"] == mem["peak_bytes"] - mem["argument_bytes"]
+    assert rec["compile_s"] is None and rec["cost"]["bytes_per_device"] \
+        is None
+    # the plain versions ran: no kernel op on the CPU
+    assert rec["kernel_ops"] == {}
+    cfg = get_smoke_config("stablelm-1.6b")
+    want = _expected_flops(cfg, _smoke_shape(kind))
+    assert rec["cost"]["flops_per_device"] == pytest.approx(want,
+                                                            rel=EXACT)
+    assert rec["loops"] == {"layer_repeats": 2, "prefix_layers": 0,
+                            "suffix_layers": 0, "unit_len": 1,
+                            "n_layers": 2}
+
+
+@pytest.mark.parametrize("kind", list(SMOKE_SHAPES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
+    """Each family's built train, prefill and decode function on fake
+    DTensors: whisper's frame embeddings are cut over 'model' too, and
+    the functions take their rows whole (``collectives.local_rows``)."""
+    rec = D.run_cell(arch, kind, False, device="cpu",
+                     cfg=get_smoke_config(arch), shape=_smoke_shape(kind),
+                     mesh=fake_mesh)
+    assert rec["status"] == "ok"
+    assert rec["cost"]["flops_per_device"] > 0
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
+
+
+def test_skipped_cell_writes_its_reason():
+    rec = D.run_cell("stablelm-1.6b", "long_500k", False, device="cpu")
+    assert rec["status"] == "skipped" and "quadratic" in rec["reason"]
+
+
+def test_smoke_prefill_routine_mix_matches_reference(smoke_records,
+                                                     monkeypatch):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import build_model as jax_build_model
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro.kernels.recorder import DispatchRecorder as JaxRecorder
+    from repro.models.params import abstract_params as jax_abstract
+    from repro.serve.step import build_prefill as jax_build_prefill
+    from repro.serve.step import prefill_batch_sds as jax_prefill_sds
+
+    _, recs = smoke_records
+    jcfg = jax_smoke_config("stablelm-1.6b")
+    jmodel = jax_build_model(jcfg)
+    shape = _smoke_shape("prefill_32k")
+    # rank 0's rows: a mix by events weighs attention by its batch-heads
+    jshape = dataclasses.replace(JSHAPES["prefill_32k"],
+                                 seq_len=shape.seq_len,
+                                 global_batch=shape.global_batch // 2)
+    fn, _, _ = jax_build_prefill(jmodel, jcfg, jshape, None)
+    with monkeypatch.context() as env:
+        # the reference's kernel path: its xla backend records the
+        # SYRK-scores events the port never makes
+        env.setenv("ADSALA_BACKEND", "pallas")
+        with JaxRecorder() as jrec:
+            jax.jit(fn).lower(jax_abstract(jmodel.defs, jnp.bfloat16),
+                              jax_prefill_sds(jcfg, jshape, jnp.bfloat16))
+    got = recs["prefill_32k"]["dispatch"]
+    for by, want in (("routine_mix", jrec.routine_mix()),
+                     ("routine_mix_events",
+                      jrec.routine_mix(by="events"))):
+        assert got[by].keys() == want.keys()
+        for r in want:
+            assert got[by][r] == pytest.approx(want[r], rel=1e-9), (by, r)
+    # the port records every layer, the reference's scan its unit once
+    assert got["events"] == len(jrec.events) * jcfg.n_layers
+
+
+def test_profile_folds_the_port_records(smoke_records, tmp_path):
+    from repro_torch.core.workload import WorkloadProfile
+    from repro_torch.launch import profile
+
+    out_dir, recs = smoke_records
+    dest = tmp_path / "profile.json"
+    profile.main(["--dryrun-dir", str(out_dir), "--out", str(dest)])
+    prof = WorkloadProfile.load(str(dest))
+    parts = [WorkloadProfile.from_dispatch_block(r["dispatch"])
+             for r in recs.values()]
+    want = WorkloadProfile.merge(parts)
+    assert prof.total == pytest.approx(want.total, rel=1e-12)
+    assert prof.routine_weights == pytest.approx(want.routine_weights,
+                                                 rel=1e-12)
+    assert prof.routine_weights["gemm"] > 0 \
+        and prof.routine_weights["attn"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels' torch ops on fake CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _meta_twin(x):
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device="meta")
+    return x
+
+
+class _CudaIndexing(TorchFunctionMode):
+    """Python indexing of fake CUDA tensors on a CPU-only torch: the
+    index computed on ``meta`` twins, a fresh fake CUDA tensor of its
+    shape returned (a write is a no-op: fake tensors hold no data)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in (torch.Tensor.__getitem__, torch.Tensor.__setitem__) \
+                and args[0].device.type == "cuda":
+            out = func(*pytree_map(_meta_twin, args))
+            if func is torch.Tensor.__setitem__:
+                return None
+            return torch.empty_strided(out.shape, out.stride(),
+                                       dtype=out.dtype,
+                                       device=args[0].device)
+        return func(*args, **(kwargs or {}))
+
+
+OP_CASES = [
+    ("matmul", (96, 40), (40, 72), torch.float32, torch.float32),
+    ("matmul", (64, 64), (64, 32), torch.bfloat16, torch.float32),
+    ("grouped", (4, 24, 40), (4, 40, 72), torch.float32, torch.float32),
+    ("grouped", (8, 3, 64), (8, 64, 48), torch.bfloat16, torch.bfloat16),
+    ("flash", (6, 40, 64), "dense", torch.float32, None),
+    ("flash", (6, 40, 80), "tri", torch.bfloat16, None),
+    ("flash", (4, 33, 192), "dense", torch.float16, None),
+]
+
+
+@pytest.mark.parametrize("case", OP_CASES, ids=lambda c: c[0])
+def test_op_fake_output_matches_plain_version(case):
+    name, xs, ws, dt, out_dt = case
+    gen = torch.Generator().manual_seed(0)
+
+    def real(shape):
+        return torch.randn(shape, generator=gen).to(dt)
+
+    if name == "flash":
+        plain = FA.flash_attention_torch(real(xs), real(xs), real(xs),
+                                         bq=16, bkv=16, grid=ws)
+    elif name == "matmul":
+        plain = M.matmul_torch(real(xs), real(ws), out_dtype=out_dt)
+    else:
+        plain = G.grouped_matmul_torch(real(xs), real(ws), out_dtype=out_dt)
+    before = (M.matmul_cuda.launches, G.grouped_matmul_cuda.launches,
+              FA.flash_attention_cuda.launches)
+    with FakeTensorMode():
+        def fake(shape):
+            return torch.empty(shape, dtype=dt, device="cuda")
+        if name == "flash":
+            q = fake(xs)
+            out = FA.flash_attention_cuda(q, fake(xs), fake(xs), bq=16,
+                                          bkv=16, grid=ws)
+        elif name == "matmul":
+            out = M.matmul_cuda(fake(xs), fake(ws), out_dtype=out_dt)
+        else:
+            out = G.grouped_matmul_cuda(fake(xs), fake(ws),
+                                        out_dtype=out_dt)
+    assert out.shape == plain.shape and out.dtype == plain.dtype
+    assert out.device.type == "cuda"
+    # a traced call is not a launch, and builds nothing
+    assert (M.matmul_cuda.launches, G.grouped_matmul_cuda.launches,
+            FA.flash_attention_cuda.launches) == before
+    assert _build._lib is None
+
+
+def test_op_flop_formulas():
+    """Each op counted under ``FlopCounterMode`` by the function
+    ``chip_smoke.py``'s bounds use."""
+    with FakeTensorMode(), FlopCounterMode(display=False) as fc:
+        M.matmul_cuda(torch.empty((96, 40), device="cuda"),
+                      torch.empty((40, 72), device="cuda"))
+        G.grouped_matmul_cuda(torch.empty((4, 24, 40), device="cuda"),
+                              torch.empty((4, 40, 72), device="cuda"))
+        q = torch.empty((6, 40, 80), device="cuda")
+        FA.flash_attention_cuda(q, q, q, window=7, grid="tri")
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert counts["repro_torch.matmul"] == M.matmul_flops(96, 40, 72) \
+        == 2 * 96 * 40 * 72
+    assert counts["repro_torch.grouped_matmul"] == \
+        G.grouped_flops(4, 24, 40, 72) == 2 * 4 * 24 * 40 * 72
+    # the true head dim (80, not the padded 128), visible pairs only
+    pairs = sum(min(i + 1, 7) for i in range(40))
+    assert counts["repro_torch.flash_attention"] == \
+        FA.flash_flops(6, 40, 40, 80, True, 7) == 4 * 6 * 80 * pairs
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (37, 37, True, None), (37, 37, False, None), (50, 50, True, 9),
+    (20, 12, True, 5), (12, 20, False, 4), (9, 9, True, 1)])
+def test_visible_pairs_count_the_plain_mask(sq, skv, causal, window):
+    i = np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    mask = np.ones((sq, skv), bool)
+    if causal:
+        mask &= j <= i
+    if window is not None:
+        mask &= j > i - window
+    assert FA.visible_pairs(sq, skv, causal, window) == int(mask.sum())
+
+
+def test_fake_cuda_prefill_traces_the_flash_op():
+    from repro_torch.models.params import abstract_params, tree_map
+    from repro_torch.serve.step import build_prefill
+
+    cfg = get_smoke_config("stablelm-1.6b")
+    model = build_model(cfg)
+    b, s = 2, 64
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=s,
+                                global_batch=b)
+    fn, _, _ = build_prefill(model, cfg, shape, None)
+    launches = FA.flash_attention_cuda.launches
+    with FakeTensorMode(allow_non_fake_inputs=True), _CudaIndexing():
+        params = tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, device="cuda"),
+            abstract_params(model.defs, torch.bfloat16))
+        batch = {"tokens": torch.zeros((b, s), dtype=torch.int32,
+                                       device="cuda")}
+        seen = D.trace_cell(fn, (params, batch), "cuda")
+        with FlopCounterMode(display=False) as fc:
+            fn(params, batch)
+    assert seen["kernel_ops"] == {"repro_torch::flash_attention":
+                                  cfg.n_layers}
+    by_op = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert by_op["repro_torch.flash_attention"] == cfg.n_layers * \
+        FA.flash_flops(b * cfg.n_heads, s, s, cfg.resolved_head_dim, True,
+                       None)
+    # no DTensor here, so the dry run's count is FlopCounterMode's
+    assert seen["flops"] == fc.get_total_flops()
+    assert seen["peak_bytes"] > 0
+    assert FA.flash_attention_cuda.launches == launches
+    assert _build._lib is None
+
+
+# ---------------------------------------------------------------------------
+# the examples, on the CPU
+# ---------------------------------------------------------------------------
+
+def _example(name: str):
+    sys.path.insert(0, EXAMPLES)
+    try:
+        import importlib
+        return importlib.import_module(name)
+    finally:
+        sys.path.remove(EXAMPLES)
+
+
+@pytest.fixture(scope="module")
+def quickstart(tmp_path_factory):
+    art = tmp_path_factory.mktemp("quickstart")
+    out = _example("quickstart_torch").main(
+        ["--backend", "simulated", "--device", "cpu", "--artifact",
+         str(art), "--samples", "40"])
+    return art, out
+
+
+def test_quickstart_picks_match_the_reference(quickstart, tmp_path):
+    """The reference quickstart's logic (examples/quickstart.py) at the
+    same budget and seed makes the same picks."""
+    from repro.core import AdsalaTuner, InstallConfig, SimulatedBackend, \
+        gather_data, install
+
+    _, out = quickstart
+    cfg = InstallConfig(
+        n_samples=40, repeats=2, tile_ids=(0, 3),
+        models=("linear_regression", "bayesian_regression",
+                "decision_tree", "xgboost"),
+        grid_budget="small", cv_splits=3, seed=0)
+    backend = SimulatedBackend(seed=0)
+    report = install(backend, cfg, data=gather_data(backend, cfg),
+                     artifact_dir=str(tmp_path))
+    tuner = AdsalaTuner.from_artifact(str(tmp_path))
+    assert out["selected"] == report.selected
+    for (m, k, n), pick in out["picks"].items():
+        want = tuner.select(m, k, n)
+        assert (pick.n_chips, pick.partition, pick.tile) == \
+            (want.n_chips, want.partition, want.tile), (m, k, n)
+    assert out["speedup"] > 0
+
+
+def test_serve_with_tuner_example(quickstart):
+    art, _ = quickstart
+    res = _example("serve_with_tuner_torch").main(
+        ["--device", "cpu", "--artifact", str(art)])
+    assert tuple(res.tokens.shape) == (4, 12)
+    assert torch.isfinite(res.prefill_logits).all()
+
+
+def test_train_e2e_example_loss_falls(tmp_path):
+    out = _example("train_e2e_torch").main(
+        ["--device", "cpu", "--steps", "10", "--batch", "2", "--seq", "16",
+         "--ckpt-dir", str(tmp_path)])
+    assert out["summary"]["step"] == 10
+    assert out["losses"][-1] < out["losses"][0]
+    assert os.path.isdir(tmp_path / "step_00000010")
+
+
+def test_examples_refuse_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("quickstart_torch", "serve_with_tuner_torch",
+                 "train_e2e_torch"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            _example(name).main([])
+
+
+# ---------------------------------------------------------------------------
+# the entry-point helpers fall back to the CPU nowhere
+# ---------------------------------------------------------------------------
+
+def test_mesh_and_batch_helpers_raise_without_a_card(monkeypatch):
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="device_type='cpu'"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(ValueError, match="device_type='cpu'"):
+        make_production_mesh()
+    batch = {"tokens": np.zeros((2, 4), np.int32)}
+    with pytest.raises(ValueError, match="device='cpu'"):
+        make_global_batch(batch, None)
+    got = make_global_batch(batch, None, device="cpu")
+    assert got["tokens"].device.type == "cpu"
+
+
+def test_dryrun_refuses_cuda_without_a_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        D.main(["--arch", "stablelm-1.6b", "--shape", "decode_32k",
+                "--out", str(tmp_path)])

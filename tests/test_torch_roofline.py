@@ -79,5 +79,7 @@ def test_constants_are_the_h100s():
     assert R.HBM_BW != JA.HBM_BW
     assert R.NVLINK_BW != JA.ICI_BW
     assert not hasattr(A, "ICI_BW")
-    # the mesh assembly waits for the port of the dry run
-    assert not hasattr(A, "roofline_for_cell")
+    # the mesh assembly is ported with the dry run; its collective term
+    # runs at NVLINK_BW (tests/test_torch_dryrun.py holds it to the
+    # reference's)
+    assert R.roofline_for_cell is A.roofline_for_cell

@@ -262,6 +262,10 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    examples = os.path.join(ROOT, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.endswith("_torch.py"):
+            yield os.path.join(examples, f)
 
 
 def test_no_module_imports_jax_or_repro():
@@ -289,7 +293,13 @@ def test_no_module_imports_jax_or_repro():
     assert {os.path.join("dist", "sharding.py"),
             os.path.join("dist", "collectives.py"),
             os.path.join("launch", "mesh.py"),
+            os.path.join("launch", "dryrun.py"),
             os.path.join("serve", "step.py")} <= seen
+    # and the port's examples
+    assert {os.path.relpath(os.path.join(ROOT, "examples", f), PKG)
+            for f in ("quickstart_torch.py", "serve_with_tuner_torch.py",
+                      "train_e2e_torch.py",
+                      "moe_expert_parallel_torch.py")} <= seen
     assert not bad, bad
 
 
