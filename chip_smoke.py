@@ -138,6 +138,12 @@ Phases (any failure exits non-zero):
    checkpoint's GB and seconds, and the step's share of the fp32 peak
    (``roofline.step_flops`` over the median of steps 3–6, as phase 11's
    stablelm run); (c) whisper-tiny's ``--resume`` at the smoke scale;
+   (d) the sLSTM (``repro_torch::slstm_scan``, no kernel: xlstm's
+   training goes through it) against its plain loop at xlstm-125m's
+   width, 4 x 1024 x 768: forward bitwise, the gradients of x, w_in,
+   w_rec and b normwise within TRAIN_GRAD_TOL, forward and forward +
+   backward ms of each in turns, and (b)'s xlstm step beside runs
+   21a/21b's 18–19.6 s;
 15. the mesh (the distribution layer): a one-rank NCCL world (an
    in-process store) and a (1, 1) ("data", "model") mesh, held from
    phase 11 to phase 12 (c); each part runs where its inputs live:
@@ -158,12 +164,15 @@ Phases (any failure exits non-zero):
    phase 16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in two processes run
-   together: stablelm-1.6b on every shape (long_500k skipped) and
-   mixtral-8x22b on decode_32k; each cell's status, trace seconds,
+   together: stablelm-1.6b on every shape (long_500k skipped),
+   mixtral-8x22b on decode_32k, and xlstm-125m's train_4k and
+   prefill_32k, one process each; each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices``, peak bytes a rank,
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
-   grouped op) and ``roofline_for_cell``'s three terms; the records
+   grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
+   train step twice (the remat's recompute) and its backward op once)
+   and ``roofline_for_cell``'s three terms; the records
    folded by ``launch.profile --dryrun-dir`` into a profile; (b) in
    phase 15 (a), on its one-rank NCCL mesh: deepseek's mesh prefill
    traced on fake tensors laid out like its real inputs — its grouped-op
@@ -361,8 +370,16 @@ MESH_TRAIN_STEPS = 2
 #: flash at head dims between the kernel's (zero-padded to 128, 128 and
 #: 256): (BH, S, D), causal, fp32
 FLASH_PADDED = [(64, 1024, 80), (64, 1024, 96), (32, 1024, 192)]
+#: phase 14 (d): the sLSTM op against its plain loop on the card at
+#: (b)'s batch x length, xlstm-125m's width; timed in turns, each turn
+#: SLSTM_ITERS calls after one warm-up
+SLSTM_CMP = (4, 1024)
+SLSTM_TURNS, SLSTM_ITERS = ("loop", "op", "op", "loop"), 2
+#: xlstm-125m's train step (4 x 1024) through the loop, runs 21a/21b
+XL_STEP_S_LOOP = "18-19.6 s"
 #: phase 16 (a): (arch, shape or every shape) of each dry-run process
-DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k")]
+DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
+                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")]
 DRYRUN_TIMEOUT = 300
 #: the flash kernel's launches on the counted main-path runs, by the
 #: caller's head dim (tally_flash adds each run's to it)
@@ -2613,7 +2630,85 @@ def phase_train_families(M, fa, G, torch) -> dict:
                         "final_step": again.summary["step"],
                         "losses": again.losses}
     shutil.rmtree(ckpt_root)
+
+    # -- (d) the sLSTM op against its plain loop ----------------------------------
+    reset_counts(M, fa, G)
+    report["slstm"] = slstm_op_vs_loop(torch)
+    no_launches("the sLSTM comparison", M, fa, G)
+    xl_step = report["full"][XL_ARCH]["step_ms_median_3_on"] / 1e3
+    report["slstm"]["xlstm_step_s"] = xl_step
+    print(f"[chip_smoke] train {XL_ARCH}: a step of "
+          f"{SLSTM_CMP[0]}x{SLSTM_CMP[1]} through the sLSTM op "
+          f"{xl_step:.2f} s (median of steps 3-{FAM_STEPS}); through the "
+          f"loop {XL_STEP_S_LOOP} (runs 21a/21b)")
+    free()
     return report
+
+
+def slstm_op_vs_loop(torch) -> dict:
+    """Phase 14 (d): one xlstm-125m sLSTM block (``slstm_train``, through
+    ``repro_torch::slstm_scan`` and its backward) against the plain loop
+    (``slstm_train_loop``, autograd) on the card, seeded weights at the
+    model's init: the forward must be bitwise the loop's, the gradients
+    of x, w_in, w_rec and b within TRAIN_GRAD_TOL normwise; forward and
+    forward + backward ms of each, in turns."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.params import init_params
+
+    cfg = get_config(XL_ARCH)
+    spec = XL.XLSTMSpec(d_model=cfg.d_model, n_heads=cfg.n_heads)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(XL.slstm_defs(spec), gen, torch.float32)
+    b, s = SLSTM_CMP
+    x = torch.randn((b, s, spec.d_model), generator=gen, device="cuda")
+    dy = torch.randn((b, s, spec.d_model), generator=gen, device="cuda")
+    fns = {"op": XL.slstm_train, "loop": XL.slstm_train_loop}
+    names = ("x", "w_in", "w_rec", "b")
+
+    def forward(name):
+        with torch.no_grad():
+            return fns[name](p, x, spec)[0]
+
+    def backward(name):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, p["w_in"], p["w_rec"], p["b"])]
+        q = {**p, **dict(zip(names[1:], leaves[1:]))}
+        out, _ = fns[name](q, leaves[0], spec)
+        return torch.autograd.grad(out, leaves, dy)
+
+    fwd_diff = (forward("op") - forward("loop")).abs().max().item()
+    grads = {name: backward(name) for name in fns}
+    grad_err = {n: ((g - w).double().norm() / w.double().norm()).item()
+                for n, g, w in zip(names, grads["op"], grads["loop"])}
+    del grads
+    fwd_ms = {name: [] for name in fns}
+    fb_ms = {name: [] for name in fns}
+    for name in SLSTM_TURNS:
+        fwd_ms[name].append(cuda_ms(lambda: forward(name),
+                                    iters=SLSTM_ITERS, warmup=1))
+        fb_ms[name].append(cuda_ms(lambda: backward(name),
+                                   iters=SLSTM_ITERS, warmup=1))
+    med = {k: {name: statistics.median(v[name]) for name in fns}
+           for k, v in (("fwd", fwd_ms), ("fwd_bwd", fb_ms))}
+    print(f"[chip_smoke] sLSTM op vs loop ({b}x{s}x{spec.d_model}, fp32): "
+          f"forward max |diff| {fwd_diff:.3e}; gradients normwise "
+          + ", ".join(f"{n} {e:.3e}" for n, e in grad_err.items())
+          + f" (tol {TRAIN_GRAD_TOL:g}); forward ms op "
+          f"{med['fwd']['op']:.1f} loop {med['fwd']['loop']:.1f}; "
+          f"forward + backward ms op {med['fwd_bwd']['op']:.1f} loop "
+          f"{med['fwd_bwd']['loop']:.1f} (turns {SLSTM_TURNS}: forward "
+          f"{fwd_ms}, forward + backward {fb_ms})")
+    if fwd_diff != 0.0 or not all(e <= TRAIN_GRAD_TOL
+                                  for e in grad_err.values()):
+        raise SystemExit("[chip_smoke] FAIL: the sLSTM op disagrees with "
+                         "its plain loop on the card")
+    return {"shape": [b, s, spec.d_model], "dtype": "float32",
+            "forward_max_abs_diff": fwd_diff, "grads_normwise": grad_err,
+            "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
+            "median_ms": med}
 
 
 # ---------------------------------------------------------------------------
@@ -2957,11 +3052,12 @@ def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
 def phase_dryrun(torch) -> dict:
     """Phase 16 (a): ``python -m repro_torch.launch.dryrun --device cuda
     --mesh single`` in subprocesses (a fake world is global to its
-    process), one per entry of DRYRUN_CELLS, run together; each cell's
+    process), one per entry of DRYRUN_CELLS, run together (a timeout
+    fails the phase); each cell's
     record read back beside the reference count ``step_flops /
     n_devices`` and ``roofline_for_cell``'s terms; the records folded
     by ``launch.profile --dryrun-dir`` into a profile (no install)."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import build_model, get_config
     from repro_torch.core.workload import WorkloadProfile
     from repro_torch.launch import profile
     from repro_torch.models.config import SHAPES
@@ -3037,7 +3133,7 @@ def phase_dryrun(torch) -> dict:
               f" s: {terms.dominant}-bound")
     by_cell = {(c["arch"], c["shape"]): c for c in cells}
     want = {("stablelm-1.6b", s) for s in SHAPES} | {
-        ("mixtral-8x22b", "decode_32k")}
+        (arch, shape) for arch, shape in DRYRUN_CELLS if shape}
     if set(by_cell) != want:
         raise SystemExit(f"[chip_smoke] FAIL: dry-run cells "
                          f"{sorted(by_cell)}, expected {sorted(want)}")
@@ -3050,13 +3146,26 @@ def phase_dryrun(torch) -> dict:
     n_grouped = by_cell["mixtral-8x22b", "decode_32k"]["kernel_ops"].get(
         "repro_torch::grouped_matmul", 0)
     n_layers = get_config("stablelm-1.6b").n_layers
+    n_slstm = sum(s.kind == "slstm"
+                  for s in build_model(get_config("xlstm-125m")).plan)
+    # the train step runs each sLSTM layer's forward twice (the remat's
+    # recompute) and its backward once
+    want_slstm = {
+        "prefill_32k": {"repro_torch::slstm_scan": n_slstm},
+        "train_4k": {"repro_torch::slstm_scan": 2 * n_slstm,
+                     "repro_torch::slstm_scan_backward": n_slstm}}
+    got_slstm = {
+        shape: {k: by_cell["xlstm-125m", shape]["kernel_ops"].get(k)
+                for k in ops}
+        for shape, ops in want_slstm.items()}
     print(f"[chip_smoke] dry run (a): stablelm prefill_32k traced the "
           f"flash op {n_flash} times (expected {n_layers}, one a layer); "
-          f"mixtral decode_32k the grouped op {n_grouped} times; "
-          f"{wall:.1f}s for both processes")
-    if n_flash != n_layers or n_grouped <= 0:
+          f"mixtral decode_32k the grouped op {n_grouped} times; xlstm's "
+          f"sLSTM ops {got_slstm} (expected {want_slstm}); {wall:.1f}s "
+          f"for the {len(DRYRUN_CELLS)} processes")
+    if n_flash != n_layers or n_grouped <= 0 or got_slstm != want_slstm:
         raise SystemExit("[chip_smoke] FAIL: the dry run did not trace "
-                         "the kernels' ops")
+                         "the kernels' and the sLSTM's ops")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))

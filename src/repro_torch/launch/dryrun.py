@@ -130,7 +130,8 @@ def _nbytes(tensors: list[torch.Tensor]) -> int:
 
 class TraceMode(TorchDispatchMode):
     """What one trace dispatches, seen below DTensor (rank 0's local
-    tensors): FLOPs, collectives, the port's kernel ops, and the bytes
+    tensors): FLOPs, collectives, the port's kernel ops, the ops
+    dispatched (``ops``, decompositions' ops included), and the bytes
     alive on ``device_type``.
 
     An op on DTensors returns ``NotImplemented``, so that DTensor runs it
@@ -148,6 +149,7 @@ class TraceMode(TorchDispatchMode):
         self.collectives = {k: {"count": 0, "bytes": 0, "loop_count": 0,
                                 "loop_bytes": 0} for k in COLL_KINDS}
         self.kernel_ops: dict[str, int] = {}
+        self.ops = 0
         self.live: dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -171,6 +173,7 @@ class TraceMode(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        self.ops += 1
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
         packet = func._overloadpacket
@@ -334,7 +337,7 @@ def trace_cell(fn, args: tuple, device: str) -> dict:
             "output_bytes": output_bytes, "peak_bytes": mode.peak_bytes,
             "flops": mode.flops, "collectives": mode.collectives,
             "kernel_ops": dict(sorted(mode.kernel_ops.items())),
-            "recorder": rec}
+            "ops": mode.ops, "recorder": rec}
 
 
 def _loops(model, cfg: ArchConfig) -> dict:

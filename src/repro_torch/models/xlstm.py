@@ -8,11 +8,15 @@
     ``m_pos = max(m_0, cummax(ig - cum)) + cum``.  Prefill follows the
     reference's arithmetic chunk for chunk; decode is the step
     recurrence.
-  * sLSTM — a Python loop over time (the recurrence is non-associative
+  * sLSTM — a loop over time (the recurrence is non-associative
     because of the max-stabiliser state), vector ops and two small
-    products a step.
+    products a step.  The sequence runs inside one torch op,
+    ``repro_torch::slstm_scan`` (the reference's one ``lax.scan``
+    body), with a hand-written backward op, so that a trace meets it
+    once a layer; the plain loop ``slstm_train_loop`` is its yardstick.
 
-Neither is a Pallas kernel in the reference: both stay torch ops.  Both
+Neither is a Pallas kernel in the reference, and neither is a kernel
+here: both run torch ops on whatever device their tensors are on.  Both
 carry exact recurrent state for decode.
 """
 
@@ -22,13 +26,15 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.models.layers import _gelu, linear, rmsnorm
 from repro_torch.models.params import ParamDef
 
 __all__ = [
     "XLSTMSpec", "mlstm_defs", "mlstm_train", "mlstm_decode",
-    "slstm_defs", "slstm_train", "slstm_decode",
+    "slstm_defs", "slstm_train", "slstm_train_loop", "slstm_decode",
+    "slstm_scan", "slstm_scan_flops", "slstm_scan_backward_flops",
     "MLSTMState", "SLSTMState", "init_mlstm_state", "init_slstm_state",
 ]
 
@@ -227,18 +233,22 @@ class SLSTMState:
 
 def init_slstm_state(batch: int, s: XLSTMSpec,
                      device: torch.device | str = "cpu") -> SLSTMState:
-    d = s.d_model
+    return _zero_state(batch, s.d_model, device)
+
+
+def _zero_state(batch: int, d: int, device: torch.device | str
+                ) -> SLSTMState:
     z = torch.zeros((batch, d), dtype=torch.float32, device=device)
     return SLSTMState(z, z, z, torch.full((batch, d), -1e30,
                                           dtype=torch.float32, device=device))
 
 
-def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
+def _slstm_step(xt: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
+                b: torch.Tensor, st: SLSTMState
                 ) -> tuple[SLSTMState, torch.Tensor]:
-    """One sLSTM step; xt (B, D) fp32."""
-    pre = (xt @ p["w_in"].float()
-           + st.h @ p["w_rec"].float()
-           + p["b"].float())
+    """One sLSTM step on fp32 operands; xt (B, D).  Returns the new
+    state and the pre-activations (B, 4D)."""
+    pre = xt @ w_in + st.h @ w_rec + b
     z, i, f, o = torch.chunk(pre, 4, dim=-1)
     logf = F.logsigmoid(f)
     m_new = torch.maximum(logf + st.m, i)
@@ -247,7 +257,15 @@ def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
     c = f_s * st.c + i_s * torch.tanh(z)
     n = f_s * st.n + i_s
     h = torch.sigmoid(o) * c / torch.clamp(n, min=1.0)
-    return SLSTMState(c, n, h, m_new), h
+    return SLSTMState(c, n, h, m_new), pre
+
+
+def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
+                ) -> tuple[SLSTMState, torch.Tensor]:
+    """One sLSTM step; xt (B, D) fp32."""
+    st, _ = _slstm_step(xt, p["w_in"].float(), p["w_rec"].float(),
+                        p["b"].float(), st)
+    return st, st.h
 
 
 def _slstm_out(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -258,7 +276,18 @@ def _slstm_out(p: dict, h: torch.Tensor) -> torch.Tensor:
 
 def slstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec
                 ) -> tuple[torch.Tensor, SLSTMState]:
-    """Sequential loop over time (non-associative recurrence)."""
+    """The sLSTM over the whole sequence through one
+    ``repro_torch::slstm_scan`` op (:func:`slstm_scan`)."""
+    hs, st = slstm_scan(x.float(), p["w_in"].float(), p["w_rec"].float(),
+                        p["b"].float())
+    return _slstm_out(p, hs.to(x.dtype)), st
+
+
+def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec
+                     ) -> tuple[torch.Tensor, SLSTMState]:
+    """The plain version of :func:`slstm_train`: a Python loop over time
+    (the recurrence is non-associative), differentiated by autograd.
+    The tests' yardstick; no model path calls it."""
     b, sl, _ = x.shape
     xf = x.float()
     st = init_slstm_state(b, s, x.device)
@@ -267,6 +296,220 @@ def slstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec
         st, h = _slstm_cell(p, xf[:, t], st)
         hs.append(h)
     return _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype)), st
+
+
+# ---------------------------------------------------------------------------
+# The sLSTM recurrence as one torch op, with a hand-written backward
+# ---------------------------------------------------------------------------
+
+def slstm_scan(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
+               b: torch.Tensor) -> tuple[torch.Tensor, SLSTMState]:
+    """``(hs (B, S, D), final state)`` of the sLSTM over ``x (B, S, D)``
+    from :func:`init_slstm_state`, with ``w_in``, ``w_rec`` (D, 4D) and
+    ``b`` (4D,): the step loop of :func:`slstm_train_loop`, in the same
+    order, inside the op ``repro_torch::slstm_scan`` (bitwise equal to
+    the loop on the same device).
+
+    A trace meets the op once, whatever the sequence length; its FLOP
+    formula counts the loop's two products a step, and its backward is
+    the op ``repro_torch::slstm_scan_backward``.  Under grad the op also
+    returns what the backward needs: the pre-activations (B, S, 4D) and
+    the states c, n, m of every step (B, S, D); the backward recomputes
+    the gates from them elementwise and no product of the forward.
+
+    Raises on a DTensor, a dtype other than float32, operands on
+    different devices or shapes that do not fit; nothing falls back to
+    another path."""
+    from torch.distributed.tensor import DTensor
+
+    args = {"x": x, "w_in": w_in, "w_rec": w_rec, "b": b}
+    for name, t in args.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"slstm_scan: {name} is a DTensor; pass the "
+                            "local tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"slstm_scan: {name} is {t.dtype}, not "
+                            "float32")
+        if t.device != x.device:
+            raise ValueError(f"slstm_scan: {name} on {t.device}, x on "
+                             f"{x.device}")
+    if x.ndim != 3 or x.shape[1] == 0:
+        raise ValueError(f"slstm_scan: x must be (B, S >= 1, D), got "
+                         f"{tuple(x.shape)}")
+    d = x.shape[2]
+    for name, t, shape in (("w_in", w_in, (d, 4 * d)),
+                           ("w_rec", w_rec, (d, 4 * d)),
+                           ("b", b, (4 * d,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"slstm_scan: {name} is {tuple(t.shape)}, "
+                             f"expected {shape}")
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in args.values())
+    hs, c, n, h, m, *_ = torch.ops.repro_torch.slstm_scan(
+        x, w_in, w_rec, b, keep)
+    return hs, SLSTMState(c, n, h, m)
+
+
+def slstm_scan_flops(b: int, s: int, d: int) -> int:
+    """The forward's operations: two (B, D) @ (D, 4D) products a step."""
+    return 16 * b * s * d * d
+
+
+def slstm_scan_backward_flops(b: int, s: int, d: int) -> int:
+    """The backward's: the gradients of w_in, w_rec and x (8BD² a step
+    each), and of the previous h at every step but the first."""
+    return 32 * b * s * d * d - 8 * b * d * d
+
+
+_Tensors9 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor]
+
+
+@torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
+def _slstm_scan_op(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
+                   b: torch.Tensor, keep: bool) -> _Tensors9:
+    """``(hs, c, n, h, m, pre, cs, ns, ms)``: the outputs, the final
+    state and, with ``keep``, the backward's saved tensors (else empty)."""
+    bsz, sl, d = x.shape
+    st = _zero_state(bsz, d, x.device)
+    hs = x.new_empty((bsz, sl, d))
+    if keep:
+        pre_s = x.new_empty((bsz, sl, 4 * d))
+        cs, ns, ms = (x.new_empty((bsz, sl, d)) for _ in range(3))
+    for t in range(sl):
+        st, pre = _slstm_step(x[:, t], w_in, w_rec, b, st)
+        hs[:, t] = st.h
+        if keep:
+            pre_s[:, t] = pre
+            cs[:, t] = st.c
+            ns[:, t] = st.n
+            ms[:, t] = st.m
+    if not keep:
+        pre_s, cs, ns, ms = (x.new_empty((0,)) for _ in range(4))
+    return (hs, st.c.clone(), st.n.clone(), st.h.clone(), st.m.clone(),
+            pre_s, cs, ns, ms)
+
+
+@_slstm_scan_op.register_fake
+def _(x, w_in, w_rec, b, keep):
+    bsz, sl, d = x.shape
+    state = [x.new_empty((bsz, d)) for _ in range(4)]
+    if keep:
+        saved = [x.new_empty((bsz, sl, 4 * d))] + [
+            x.new_empty((bsz, sl, d)) for _ in range(3)]
+    else:
+        saved = [x.new_empty((0,)) for _ in range(4)]
+    return (x.new_empty((bsz, sl, d)), *state, *saved)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def _slstm_scan_op_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return slstm_scan_flops(*x_shape)
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
+def _slstm_scan_backward_op(
+        x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
+        hs: torch.Tensor, pre_s: torch.Tensor, cs: torch.Tensor,
+        ns: torch.Tensor, ms: torch.Tensor, dhs: torch.Tensor | None,
+        dc: torch.Tensor | None, dn: torch.Tensor | None,
+        dh: torch.Tensor | None, dm: torch.Tensor | None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dw_in, dw_rec, db)`` from the gradients of ``hs`` and of the
+    final state (``None`` is zero), walking t = S-1 ... 0 with the
+    gradients of the state carried from step t+1.  The rules at the
+    edges are autograd's through the loop: ``torch.clamp(n, min=1)``
+    passes the gradient where n >= 1, ``torch.maximum(a, i)`` splits it
+    evenly at a tie."""
+    bsz, sl, d = x.shape
+    zero = x.new_zeros((bsz, d))
+    dh, dc, dn, dm = (zero if g is None else g for g in (dh, dc, dn, dm))
+    dpre = torch.empty_like(pre_s)
+    w_rec_t = w_rec.t()
+    for t in range(sl - 1, -1, -1):
+        if dhs is not None:
+            dh = dh + dhs[:, t]
+        z, i, f, o = torch.chunk(pre_s[:, t], 4, dim=-1)
+        c, n, m = cs[:, t], ns[:, t], ms[:, t]
+        if t:
+            c_p, n_p, m_p = cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]
+        else:
+            c_p, n_p, m_p = zero, zero, torch.full_like(zero, -1e30)
+        # the forward's step, elementwise from its saved tensors
+        a = F.logsigmoid(f) + m_p
+        i_s = torch.exp(i - m)
+        f_s = torch.exp(a - m)
+        zt = torch.tanh(z)
+        so = torch.sigmoid(o)
+        nc = torch.clamp(n, min=1.0)
+        # h = so * c / nc
+        g = dh / nc
+        do = g * c * so * (1 - so)
+        dc = dc + g * so
+        dn = dn - torch.where(n >= 1, g * so * c / nc, 0.0)
+        # c = fs * c' + is * tanh(z), n = fs * n' + is
+        dfs = dc * c_p + dn * n_p
+        dis = dc * zt + dn
+        dz = dc * i_s * (1 - zt * zt)
+        di = dis * i_s
+        da = dfs * f_s
+        # is = exp(i - m), fs = exp(a - m); m = max(a, i)
+        dm = dm - di - da
+        tie = torch.where(a == i, 0.5 * dm, 0.0)
+        da = da + torch.where(a > i, dm, 0.0) + tie
+        di = di + torch.where(i > a, dm, 0.0) + tie
+        # a = logsigmoid(f) + m'
+        df = da * torch.sigmoid(-f)
+        dm = da
+        dc = dc * f_s
+        dn = dn * f_s
+        dpre_t = torch.cat([dz, di, df, do], dim=-1)
+        dpre[:, t] = dpre_t
+        if t:
+            dh = dpre_t @ w_rec_t
+    # the products of the whole sequence at once: h' is 0 at t = 0
+    h_prev = torch.cat([zero[:, None], hs[:, :-1]], dim=1)
+    dpre = dpre.reshape(bsz * sl, 4 * d)
+    dx = (dpre @ w_in.t()).reshape(bsz, sl, d)
+    dw_in = x.reshape(bsz * sl, d).t() @ dpre
+    dw_rec = h_prev.reshape(bsz * sl, d).t() @ dpre
+    return dx, dw_in, dw_rec, dpre.sum(0)
+
+
+@_slstm_scan_backward_op.register_fake
+def _(x, w_in, w_rec, hs, pre_s, cs, ns, ms, dhs, dc, dn, dh, dm):
+    return (torch.empty_like(x), torch.empty_like(w_in),
+            torch.empty_like(w_rec), x.new_empty((w_in.shape[1],)))
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
+def _slstm_scan_backward_op_flops(x_shape, *args, out_shape=None,
+                                  **kwargs) -> int:
+    return slstm_scan_backward_flops(*x_shape)
+
+
+def _slstm_scan_setup(ctx, inputs, output) -> None:
+    x, w_in, w_rec, _, keep = inputs
+    hs, *_, pre_s, cs, ns, ms = output
+    ctx.keep = keep
+    ctx.save_for_backward(x, w_in, w_rec, hs, pre_s, cs, ns, ms)
+    ctx.mark_non_differentiable(pre_s, cs, ns, ms)
+    ctx.set_materialize_grads(False)
+
+
+def _slstm_scan_grad(ctx, dhs, dc, dn, dh, dm, *_):
+    if not ctx.keep:
+        raise RuntimeError("slstm_scan: the op ran without keeping its "
+                           "backward's tensors (keep=False); call it "
+                           "through slstm_scan under grad")
+    dx, dw_in, dw_rec, db = torch.ops.repro_torch.slstm_scan_backward(
+        *ctx.saved_tensors, dhs, dc, dn, dh, dm)
+    return dx, dw_in, dw_rec, db, None
+
+
+_slstm_scan_op.register_autograd(_slstm_scan_grad,
+                                 setup_context=_slstm_scan_setup)
 
 
 def slstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: SLSTMState

@@ -4,6 +4,7 @@ from repro_torch.roofline.analytic import (
     HBM_BW,
     NVLINK_BW,
     PEAK_FLOPS,
+    PEAK_FLOPS_BF16,
     RooflineTerms,
     analytic_collective_bytes,
     analytic_hbm_bytes,
@@ -15,4 +16,5 @@ from repro_torch.roofline.analytic import (
 
 __all__ = ["fwd_flops", "step_flops", "analytic_hbm_bytes",
            "analytic_collective_bytes", "ctx_enc", "roofline_for_cell",
-           "RooflineTerms", "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
+           "RooflineTerms", "PEAK_FLOPS", "PEAK_FLOPS_BF16", "HBM_BW",
+           "NVLINK_BW"]

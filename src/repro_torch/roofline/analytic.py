@@ -11,6 +11,8 @@ reference's number exactly.  On the card the port uses
 Constants (NVIDIA H100 SXM5 80GB data sheet, dense rates):
     PEAK_FLOPS = 67e12 FLOP/s   fp32 on the CUDA cores, the rate the
                                 port's fp32 paths (TF32 off) can reach
+    PEAK_FLOPS_BF16 = 989e12    bf16 on the tensor cores: the dry run's
+                                cells are bf16 (:func:`roofline_for_cell`)
     HBM_BW     = 3.35e12 B/s    HBM3
     NVLINK_BW  = 450e9 B/s      NVLink 4, one direction (18 links; 900
                                 GB/s both ways), the collective term's
@@ -28,9 +30,11 @@ from repro_torch.models.config import ArchConfig, ShapeSpec
 
 __all__ = ["fwd_flops", "step_flops", "analytic_hbm_bytes",
            "analytic_collective_bytes", "ctx_enc", "roofline_for_cell",
-           "RooflineTerms", "PEAK_FLOPS", "HBM_BW", "NVLINK_BW"]
+           "RooflineTerms", "PEAK_FLOPS", "PEAK_FLOPS_BF16", "HBM_BW",
+           "NVLINK_BW"]
 
 PEAK_FLOPS = 67e12
+PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
 NVLINK_BW = 450e9
 
@@ -302,7 +306,8 @@ def roofline_for_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str,
     the production mesh (256 cards, or 512 for ``"multi"``), with the
     traced FLOPs and peak bytes of its dry-run ``record``
     (:mod:`repro_torch.launch.dryrun`).  The reference's arithmetic,
-    with :data:`NVLINK_BW` as the collective term's rate."""
+    with the cells' bf16 rate :data:`PEAK_FLOPS_BF16` as the compute
+    term's and :data:`NVLINK_BW` as the collective term's."""
     n_dev = 512 if mesh_name == "multi" else 256
     mesh_shape = ({"pod": 2, "data": 16, "model": 16}
                   if mesh_name == "multi" else {"data": 16, "model": 16})
@@ -313,7 +318,7 @@ def roofline_for_cell(cfg: ArchConfig, shape: ShapeSpec, mesh_name: str,
     factor = 6 if shape.kind == "train" else 2
     return RooflineTerms(
         arch=cfg.name, shape=shape.name, mesh=mesh_name, n_devices=n_dev,
-        compute_s=flops / (n_dev * PEAK_FLOPS),
+        compute_s=flops / (n_dev * PEAK_FLOPS_BF16),
         memory_s=hbm / HBM_BW,
         collective_s=coll / NVLINK_BW,
         model_flops=factor * cfg.active_param_count() * n_tok,

@@ -4,7 +4,8 @@ ops, and the three examples, on the CPU.
 
 * ``roofline_for_cell`` for every arch x shape x mesh against the
   reference's, whose module constants are set to the H100's for the
-  call (relative 1e-12);
+  call (its bf16 ``PEAK_FLOPS`` to the H100's bf16 rate; relative
+  1e-12);
 * ``cell_is_runnable`` and the record's keys against the reference's
   source, read with ``ast`` (importing ``repro.launch.dryrun`` would set
   ``XLA_FLAGS`` for 512 host devices in this process);
@@ -13,6 +14,11 @@ ops, and the three examples, on the CPU.
   against the analytic count, its routine mix against the reference's
   prefill lowered under its ``DispatchRecorder``, its records folded by
   ``launch.profile``;
+* xlstm's smoke cells (train and prefill) at 256 and 4096 tokens: the
+  sLSTM is one op a layer (``repro_torch::slstm_scan``, its backward
+  op once), so its layers dispatch the same ops at both lengths, and
+  the traced FLOPs at 256 equal ``FlopCounterMode``'s count of the
+  plain loop;
 * the kernels' torch ops on fake CUDA tensors: their fake outputs
   against the plain versions' shapes and types, and a fake-CUDA trace
   of stablelm's smoke prefill that dispatches ``repro_torch::
@@ -78,7 +84,8 @@ EXACT = 1e-9
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_roofline_for_cell_matches_reference(monkeypatch, arch, shape_name,
                                              mesh_name):
-    monkeypatch.setattr(JA, "PEAK_FLOPS", A.PEAK_FLOPS)
+    # the cells are bf16: the reference's PEAK_FLOPS is its chip's bf16 rate
+    monkeypatch.setattr(JA, "PEAK_FLOPS", A.PEAK_FLOPS_BF16)
     monkeypatch.setattr(JA, "HBM_BW", A.HBM_BW)
     monkeypatch.setattr(JA, "ICI_BW", A.NVLINK_BW)
     record = {"cost": {"flops_per_device": 1.25e15},
@@ -253,6 +260,123 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     assert rec["cost"]["flops_per_device"] > 0
     assert rec["collectives"]["all-gather"]["count"] > 0
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
+
+
+#: xlstm's smoke cells at two lengths: one mLSTM chunk of 256, and 16
+XLSTM_LENGTHS = (256, 4096)
+XLSTM_KINDS = ("train_4k", "prefill_32k")
+
+
+@pytest.fixture(scope="module")
+def xlstm_traces(fake_mesh):
+    """xlstm's smoke config (2 sLSTM and 2 mLSTM layers) traced on the
+    fake (2, 2) world at each length and kind: the trace's record, ops
+    dispatched, and the ops dispatched inside each sLSTM and mLSTM mixer
+    call (read from the trace mode's counter around the call)."""
+    from repro_torch.models import xlstm as X
+
+    modes = []
+
+    class Probe(D.TraceMode):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            modes.append(self)
+
+    def counted(fn, log):
+        def call(*args, **kwargs):
+            n0 = modes[-1].ops
+            out = fn(*args, **kwargs)
+            log.append(modes[-1].ops - n0)
+            return out
+        return call
+
+    cfg = get_smoke_config("xlstm-125m")
+    model = build_model(cfg)
+    out = {}
+    for kind in XLSTM_KINDS:
+        for s in XLSTM_LENGTHS:
+            shape = dataclasses.replace(SHAPES[kind], seq_len=s,
+                                        global_batch=4)
+            logs = {"slstm": [], "mlstm": []}
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(D, "TraceMode", Probe)
+                mp.setattr(X, "slstm_train",
+                           counted(X.slstm_train, logs["slstm"]))
+                mp.setattr(X, "mlstm_train",
+                           counted(X.mlstm_train, logs["mlstm"]))
+                with FakeTensorMode(allow_non_fake_inputs=True):
+                    fn, args = D.build_cell(model, cfg, shape, fake_mesh,
+                                            "cpu")
+                    seen = D.trace_cell(fn, args, "cpu")
+            out[kind, s] = {**seen, **logs}
+    return cfg, model, out
+
+
+@pytest.mark.parametrize("kind", XLSTM_KINDS)
+def test_xlstm_trace_does_not_grow_with_the_sequence(xlstm_traces, kind):
+    """The sLSTM is one op a layer (and one backward op), so its layers
+    dispatch the same ops at 256 and 4096 tokens; what grows is the
+    mLSTM's chunk loop (and, in training, its backward and the loss's
+    512-token chunks)."""
+    cfg, model, traces = xlstm_traces
+    n_slstm = sum(s.kind == "slstm" for s in model.plan)
+    short, long = (traces[kind, s] for s in XLSTM_LENGTHS)
+    if kind == "train_4k":
+        # the forward and the remat's recompute, then the backward
+        want = {"repro_torch::slstm_scan": 2 * n_slstm,
+                "repro_torch::slstm_scan_backward": n_slstm}
+    else:
+        want = {"repro_torch::slstm_scan": n_slstm}
+    for seen in (short, long):
+        assert seen["kernel_ops"] == want
+        # the calls that return: the remat's recompute stops once it
+        # has its last saved tensor
+        assert len(seen["slstm"]) == n_slstm
+    assert long["slstm"] == short["slstm"]
+    grown = long["ops"] - short["ops"]
+    mlstm_grown = sum(long["mlstm"]) - sum(short["mlstm"])
+    assert mlstm_grown > 0
+    if kind == "prefill_32k":
+        assert grown == mlstm_grown
+    # below what the sLSTM's token loop alone would add: 15 ops a token
+    # a layer in the forward
+    chunks = (XLSTM_LENGTHS[1] - XLSTM_LENGTHS[0]) // 256
+    assert grown < chunks * 256 * 15 * n_slstm
+
+
+@pytest.mark.parametrize("kind", XLSTM_KINDS)
+def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
+    """At 256 tokens the trace's FLOPs on rank 0 (the op's formulas)
+    equal ``FlopCounterMode``'s count of the same rows through the
+    single-device function with the sLSTM's plain loop."""
+    from torch.utils._pytree import tree_map as tmap
+
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.params import abstract_params
+    from repro_torch.serve.step import build_prefill, prefill_batch_sds
+    from repro_torch.train.optim import AdamWConfig
+    from repro_torch.train.step import (abstract_state, build_train_step,
+                                        train_batch_sds)
+
+    cfg, model, traces = xlstm_traces
+    s = XLSTM_LENGTHS[0]
+    shape = dataclasses.replace(SHAPES[kind], seq_len=s,
+                                global_batch=2)   # rank 0's rows
+    if kind == "train_4k":
+        fn, _, _ = build_train_step(model, cfg, AdamWConfig())
+        tree = (abstract_state(model, cfg, AdamWConfig(), D.DTYPE),
+                train_batch_sds(cfg, shape, D.DTYPE))
+    else:
+        fn, _, _ = build_prefill(model, cfg, shape, None)
+        tree = (abstract_params(model.defs, D.DTYPE),
+                prefill_batch_sds(cfg, shape, D.DTYPE))
+    with pytest.MonkeyPatch.context() as mp, \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        mp.setattr(X, "slstm_train", X.slstm_train_loop)
+        args = tmap(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
+        with FlopCounterMode(display=False) as fc:
+            fn(*args)
+    assert traces[kind, s]["flops"] == fc.get_total_flops()
 
 
 def test_skipped_cell_writes_its_reason():

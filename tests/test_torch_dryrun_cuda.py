@@ -12,6 +12,10 @@ torch:
 * each op against its plain version, at the reference's tolerances
   (TF32 off): 5e-5 for the GEMMs in fp32, 1e-1 in bf16; 2e-5 for flash
   in fp32, 5e-2 in bf16 and fp16;
+* the sLSTM op (``repro_torch::slstm_scan`` and its backward, no
+  kernel: the step loop on the card) against its CPU result, forward
+  and gradients, and against the plain loop on the card: forward
+  bitwise, gradients within 1e-6 normwise;
 * a smoke deepseek-v2 prefill traced on a (1, 1) NCCL mesh under
   ``FakeTensorMode`` (the expert-parallel MoE behind a one-rank
   ``all_to_all``): the grouped op traced 3 times per MoE layer, nothing
@@ -173,3 +177,68 @@ def test_dryrun_traces_the_flash_op_on_the_card(card):
     assert seen["kernel_ops"] == {"repro_torch::flash_attention":
                                   cfg.n_layers}
     assert FA.flash_attention_cuda.launches == before
+
+
+#: the sLSTM on the card against the CPU: the reference's block
+#: tolerance (tests/test_torch_xlstm.py) on the forward, its gradient
+#: tolerance (tests/test_torch_train_families.py) normwise
+SLSTM_LAYER_TOL = 1e-5
+SLSTM_GRAD_TOL = 1e-4
+#: the op's gradients against autograd through the loop (fp32)
+SLSTM_LOOP_TOL = 1e-6
+
+
+def _slstm_run(fn, inputs, dhs):
+    """(hs, gradients of x, w_in, w_rec, b) of ``fn(x, w_in, w_rec, b)``
+    with ``dhs`` as the gradient of hs."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    hs = fn(*leaves)
+    grads = torch.autograd.grad(hs, leaves, dhs)
+    return hs.detach(), grads
+
+
+def _normwise(got, want):
+    return ((got.double() - want.double()).norm()
+            / want.double().norm()).item()
+
+
+def test_slstm_op_on_the_card_matches_the_cpu(card):
+    from repro_torch.models import xlstm as X
+
+    b, s, d = 4, 96, 128
+    gen = torch.Generator().manual_seed(0)
+    inputs = [torch.randn((b, s, d), generator=gen),
+              torch.randn((d, 4 * d), generator=gen) * d ** -0.5,
+              torch.randn((d, 4 * d), generator=gen) * 0.5 * d ** -0.5,
+              torch.randn((4 * d,), generator=gen) * 0.5]
+    dhs = torch.randn((b, s, d), generator=gen)
+    torch.library.opcheck(
+        torch.ops.repro_torch.slstm_scan.default,
+        ([t.cuda() for t in inputs] + [True]),
+        test_utils=("test_schema", "test_autograd_registration",
+                    "test_faketensor"))
+
+    def op(x, w_in, w_rec, bias):
+        return X.slstm_scan(x, w_in, w_rec, bias)[0]
+
+    def loop(x, w_in, w_rec, bias):
+        st = X.init_slstm_state(b, X.XLSTMSpec(d_model=d, n_heads=2),
+                                x.device)
+        p = {"w_in": w_in, "w_rec": w_rec, "b": bias}
+        hs = []
+        for t in range(s):
+            st, h = X._slstm_cell(p, x[:, t], st)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
+
+    cpu_hs, cpu_g = _slstm_run(op, inputs, dhs)
+    card_in = [t.cuda() for t in inputs]
+    hs, grads = _slstm_run(op, card_in, dhs.cuda())
+    loop_hs, loop_g = _slstm_run(loop, card_in, dhs.cuda())
+    assert hs.is_cuda and torch.equal(hs, loop_hs)
+    assert (hs.cpu() - cpu_hs).abs().max().item() <= SLSTM_LAYER_TOL
+    for name, g, gl, gc in zip(("x", "w_in", "w_rec", "b"), grads, loop_g,
+                               cpu_g):
+        assert g.is_cuda, name
+        assert _normwise(g, gl) < SLSTM_LOOP_TOL, name
+        assert _normwise(g.cpu(), gc) < SLSTM_GRAD_TOL, name

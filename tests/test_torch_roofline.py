@@ -72,10 +72,12 @@ def test_roofline_terms_match_the_reference():
 
 
 def test_constants_are_the_h100s():
-    """NVIDIA H100 SXM5 data sheet: fp32 on the CUDA cores, HBM3, NVLink
-    one way; none is the reference's TPU v5e figure."""
-    assert (R.PEAK_FLOPS, R.HBM_BW, R.NVLINK_BW) == (67e12, 3.35e12, 450e9)
-    assert R.PEAK_FLOPS != JA.PEAK_FLOPS
+    """NVIDIA H100 SXM5 data sheet: fp32 on the CUDA cores, bf16 on the
+    tensor cores (dense), HBM3, NVLink one way; none is the reference's
+    TPU v5e figure."""
+    assert (R.PEAK_FLOPS, R.PEAK_FLOPS_BF16, R.HBM_BW, R.NVLINK_BW) == \
+        (67e12, 989e12, 3.35e12, 450e9)
+    assert JA.PEAK_FLOPS not in (R.PEAK_FLOPS, R.PEAK_FLOPS_BF16)
     assert R.HBM_BW != JA.HBM_BW
     assert R.NVLINK_BW != JA.ICI_BW
     assert not hasattr(A, "ICI_BW")
