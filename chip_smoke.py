@@ -147,12 +147,18 @@ Phases (any failure exits non-zero):
 15. the mesh (the distribution layer): a one-rank NCCL world (an
    in-process store) and a (1, 1) ("data", "model") mesh, held from
    phase 11 to phase 12 (c); each part runs where its inputs live:
-   (c), (d) at the end of phase 11: its checkpoint restored onto the
-   mesh as DTensors by the state specs, bitwise the state in memory,
-   then MESH_TRAIN_STEPS sharded train steps from it against the
-   single-device step from the state, in turns: the losses within
-   MESH_TOL and every leaf of the two states bitwise equal after the
-   steps; (a) in phase 12 between (a) and (b): deepseek's weights
+   (c), (d), (e) at the end of phase 11: its checkpoint restored onto
+   the mesh as DTensors by the state specs, bitwise the state in
+   memory, then MESH_TRAIN_STEPS sharded train steps from it, tensor-
+   parallel over 'model' (the dense blocks on the rank's shards, the
+   vocab-parallel loss), against the single-device step from the state,
+   in turns: the losses within MESH_TOL and every leaf of the two states
+   bitwise equal after the steps; (e) stablelm-1.6b whole through the
+   built prefill on the mesh, tensor-parallel, 4 x 1024 on the flash
+   kernel (24 launches, one a layer): logits and caches bitwise the
+   single-device prefill's, warm times in turns (one rank cuts nothing:
+   multi-rank correctness is shown by the gloo worlds of the CPU tests
+   only); (a) in phase 12 between (a) and (b): deepseek's weights
    laid out on the mesh without a copy, ``serve.step.build_prefill``
    (the MoE's expert-parallel path: the grouped kernel behind a one-rank
    all_to_all, 9 tiled launches) and ``build_decode`` (135 thin) on the
@@ -167,7 +173,10 @@ Phases (any failure exits non-zero):
    together: stablelm-1.6b on every shape (long_500k skipped),
    mixtral-8x22b on decode_32k, and xlstm-125m's train_4k and
    prefill_32k, one process each; each cell's status, trace seconds,
-   FLOPs a rank against ``step_flops / n_devices``, peak bytes a rank,
+   FLOPs a rank against ``step_flops / n_devices`` (stablelm's
+   train_4k and prefill_32k must be within x0.85–1.25 of it: the
+   dense blocks tensor-parallel over the 16-way 'model' axis), peak
+   bytes a rank,
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -381,6 +390,9 @@ XL_STEP_S_LOOP = "18-19.6 s"
 DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
                 ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")]
 DRYRUN_TIMEOUT = 300
+#: phase 16 (a): stablelm's train_4k and prefill_32k FLOPs a rank
+#: against step_flops / 256 (the dense blocks cut over 'model')
+TP_RATIO = (0.85, 1.25)
 #: the flash kernel's launches on the counted main-path runs, by the
 #: caller's head dim (tally_flash adds each run's to it)
 FLASH_PATH_BY_D: dict[int, int] = {}
@@ -2744,13 +2756,15 @@ def in_turns(fns: dict, torch, iters: int) -> dict:
 
 
 def mesh_train(res, ckpt_dir, mesh, M, fa, G, torch) -> dict:
-    """Phase 15 (c), (d), inside phase 11 while its state and checkpoint
-    live: (d) the checkpoint restored onto the mesh by the state specs,
-    bitwise the state in memory; (c) MESH_TRAIN_STEPS sharded steps from
-    that state against the single-device step from the state itself, in
-    turns on the same batches: the losses within MESH_TOL, and then
-    every leaf of the two states (params, moments, step) bitwise equal
-    (a one-rank mesh cuts nothing)."""
+    """Phase 15 (c), (d), (e), inside phase 11 while its state and
+    checkpoint live: (d) the checkpoint restored onto the mesh by the
+    state specs, bitwise the state in memory; (c) MESH_TRAIN_STEPS
+    sharded steps from that state (tensor-parallel over 'model': the
+    rank's shards and the vocab-parallel loss) against the single-device
+    step from the state itself, in turns on the same batches: the losses
+    within MESH_TOL, and then every leaf of the two states (params,
+    moments, step) bitwise equal (a one-rank mesh cuts nothing); (e)
+    :func:`mesh_prefill_tp` on the stepped weights."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.ckpt.checkpoint import restore_checkpoint
@@ -2826,10 +2840,79 @@ def mesh_train(res, ckpt_dir, mesh, M, fa, G, torch) -> dict:
                          "disagrees with the single-device step")
     del on_mesh
     torch.cuda.empty_cache()
+    tp_prefill = mesh_prefill_tp(model, cfg, live["params"], mesh, M, fa, G,
+                                 torch)
     return {"restore_s": restore_s, "restore_bitwise": same,
             "train_losses": losses, "train_loss_max_abs_err": err,
             "train_state_leaves_differ": state_diff,
-            "train_step_s": step_s}
+            "train_step_s": step_s, "tp_prefill": tp_prefill}
+
+
+def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (e), at the end of phase 11: stablelm-1.6b whole (fp32,
+    phase 11's trained weights laid out on the mesh without a copy)
+    through ``serve.step.build_prefill`` on the mesh, tensor-parallel
+    over 'model' (on one rank its shards are the whole weights and its
+    collectives run on a one-rank group), against the single-device
+    prefill on the same prompts: the flash kernel's launches (one a
+    layer), logits and caches bitwise, warm times in turns."""
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.dist.sharding import partition_params
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.step import build_prefill
+    from repro_torch.train.step import make_ctx
+
+    cache_len = PROMPT_LEN + GEN_TOKENS
+    it = iter(tree_leaves(partition_params(model, cfg, mesh),
+                          is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+    no_copy = all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        tree_leaves(sharded), tree_leaves(params)))
+    prefill, _, b_specs = build_prefill(
+        model, cfg, ShapeSpec("prefill", cache_len, REQUESTS, "prefill"),
+        mesh)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    batch = {"tokens": distribute(prompts, mesh, b_specs["tokens"])}
+    ctx = make_ctx("prefill", cache_len=cache_len)
+    with torch.inference_mode():
+        reset_counts(M, fa, G)
+        logits, cache = prefill(sharded, batch)
+        torch.cuda.synchronize()
+        n = kernel_counts(M, fa, G)
+        tally_flash(fa)
+        reset_counts(M, fa, G)
+        want, cache1 = model.prefill(params, prompts, ctx)
+        same_logits = torch.equal(logits, want)
+        same_cache = all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+                         for a, b in zip(cache, cache1))
+        err = (logits - want).abs().max().item()
+        del cache, cache1
+        ms = in_turns({
+            "single": lambda: model.prefill(params, prompts, ctx)[0],
+            "mesh": lambda: prefill(sharded, batch)[0]}, torch, iters=2)
+    print(f"[chip_smoke] mesh (e): {cfg.name} whole ({cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads) through build_prefill on the (1, 1) mesh, "
+          f"tensor-parallel over 'model' (weights laid out without a copy: "
+          f"{no_copy}): flash launches {n['flash']} (expected "
+          f"{cfg.n_layers}), matmul {n['matmul']}, grouped {n['grouped']}; "
+          f"logits bitwise the single-device prefill's: {same_logits} (max "
+          f"|diff| {err:.3e}), caches bitwise: {same_cache}; warm in turns "
+          f"single {ms['single']:.1f} ms, mesh {ms['mesh']:.1f} ms")
+    if n["flash"] != cfg.n_layers or n["matmul"] or n["grouped"]:
+        raise SystemExit("[chip_smoke] FAIL: the tensor-parallel prefill did "
+                         "not run the flash kernel once a layer")
+    if not (no_copy and same_logits and same_cache):
+        raise SystemExit("[chip_smoke] FAIL: the tensor-parallel prefill "
+                         "differs from the single-device prefill")
+    del sharded, batch
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "batch": [REQUESTS, PROMPT_LEN],
+            "flash_launches": n["flash"], "logits_bitwise": same_logits,
+            "caches_bitwise": same_cache, "logits_max_abs_err": err,
+            "prefill_ms": ms}
 
 
 def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
@@ -3146,6 +3229,9 @@ def phase_dryrun(torch) -> dict:
     n_grouped = by_cell["mixtral-8x22b", "decode_32k"]["kernel_ops"].get(
         "repro_torch::grouped_matmul", 0)
     n_layers = get_config("stablelm-1.6b").n_layers
+    # the dense blocks on their 'model' shards: a rank does its 1/256
+    tp_ratios = {shape: by_cell["stablelm-1.6b", shape]["flops_ratio"]
+                 for shape in ("train_4k", "prefill_32k")}
     n_slstm = sum(s.kind == "slstm"
                   for s in build_model(get_config("xlstm-125m")).plan)
     # the train step runs each sLSTM layer's forward twice (the remat's
@@ -3161,11 +3247,16 @@ def phase_dryrun(torch) -> dict:
     print(f"[chip_smoke] dry run (a): stablelm prefill_32k traced the "
           f"flash op {n_flash} times (expected {n_layers}, one a layer); "
           f"mixtral decode_32k the grouped op {n_grouped} times; xlstm's "
-          f"sLSTM ops {got_slstm} (expected {want_slstm}); {wall:.1f}s "
-          f"for the {len(DRYRUN_CELLS)} processes")
+          f"sLSTM ops {got_slstm} (expected {want_slstm}); stablelm's FLOPs "
+          f"a rank against step_flops / 256: {tp_ratios} (expected "
+          f"{TP_RATIO[0]}-{TP_RATIO[1]}); {wall:.1f}s for the "
+          f"{len(DRYRUN_CELLS)} processes")
     if n_flash != n_layers or n_grouped <= 0 or got_slstm != want_slstm:
         raise SystemExit("[chip_smoke] FAIL: the dry run did not trace "
                          "the kernels' and the sLSTM's ops")
+    if not all(TP_RATIO[0] <= r <= TP_RATIO[1] for r in tp_ratios.values()):
+        raise SystemExit("[chip_smoke] FAIL: a rank of the dry run does not "
+                         "compute its share of stablelm's cells")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))
@@ -3381,7 +3472,9 @@ def main() -> int:
     # -- 17. report ---------------------------------------------------------------
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs,
-                           path_launches_by_head_dim=FLASH_PATH_BY_D),
+                           path_launches_by_head_dim=FLASH_PATH_BY_D,
+                           mesh_launches={"stablelm_tp_prefill": mesh_out[
+                               "train"]["tp_prefill"]["flash_launches"]}),
                flash_entry("flash_attention@mixtral_prefill",
                            mixtral["flash"], mixtral["flash_launches"]),
                flash_entry("flash_attention@queue_prefill",

@@ -10,8 +10,9 @@ Runs ``python -m repro_torch.launch.dryrun --device DEVICE --mesh MESH
 fake world is global to its process): the same cells as ``--all --mesh
 both`` in one process.  Each process has ``--timeout`` seconds.  Then
 each record in DIR is read back: status, trace seconds, peak GiB a
-rank, FLOPs a rank against ``step_flops / n_devices``,
-``roofline_for_cell``'s terms and the kernel ops traced; the rows go
+rank, FLOPs a rank against ``step_flops / n_devices``, collective
+bytes a rank by kind, ``roofline_for_cell``'s terms and the kernel ops
+traced; the rows go
 to stdout and, as JSON, to ``--summary``.  Exits non-zero
 unless every cell has a record and none is an error.
 """
@@ -64,6 +65,8 @@ def summarise(rec: dict) -> dict:
     row.update({"trace_s": rec["lower_s"],
                 "peak_gib": rec["memory"]["peak_bytes"] / 2 ** 30,
                 "flops_per_device": flops, "flops_ratio": flops / ref,
+                "collective_bytes": {k: v["bytes"] for k, v in
+                                     rec["collectives"].items() if v["count"]},
                 "compute_s": terms.compute_s, "memory_s": terms.memory_s,
                 "collective_s": terms.collective_s,
                 "dominant": terms.dominant,
@@ -114,7 +117,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"[dryrun_grid] {r['arch']} x {r['shape']} x {r['mesh']}:"
                   f" trace {r['trace_s']} s, peak {r['peak_gib']:.1f} GiB "
                   f"a rank, FLOPs x{r['flops_ratio']:.2f} of step_flops / "
-                  f"n_devices, {r['dominant']}-bound (compute "
+                  f"n_devices, collective GB a rank "
+                  + str({k: round(v / 1e9, 3) for k, v in
+                         r["collective_bytes"].items()})
+                  + f", {r['dominant']}-bound (compute "
                   f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
                   f"collective {r['collective_s']:.4e} s), kernel ops "
                   f"{r['kernel_ops']}")

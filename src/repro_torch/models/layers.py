@@ -9,6 +9,14 @@ ParamDef trees, as in :mod:`repro.models.layers`.  Activations are
 (B, S, D).  The projections are ``torch.matmul`` (the reference leaves
 them to XLA); the attention core of prefill is one
 :func:`repro_torch.kernels.ops.flash_attention` dispatch.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.dist.collectives.
+TPGroup` of the 'model' axis): :func:`attention_train` and
+:func:`apply_mlp` then run on this rank's shard of the weights, the
+whole heads of its range and its slice of the FF width, between
+``copy_to`` on the block's input and ``reduce_from`` on its output
+(Megatron's f and g), as GSPMD partitions the reference's.  The
+recorder's events keep the global widths.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
 
@@ -26,7 +35,7 @@ __all__ = [
     "linear", "mlp_defs", "apply_mlp",
     "rope_angles", "apply_rope",
     "attention_defs", "attention_train", "attention_decode",
-    "chunked_attention_xla",
+    "chunked_attention_xla", "kv_range", "tp_heads", "kv_heads_whole",
     "attention_decode_paged", "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
 ]
 
@@ -91,21 +100,29 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, kind: str,
-              tuner=None) -> torch.Tensor:
+              tuner=None, tp=None) -> torch.Tensor:
+    """The MLP on x; with ``tp`` the weights are this rank's FF slice
+    (wi / wg columns, wo rows) and the partial output is summed over
+    the group."""
     m = 1
     for dim in x.shape[:-1]:
         m *= dim
     d, ff = p["wi"].shape[-2], p["wi"].shape[-1]
+    if tp is not None:
+        ff *= tp.size
+        x = C.copy_to(x, tp.group)
     n_in = 2 * ff if kind in ("swiglu", "geglu") else ff
     ops.observe(m, d, n_in, tuner, site="mlp.in_proj")
     ops.observe(m, ff, d, tuner, site="mlp.out_proj")
     if kind == "swiglu":
-        return linear(F.silu(linear(x, p["wg"])) * linear(x, p["wi"]),
-                      p["wo"])
-    if kind == "geglu":
-        return linear(_gelu(linear(x, p["wg"])) * linear(x, p["wi"]),
-                      p["wo"])
-    return linear(_gelu(linear(x, p["wi"])), p["wo"])
+        out = linear(F.silu(linear(x, p["wg"])) * linear(x, p["wi"]),
+                     p["wo"])
+    elif kind == "geglu":
+        out = linear(_gelu(linear(x, p["wg"])) * linear(x, p["wi"]),
+                     p["wo"])
+    else:
+        out = linear(_gelu(linear(x, p["wi"])), p["wo"])
+    return out if tp is None else C.reduce_from(out, tp.group)
 
 
 # ---------------------------------------------------------------------------
@@ -175,14 +192,18 @@ def attention_defs(s: AttnSpec) -> dict:
 
 
 def _project_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
-                 positions: torch.Tensor, tuner=None
+                 positions: torch.Tensor, tuner=None,
+                 local: AttnSpec | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, heads, Dh) of ``local``'s heads (default all of
+    ``s``'s); the recorder sees ``s``'s whole projection."""
     b, sq, d = x.shape
     # the q/k/v projections are plain GEMMs; tag them so the recorded
     # routine mix carries the dense dispatch volume
     ops.observe(b * sq, d,
                 (s.n_heads + 2 * s.n_kv_heads) * s.head_dim, tuner,
                 site="attn.qkv_proj")
+    s = local or s
     q = linear(x, p["wq"]).reshape(b, sq, s.n_heads, s.head_dim)
     k = linear(x, p["wk"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
     v = linear(x, p["wv"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
@@ -197,12 +218,62 @@ def _project_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
     return q, k, v
 
 
-def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, Hkv, D) -> (B, S, H, D) by repeating each KV head."""
+def _repeat_kv(k: torch.Tensor, n_heads: int,
+               index: list[int] | None = None) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D) by repeating each KV head, or, with
+    ``index``, query head j reading KV head ``index[j]``."""
+    if index is not None:
+        return k.index_select(2, torch.tensor(index, device=k.device))
     hk = k.shape[2]
     if hk == n_heads:
         return k
     return torch.repeat_interleave(k, n_heads // hk, dim=2)
+
+
+def kv_range(s: AttnSpec, size: int, rank: int) -> tuple[int, int]:
+    """[lo, hi) of the KV heads that rank ``rank`` of a ``size``-way cut
+    of the query heads reads (query head h reads KV head h // (H /
+    Hkv))."""
+    per = s.n_heads // size
+    group = s.n_heads // s.n_kv_heads
+    return rank * per // group, ((rank + 1) * per - 1) // group + 1
+
+
+def tp_heads(s: AttnSpec, tp) -> tuple[AttnSpec, int, int,
+                                       list[int] | None]:
+    """(local spec, KV lo, KV hi, KV index or None) of this rank's whole
+    query heads: the local spec counts its query heads and the KV heads
+    they read; the index maps each local query head to its local KV head
+    where that is not a plain repeat."""
+    per = s.n_heads // tp.size
+    lo, hi = kv_range(s, tp.size, tp.rank)
+    group = s.n_heads // s.n_kv_heads
+    index = [(tp.rank * per + j) // group - lo for j in range(per)]
+    n_kv = hi - lo
+    if per % n_kv == 0 and index == [j // (per // n_kv)
+                                     for j in range(per)]:
+        index = None
+    return dataclasses.replace(s, n_heads=per, n_kv_heads=n_kv), lo, hi, \
+        index
+
+
+def kv_heads_whole(k: torch.Tensor, s: AttnSpec, tp) -> torch.Tensor:
+    """Each rank's (B, S, KV heads of its range, Dh) -> the whole (B, S,
+    Hkv, Dh), the same on every rank: the pieces gathered over the group
+    (padded to the widest range), each KV head taken from the first rank
+    that holds it."""
+    ranges = [kv_range(s, tp.size, r) for r in range(tp.size)]
+    width = max(hi - lo for lo, hi in ranges)
+    if k.shape[2] < width:
+        k = F.pad(k, (0, 0, 0, width - k.shape[2]))
+    whole = C.all_gather(k, tp.group, dim=2)
+    index = []
+    for h in range(s.n_kv_heads):
+        r = next(r for r, (lo, hi) in enumerate(ranges) if lo <= h < hi)
+        index.append(r * width + h - ranges[r][0])
+    if index == list(range(whole.shape[2])):
+        return whole
+    return whole.index_select(2, torch.tensor(index, device=k.device))
 
 
 def chunked_attention_xla(q: torch.Tensor, k: torch.Tensor,
@@ -226,7 +297,7 @@ def chunked_attention_xla(q: torch.Tensor, k: torch.Tensor,
 
 
 def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None,
-                    backend: str = "auto"
+                    backend: str = "auto", tp=None
                     ) -> tuple[torch.Tensor,
                                tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention (training / prefill internals).
@@ -239,23 +310,40 @@ def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None,
     and the dense vs block-sparse triangular KV walk, and — on the
     ``library`` backend, the one training takes — whether the SYRK
     score-materialisation path wins for this shape.
+
+    With ``tp`` (H divisible by its size) the rank computes its whole
+    query heads: ``wq`` its columns, ``wo`` its rows, and ``wk`` / ``wv``
+    its columns where Hkv is divisible too, else the whole weights, of
+    which it takes the columns of the KV heads its query heads read
+    (:func:`tp_heads`; their gradient is then a partial sum over the
+    group).  (k, v) are the local KV heads (:func:`kv_heads_whole`
+    joins them); the flash dispatch records the group's B x H heads.
     """
     b, sq, _ = x.shape
+    local, index = s, None
+    if tp is not None:
+        local, lo, hi, index = tp_heads(s, tp)
+        if s.n_kv_heads % tp.size:
+            cols = slice(lo * s.head_dim, hi * s.head_dim)
+            p = {**p, "wk": p["wk"][:, cols], "wv": p["wv"][:, cols]}
+        x = C.copy_to(x, tp.group)
     positions = torch.arange(sq, device=x.device)
-    q, k, v = _project_qkv(p, x, s, positions, tuner)
-    kr = _repeat_kv(k, s.n_heads)
-    vr = _repeat_kv(v, s.n_heads)
-    flat = (b * s.n_heads, sq, s.head_dim)
+    q, k, v = _project_qkv(p, x, s, positions, tuner, local)
+    kr = _repeat_kv(k, local.n_heads, index)
+    vr = _repeat_kv(v, local.n_heads, index)
+    flat = (b * local.n_heads, sq, s.head_dim)
     out = ops.flash_attention(
         q.transpose(1, 2).reshape(flat).contiguous(),
         kr.transpose(1, 2).reshape(flat).contiguous(),
         vr.transpose(1, 2).reshape(flat).contiguous(),
         causal=s.causal, window=s.window, tuner=tuner, site="attn.core",
-        backend=backend)
-    out = out.reshape(b, s.n_heads, sq, s.head_dim).transpose(1, 2)
+        backend=backend, count=b * s.n_heads)
+    out = out.reshape(b, local.n_heads, sq, s.head_dim).transpose(1, 2)
     ops.observe(b * sq, s.n_heads * s.head_dim, x.shape[-1], tuner,
                 site="attn.out_proj")
-    out = linear(out.reshape(b, sq, s.n_heads * s.head_dim), p["wo"])
+    out = linear(out.reshape(b, sq, local.n_heads * s.head_dim), p["wo"])
+    if tp is not None:
+        out = C.reduce_from(out, tp.group)
     return out, (k, v)
 
 

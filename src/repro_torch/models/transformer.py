@@ -20,7 +20,12 @@ each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
 set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
 layers choose their path as the reference's ``_moe_apply`` does: the
 single-device one without a mesh or in decode, else expert or tensor
-parallelism on the ctx's torch ``DeviceMesh``.  A recurrent layer's
+parallelism on the ctx's torch ``DeviceMesh``.  On a mesh, train and
+prefill also run the dense blocks tensor-parallel over 'model'
+(:func:`dense_mesh_layout`: the embedding and the loss cut on the
+vocab, GQA attention on whole heads, the MLP on its FF width), each
+rank on its shards, with the residual stream whole on every rank of
+the axis, as GSPMD partitions the reference's.  A recurrent layer's
 prefill by-product is its final state, which is already the decode
 cache; its decode step returns a new state, where attention layers
 write their caches in place.
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -44,7 +50,8 @@ from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params, param_specs
 
-__all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy"]
+__all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy",
+           "dense_mesh_layout", "dense_weight_key"]
 
 
 # ---------------------------------------------------------------------------
@@ -168,10 +175,13 @@ def _layer_defs(cfg: ArchConfig, spec: LayerSpec) -> dict:
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     mode: str                      # train | prefill | decode
-    mesh: Any = None               # torch DeviceMesh of the MoE's mesh
-                                   # paths (None: one device)
+    mesh: Any = None               # torch DeviceMesh of the mesh paths
+                                   # (None: one device)
     dp_axes: tuple[str, ...] = ("data",)
     tp_axis: str = "model"
+    tp: Any = None                 # this rank's TPGroup of tp_axis: the
+                                   # dense blocks of train and prefill
+                                   # compute on their shards (None: whole)
     cache_len: int = 0             # decode capacity
     tuner: Any = None              # AdsalaTuner threaded to every
                                    # routine-aware call site (None = the
@@ -302,6 +312,103 @@ def moe_mesh_layout(cfg: ArchConfig, mesh, seq_len: int
     return ("ep" if ep_mode else "tp"), w_specs, x_spec
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
+    """Which dense widths a ``size``-way 'model' axis cuts for compute:
+    ``vocab`` (the embedding, logits and loss), ``heads`` (GQA
+    attention on whole query heads), ``kv_heads`` (and whole KV heads;
+    else each rank picks the KV heads its query heads read), ``ff`` (the
+    dense MLPs).  The encoder-decoder and the MLA, RG-LRU and xLSTM
+    mixers are not cut."""
+    if cfg.family == "audio":
+        return {"vocab": False, "heads": False, "kv_heads": False,
+                "ff": False}
+    plan = _layer_plan(cfg)
+    heads = (cfg.attn_kind != "mla" and any(_is_attn(s) for s in plan)
+             and cfg.n_heads % size == 0)
+    ffs = [s.d_ff for s in plan if s.mlp == "mlp"]
+    return {"vocab": cfg.vocab % size == 0, "heads": heads,
+            "kv_heads": heads and cfg.n_kv_heads % size == 0,
+            "ff": bool(ffs) and all(f % size == 0 for f in ffs)}
+
+
+def _cut(cfg: ArchConfig, ctx: Ctx, what: str):
+    """ctx.tp where the 'model' axis cuts ``what`` (see
+    :func:`_dense_cuts`), else None."""
+    if ctx.tp is None or not _dense_cuts(cfg, ctx.tp.size)[what]:
+        return None
+    return ctx.tp
+
+
+def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
+    """What a rank of ``mesh``'s 'model' axis computes the dense blocks
+    with: ``{weight: (compute spec, partial)}``, the weight by the key
+    :func:`dense_weight_key` gives a parameter's path; a weight not in
+    the table is computed whole on every rank (gathered where stored
+    cut), as are the MoE's router and shared experts
+    (:func:`moe_mesh_layout` places the experts).
+
+    * ``embed`` (V, D) and ``unembed`` (D, V): cut on V when V % tp
+      == 0 (the vocab-parallel lookup, logits and CE); else the vocab
+      stays whole on every rank;
+    * ``attn.wq`` / ``attn.wo``: columns / rows cut at whole heads when
+      H % tp == 0; else attention runs whole on every rank;
+    * ``attn.wk`` / ``attn.wv``: columns cut at whole KV heads when Hkv
+      % tp == 0 too; else whole, each rank taking the columns of the KV
+      heads its query heads read;
+    * ``attn.q_norm`` / ``attn.k_norm``: whole, applied to the rank's
+      heads;
+    * ``mlp.wi`` / ``mlp.wg`` / ``mlp.wo``: columns / rows cut when
+      every dense MLP's F % tp == 0.
+
+    ``partial`` marks a gradient that is a partial sum over 'model'
+    (each rank's term from its own heads): the picked KV columns and the
+    qk norms; the train step sums it into the stored layout.  Every
+    other gradient of a cut or whole weight is the whole one already
+    (the collectives' replicated-loss convention).  The stored layout
+    (the reference's specs) is not this; where the two differ the
+    weight is moved (:func:`~repro_torch.dist.collectives.local_at`).
+    """
+    from repro_torch.dist.collectives import axis_size
+    from repro_torch.dist.sharding import TP_AXIS
+
+    m = TP_AXIS
+    cuts = _dense_cuts(cfg, axis_size(mesh, m))
+    out: dict[str, tuple] = {}
+    if cuts["vocab"]:
+        out["embed"] = ((m, None), False)
+        out["unembed"] = ((None, m), False)
+    if cuts["heads"]:
+        kv = ((None, m), False) if cuts["kv_heads"] else ((), True)
+        out.update({"attn.wq": ((None, m), False),
+                    "attn.wo": ((m, None), False),
+                    "attn.wk": kv, "attn.wv": kv,
+                    "attn.q_norm": ((), True), "attn.k_norm": ((), True)})
+    if cuts["ff"]:
+        out.update({"mlp.wi": ((None, m), False),
+                    "mlp.wg": ((None, m), False),
+                    "mlp.wo": ((m, None), False)})
+    return out
+
+
+def dense_weight_key(model, path: tuple) -> str | None:
+    """The :func:`dense_mesh_layout` key of the parameter at ``path``
+    (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer, ``mlp.<name>``
+    of a dense MLP), or None."""
+    if path in (("embed",), ("unembed",)):
+        return path[0]
+    plan = getattr(model, "plan", None)
+    if plan is None or len(path) != 4 or path[0] != "layers":
+        return None
+    _, i, block, name = path
+    if block == "mixer" and _is_attn(plan[i]) \
+            and model.cfg.attn_kind != "mla":
+        return f"attn.{name}"
+    if block == "mlp":
+        return f"mlp.{name}"
+    return None
+
+
 def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE dispatch-path selection.
@@ -366,7 +473,8 @@ def _apply_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig,
     if spec.mlp == "moe":
         out, aux = _moe_apply(p["moe"], h, cfg, ctx)
         return x + out, aux
-    return x + L.apply_mlp(p["mlp"], h, cfg.mlp_kind, tuner=ctx.tuner), None
+    return x + L.apply_mlp(p["mlp"], h, cfg.mlp_kind, tuner=ctx.tuner,
+                           tp=_cut(cfg, ctx, "ff")), None
 
 
 def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -386,9 +494,11 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
         mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
                                  tuner=ctx.tuner)
     else:
-        mix, raw = L.attention_train(p["mixer"], h,
-                                     _attn_spec(cfg, spec.kind),
-                                     tuner=ctx.tuner, backend=ctx.backend)
+        a, tp = _attn_spec(cfg, spec.kind), _cut(cfg, ctx, "heads")
+        mix, raw = L.attention_train(p["mixer"], h, a, tuner=ctx.tuner,
+                                     backend=ctx.backend, tp=tp)
+        if tp is not None and ctx.mode == "prefill":
+            raw = tuple(L.kv_heads_whole(t, a, tp) for t in raw)
     cache = _seed_cache(raw, cfg, spec, ctx) if ctx.mode == "prefill" \
         else None
     x, aux = _apply_ffn(p, x + mix, cfg, spec, ctx)
@@ -442,19 +552,34 @@ def _remat_contexts():
 # ---------------------------------------------------------------------------
 
 def chunked_cross_entropy(x: torch.Tensor, w_unemb: torch.Tensor,
-                          labels: torch.Tensor, *, chunk: int = 512
-                          ) -> torch.Tensor:
+                          labels: torch.Tensor, *, chunk: int = 512,
+                          tp=None) -> torch.Tensor:
     """Mean CE over (B, S) without materialising (B, S, V) at once: the
     logits exist one (B, chunk, V) block at a time.  Labels < 0 are
-    ignored."""
+    ignored.
+
+    With ``tp`` the CE is vocab-parallel: ``w_unemb`` is this rank's
+    (D, V / tp) columns, a chunk's logits are (B, chunk, V / tp), the
+    log-partition takes its max and sum over the group and the label's
+    logit comes from the rank that holds it; every rank gets the same
+    loss."""
+    from repro_torch.dist import collectives as C
+
     s = x.shape[1]
     tot = x.new_zeros((), dtype=torch.float32)
     n_valid = x.new_zeros((), dtype=torch.float32)
+    if tp is not None:
+        x = C.copy_to(x, tp.group)
     for i0 in range(0, s, chunk):
         li = labels[:, i0:i0 + chunk].long()
         logits = (x[:, i0:i0 + chunk] @ w_unemb).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li.clamp(min=0)[..., None])[..., 0]
+        if tp is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                li.clamp(min=0)[..., None])[..., 0]
+        else:
+            logz = C.vocab_logz(logits, tp.group)
+            gold = C.vocab_gold(logits, li, tp)
         valid = (li >= 0).float()
         tot = tot + ((logz - gold) * valid).sum()
         n_valid = n_valid + valid.sum()
@@ -508,7 +633,12 @@ class LM:
         """(B, S) tokens -> (hidden (B, S, D), total aux loss of the MoE
         layers (fp32 scalar), caches|None)."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()]
+        tp = _cut(cfg, ctx, "vocab")
+        if tp is None:
+            x = params["embed"][tokens.long()]
+        else:
+            from repro_torch.dist.collectives import vocab_embed
+            x = vocab_embed(params["embed"], tokens, tp)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         remat = ctx.remat and ctx.mode == "train" and torch.is_grad_enabled()
@@ -529,15 +659,26 @@ class LM:
              ) -> torch.Tensor:
         """Mean next-token CE of ``batch`` (``tokens``, ``labels``: (B,
         S) ints) plus 0.01 x the MoE layers' auxiliary loss.  The
-        default ctx trains on the ``library`` backend."""
+        default ctx trains on the ``library`` backend; on a mesh the CE
+        is vocab-parallel where :func:`dense_mesh_layout` cuts the
+        vocab."""
         ctx = ctx or Ctx(mode="train", backend="library")
         x, aux, _ = self.forward(params, batch["tokens"], ctx)
         ce = chunked_cross_entropy(x, self._unembed_weight(params),
-                                   batch["labels"])
+                                   batch["labels"],
+                                   tp=_cut(self.cfg, ctx, "vocab"))
         return ce + 0.01 * aux
 
-    def logits_last(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        return x[:, -1] @ self._unembed_weight(params)
+    def logits_last(self, params: dict, x: torch.Tensor,
+                    ctx: Ctx | None = None) -> torch.Tensor:
+        """The last position's logits (B, V): with a vocab-parallel ctx
+        each rank's columns, gathered over the group."""
+        logits = x[:, -1] @ self._unembed_weight(params)
+        tp = None if ctx is None else _cut(self.cfg, ctx, "vocab")
+        if tp is None:
+            return logits
+        from repro_torch.dist.collectives import all_gather
+        return all_gather(logits, tp.group, dim=-1)
 
     def init_cache(self, batch: int, ctx: Ctx,
                    dtype: torch.dtype = torch.float32,
@@ -561,7 +702,7 @@ class LM:
                 ) -> tuple[torch.Tensor, list]:
         """Run the full prompt; return (last-token logits, decode caches)."""
         x, _, caches = self.forward(params, tokens, ctx)
-        return self.logits_last(params, x), caches
+        return self.logits_last(params, x, ctx), caches
 
     def decode_step(self, params: dict, token: torch.Tensor,
                     cache: list, pos: Any, ctx: Ctx,

@@ -7,11 +7,16 @@ cache sequence/width dim — over 'model'; page pools page-sharded).
 
 On a mesh the built functions take the parameters as DTensors laid out
 by the param specs and this rank's rows of the batch (the batch specs'
-layout); they gather each weight whole, except the MoE experts of a
-prefill, which move to their expert- or tensor-parallel layout
-(:func:`repro_torch.models.transformer._moe_apply`), and return this
-rank's rows of the logits and caches.  A decode step takes the MoE's
-single-device path, as the reference's does.
+layout), and return this rank's rows of the logits and caches, whole.
+A prefill computes tensor-parallel: the dense blocks' weights move to
+the layout of :func:`repro_torch.models.transformer.dense_mesh_layout`
+(the rank's heads, FF slice and vocab range), the MoE experts to their
+expert- or tensor-parallel layout
+(:func:`repro_torch.models.transformer._moe_apply`), every other weight
+is gathered whole; the K/V of the local heads and the logits of the
+local vocab are gathered over 'model'.  A decode step gathers every
+weight whole and takes the MoE's single-device path, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -134,17 +139,24 @@ def decode_inputs_sds(model, cfg: ArchConfig, shape: ShapeSpec,
     return token, cache, pos
 
 
-def forward_params(params: Any, mesh, *, keep_experts: bool) -> Any:
+def forward_params(params: Any, mesh, *, keep_experts: bool,
+                   model=None) -> Any:
     """The parameters a rank computes with: every DTensor gathered whole
     (no copy where the mesh does not cut it), except, with
     ``keep_experts``, the MoE experts, left as DTensors for the MoE's
-    mesh path to move.  Plain tensors pass unchanged."""
+    mesh path to move, and, with ``model``, the dense blocks' weights,
+    moved to :func:`~repro_torch.models.transformer.dense_mesh_layout`'s
+    layout (the local pieces).  Plain tensors pass unchanged."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import to_placements
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        dense_weight_key
 
     if mesh is None:
         return params
+    dense = {} if model is None else dense_mesh_layout(model.cfg, mesh)
     paths = iter(tree_paths(params))
 
     def one(t):
@@ -153,7 +165,8 @@ def forward_params(params: Any, mesh, *, keep_experts: bool) -> Any:
             return t
         if keep_experts and is_expert_weight(path):
             return t
-        return C.local_at(t, mesh, C.replicated(mesh))
+        spec, _ = dense.get(dense_weight_key(model, path), ((), False))
+        return C.local_at(t, mesh, to_placements(spec, mesh))
     return tree_map(one, params)
 
 
@@ -177,7 +190,8 @@ def build_prefill(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
                    remat=False, tuner=tuner)
 
     def prefill(params, batch):
-        params = forward_params(params, mesh, keep_experts=True)
+        params = forward_params(params, mesh, keep_experts=True,
+                                model=model)
         batch = {k: _rows(v) for k, v in batch.items()}
         if cfg.family == "audio":
             return model.prefill(params, batch, ctx)

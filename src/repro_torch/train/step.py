@@ -33,7 +33,10 @@ def make_ctx(mode: str, *, mesh=None, cache_len: int = 0,
              remat: bool = True, tuner=None, backend: str = "auto") -> Ctx:
     """Ctx for ``mode`` (train | prefill | decode), on one device or on
     ``mesh`` (a torch ``DeviceMesh``, or a ``MeshShape`` for deriving
-    specs only; its data axes are every axis but 'model').
+    specs only; its data axes are every axis but 'model').  On a
+    ``DeviceMesh``, train and prefill carry the rank's 'model' group
+    (``Ctx.tp``): their dense blocks compute on their shards.  A decode
+    step computes them whole.
 
     Training runs on the ``library`` backend on any device, whatever
     ``backend`` says: no CUDA kernel has a backward.
@@ -50,8 +53,12 @@ def make_ctx(mode: str, *, mesh=None, cache_len: int = 0,
     if mesh is None:
         return Ctx(mode=mode, cache_len=cache_len, remat=remat,
                    tuner=tuner, kv_quantized=kv_q, backend=backend)
+    tp = None
+    if mode != "decode" and hasattr(mesh, "get_group"):
+        from repro_torch.dist.collectives import TPGroup
+        tp = TPGroup.of(mesh, TP_AXIS)
     return Ctx(mode=mode, mesh=mesh, dp_axes=data_axes(mesh),
-               tp_axis=TP_AXIS,
+               tp_axis=TP_AXIS, tp=tp,
                cache_len=cache_len, remat=remat, tuner=tuner,
                kv_quantized=kv_q, backend=backend)
 
@@ -140,21 +147,34 @@ def build_train_step(model, cfg: ArchConfig,
 def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
                        opt_cfg: AdamWConfig, tuner=None):
     """The mesh half of :func:`build_train_step`: ``(step, state specs,
-    batch specs)``.
+    batch specs)``; ``step.value_and_grad(state, batch)`` is the step
+    without its update.
 
     The state's DTensors keep the reference's layout (its state specs);
-    the compute differs from the reference's GSPMD partitioning:
+    a rank computes the decoder LM's dense blocks as the reference's
+    GSPMD partitions them:
 
-    * each weight is gathered whole for the forward (dense compute is
-      data-parallel), except the MoE experts, which are moved to the
-      layout of their expert- or tensor-parallel path
-      (:func:`~repro_torch.models.transformer.moe_mesh_layout`) and
-      stay local;
+    * each weight is moved to the layout it is computed with and the
+      model sees the local piece: the dense blocks' weights to
+      :func:`~repro_torch.models.transformer.dense_mesh_layout`'s (the
+      vocab, whole heads and the FF width cut over 'model'), the MoE
+      experts to their expert- or tensor-parallel path's
+      (:func:`~repro_torch.models.transformer.moe_mesh_layout`), every
+      other weight gathered whole;
     * each rank differentiates its own group's loss
-      (:mod:`repro_torch.dist.collectives`); each gradient is averaged
-      over the data axes and moved to its parameter's stored layout;
+      (:mod:`repro_torch.dist.collectives`: activations are whole on
+      every rank of 'model' between the blocks, so a rank's gradient of
+      a whole weight it uses as the others do is the whole gradient);
+      each gradient is averaged over the data axes and moved to its
+      parameter's stored layout; a gradient the layout marks partial
+      (each rank's term from its own heads: picked KV columns, the qk
+      norms) is summed over 'model' on the way (a reduce-scatter where
+      the stored layout cuts it);
     * AdamW runs on the local shards, with the clipping norm and the
       int8 scales taken over whole tensors.
+
+    Under remat each layer's forward runs again in the backward pass,
+    and its collectives with it.
     """
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -163,7 +183,8 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     from repro_torch.dist.sharding import batch_specs, partition_params, \
         state_specs, to_placements
     from repro_torch.models.moe import is_expert_weight
-    from repro_torch.models.transformer import moe_mesh_layout
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        dense_weight_key, moe_mesh_layout
 
     p_specs = partition_params(model, cfg, mesh)
     s_specs = state_specs(p_specs, compress=opt_cfg.compress)
@@ -182,9 +203,15 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
              if pl.is_shard() and mesh.size(i) > 1] for pls in stored]
     _, w_specs, _ = moe_mesh_layout(cfg, mesh, shape.seq_len) \
         if cfg.n_experts else (None, {}, None)
-    compute = [to_placements(w_specs[path[-1]], mesh)
-               if is_expert_weight(path) else C.replicated(mesh)
-               for path in paths]
+    dense = dense_mesh_layout(cfg, mesh)
+    expert = [is_expert_weight(path) for path in paths]
+    laid = [(w_specs[path[-1]], False) if ex
+            else dense.get(dense_weight_key(model, path), ((), False))
+            for path, ex in zip(paths, expert)]
+    compute = [to_placements(spec, mesh) for spec, _ in laid]
+    # the layout of each gradient as autograd leaves it on a rank
+    grad_at = [C.partial_over(mesh, pl, TP_AXIS) if part else pl
+               for pl, (_, part) in zip(compute, laid)]
 
     def reduce(value: torch.Tensor, i: int, op: str) -> torch.Tensor:
         for axis in cuts[i]:
@@ -193,13 +220,16 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
                             group=mesh.get_group(axis))
         return value
 
-    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+    def value_and_grad(state: dict, batch: dict
+                       ) -> tuple[torch.Tensor, dict]:
+        """(this rank's loss, the gradients averaged over the data axes
+        as local tensors in the stored layout)."""
         stored_leaves = tree_leaves(state["params"])
         local = [C.local_at(t, mesh, pl).detach().requires_grad_(True)
                  for t, pl in zip(stored_leaves, compute)]
-        fwd = [DTensor.from_local(t, mesh, pl, run_check=False)
-               if pl != C.replicated(mesh) else t
-               for t, pl in zip(local, compute)]
+        # the MoE moves its experts itself: they go in as DTensors
+        fwd = [DTensor.from_local(t, mesh, pl, run_check=False) if ex
+               else t for t, pl, ex in zip(local, compute, expert)]
         it = iter(fwd)
         params = tree_map(lambda _: next(it), state["params"])
         rows = {k: C.local_rows(v) for k, v in batch.items()}
@@ -210,17 +240,20 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
         recorder.record_backward(since=n0, tuner=tuner)
         grads = []
         with torch.no_grad():
-            for g, pl_c, pl_s in zip(grad_leaves, compute, stored):
+            for g, pl_g, pl_s in zip(grad_leaves, grad_at, stored):
                 g = g.contiguous()
                 for group in dp_groups:
                     dist.all_reduce(g, group=group)
                 if n_dp > 1:
                     g.div_(n_dp)
                 grads.append(C.local_at(DTensor.from_local(
-                    g, mesh, pl_c, run_check=False), mesh, pl_s))
+                    g, mesh, pl_g, run_check=False), mesh, pl_s))
         del grad_leaves
         it = iter(grads)
-        grads_tree = tree_map(lambda _: next(it), state["params"])
+        return loss, tree_map(lambda _: next(it), state["params"])
+
+    def step(state: dict, batch: dict) -> tuple[dict, dict]:
+        loss, grads_tree = value_and_grad(state, batch)
         local_state = {k: tree_map(lambda t: t.to_local(), v)
                        for k, v in state.items()}
         new_local, metrics = adamw_update(local_state, grads_tree, opt_cfg,
@@ -234,6 +267,7 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
         metrics["loss"] = loss / n_dp
         return new_state, metrics
 
+    step.value_and_grad = value_and_grad
     return step, s_specs, b_specs
 
 

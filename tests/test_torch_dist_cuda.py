@@ -1,7 +1,9 @@
-"""The MoE's expert-parallel mesh path on the card: a one-rank NCCL
-world, a (1, 1) ("data", "model") mesh, the grouped-GEMM kernel behind
-a one-rank ``all_to_all``.  Marked ``cuda``: without a CUDA device every
-test here skips.  Imports no jax, so it runs on a GPU host that has only
+"""The mesh paths on the card: a one-rank NCCL world, a (1, 1) ("data",
+"model") mesh; the MoE's expert-parallel path (the grouped-GEMM kernel
+behind a one-rank ``all_to_all``) and the dense blocks tensor-parallel
+over 'model' (on one rank: the whole weights, one-rank collectives,
+bitwise the single-device path).  Marked ``cuda``: without a CUDA device
+every test here skips.  Imports no jax, so it runs on a GPU host that has only
 torch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_dist_cuda.py
@@ -98,3 +100,83 @@ def test_mesh_prefill_of_a_smoke_model_on_the_card(nccl_mesh):
         want, _ = model.prefill(params, tokens,
                                 make_ctx("prefill", cache_len=32))
     torch.testing.assert_close(logits, want, atol=1e-5, rtol=1e-5)
+
+
+def test_vocab_logz_is_logsumexp_bit_for_bit_on_the_card(nccl_mesh):
+    """The vocab-parallel log-partition on a one-rank group: the steps
+    of ``torch.logsumexp``, so its value and gradient are the same
+    bits."""
+    from repro_torch.dist.collectives import vocab_logz
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = (5 * torch.randn((2, 512, 4000), generator=gen, device="cuda")
+              ).requires_grad_(True)
+    w = torch.randn((2, 512), generator=gen, device="cuda")
+    want = torch.logsumexp(logits, dim=-1)
+    g_want, = torch.autograd.grad((want * w).sum(), logits)
+    got = vocab_logz(logits, nccl_mesh.get_group("model"))
+    g_got, = torch.autograd.grad((got * w).sum(), logits)
+    assert torch.equal(got, want) and torch.equal(g_got, g_want)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "granite-8b",
+                                  "chameleon-34b"])
+def test_tp_step_and_prefill_on_a_one_rank_mesh_are_bitwise(nccl_mesh,
+                                                            arch):
+    """Two sharded train steps (the dense blocks on their 'model'
+    shards, the vocab-parallel loss) and the built prefill (flash on the
+    local heads, their K/V and the logits gathered over the group) on
+    the one-rank mesh: the single-device step's state and the
+    single-device prefill's logits and caches, bit for bit."""
+    from repro_torch.data.pipeline import SyntheticLM, make_global_batch
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.step import build_prefill
+    from repro_torch.train.optim import AdamWConfig, init_state
+    from repro_torch.train.step import build_train_step, make_ctx
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=20)
+    state = init_state(model.init(torch.Generator(device="cuda")
+                                  .manual_seed(0)), opt)
+    step, s_specs, b_specs = build_train_step(
+        model, cfg, opt, shape=ShapeSpec("t", 64, 4, "train"),
+        mesh=nccl_mesh)
+    one, _, _ = build_train_step(model, cfg, opt)
+    leaves = {k: tree_leaves(v, is_leaf=is_spec) for k, v in s_specs.items()}
+    sharded = {}
+    for k, v in state.items():
+        it = iter(leaves[k]) if k != "step" else iter([()])
+        sharded[k] = tree_map(lambda t: distribute(t.clone(), nccl_mesh,
+                                                   next(it)), v)
+    data = SyntheticLM(cfg.vocab, 64, 4, seed=3)
+    for i in range(2):
+        batch = data.batch_at(i)
+        sharded, m = step(sharded, make_global_batch(batch, nccl_mesh,
+                                                     b_specs))
+        state, m1 = one(state, make_global_batch(batch, None))
+        assert torch.equal(m["loss"], m1["loss"])
+    assert all(torch.equal(a.to_local(), b) for a, b in zip(
+        tree_leaves(sharded), tree_leaves(state)))
+    params = state["params"]
+    prefill, p_specs, pb_specs = build_prefill(
+        model, cfg, ShapeSpec("p", 48, 4, "prefill"), nccl_mesh)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    on_mesh = tree_map(lambda t: distribute(t, nccl_mesh, next(it)), params)
+    tokens = torch.randint(0, cfg.vocab, (4, 32), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    with torch.no_grad():
+        before = FA.flash_attention_cuda.launches
+        logits, cache = prefill(on_mesh, {"tokens": distribute(
+            tokens, nccl_mesh, pb_specs["tokens"])})
+        torch.cuda.synchronize()
+        assert FA.flash_attention_cuda.launches - before == cfg.n_layers
+        want, cache1 = model.prefill(params, tokens,
+                                     make_ctx("prefill", cache_len=48))
+    assert torch.equal(logits, want)
+    assert all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+               for a, b in zip(cache, cache1))

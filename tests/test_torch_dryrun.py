@@ -28,14 +28,21 @@ ops, and the three examples, on the CPU.
   twins (``_CudaIndexing``);
 * the examples at a small size with ``--device cpu``.
 
-FLOP tolerances (``_expected_flops``): the port's mesh steps gather the
-dense weights, so a rank computes its data group's rows through the
-whole model: ``step_flops / dp``.  Train
+FLOP tolerances (``_expected_flops``): a train step and a prefill run
+the dense blocks tensor-parallel over 'model', so a rank computes its
+data group's rows through its shards: ``step_flops / (dp x tp)``, plus
+what the layout leaves whole on every rank, computed here exactly (the
+KV heads a rank picks beyond its share where Hkv % tp != 0; the whole
+attention where H % tp != 0).  A decode step gathers the weights and
+computes its rows through the whole model: ``step_flops / dp``.  Train
 and decode count the same einsums as the analytic model, so they agree
 to rounding (1e-9).  A prefill differs by two known terms, computed
 here exactly: the port's prefill takes the logits of the last position
 only, and the plain attention computes every (query, key) score where
-the analytic count averages a causal context of S / 2.
+the analytic count averages a causal context of S / 2.  One more test
+traces stablelm-1.6b at full width (2 layers) on a fake (16, 16) world
+in a subprocess: a rank's train FLOPs within x0.95–1.1 of
+``step_flops / 256``.
 """
 
 import ast
@@ -196,18 +203,39 @@ def smoke_records(fake_mesh, tmp_path_factory):
     return out, recs
 
 
-def _expected_flops(cfg, shape) -> float:
-    """The analytic count for rank 0 of the (2, 2) world, with the
-    prefill's two known differences (module docstring)."""
+def _expected_flops(cfg, shape, dp: int = 2, tp: int = 2,
+                    remainder: bool = True) -> float:
+    """The analytic count for rank 0 of a (dp, tp) world, with the
+    prefill's two known differences and (``remainder``) the replicated
+    remainder (module docstring), for a config of GQA attention layers
+    only."""
+    from repro_torch.models.layers import kv_range
+    from repro_torch.models.transformer import _attn_spec
     from repro_torch.roofline import step_flops
 
-    want = step_flops(cfg, shape) / 2           # dp = the data axis
+    want = step_flops(cfg, shape) / dp
+    if shape.kind == "decode":
+        return want
+    rows = shape.global_batch // dp
+    s, hd, d = shape.seq_len, cfg.resolved_head_dim, cfg.d_model
+    h, hk = cfg.n_heads, cfg.n_kv_heads
     if shape.kind == "prefill":
-        rows = shape.global_batch // 2          # the data axis of (2, 2)
-        s, hd = shape.seq_len, cfg.resolved_head_dim
-        want -= rows * (s - 1) * 2 * cfg.d_model * cfg.vocab
-        want += rows * s * cfg.n_layers * 4 * cfg.n_heads * hd * (s / 2)
-    return want
+        want -= rows * (s - 1) * 2 * d * cfg.vocab
+        want += rows * s * cfg.n_layers * 4 * h * hd * (s / 2)
+    want /= tp
+    if not remainder:
+        return want
+    mult = 4 if shape.kind == "train" else 1       # fwd, remat, 2 x bwd
+    per_tok = 0.0
+    if h % tp:                                     # attention whole
+        # the plain attention computes every score (context s)
+        attn = 2 * d * hd * (h + 2 * hk) + 2 * h * hd * d \
+            + 2 * s * h * hd * 2
+        per_tok = attn * (1 - 1 / tp)
+    elif hk % tp:                                  # the picked KV heads
+        lo, hi = kv_range(_attn_spec(cfg, "attn"), tp, 0)
+        per_tok = 2 * d * hd * 2 * ((hi - lo) - hk / tp)
+    return want + mult * rows * s * cfg.n_layers * per_tok
 
 
 @pytest.mark.parametrize("kind", list(SMOKE_SHAPES))
@@ -224,12 +252,19 @@ def test_smoke_cell_traces_on_a_fake_world(smoke_records, kind):
     for v in rec["collectives"].values():
         assert set(v) == {"count", "bytes", "loop_count", "loop_bytes"}
         assert v["loop_count"] == v["loop_bytes"] == 0
-    # the weights cut over 'model' are gathered for the forward; a train
-    # step also averages its gradients over 'data'
+    # a train step computes every weight on its stored shard (stablelm's
+    # heads, FF width and vocab are cut over 'model'): no gather; its
+    # blocks' partial sums and the data average are all-reduces; a
+    # prefill gathers each layer's K and V and the last logits; a decode
+    # step gathers the weights
     gather = rec["collectives"]["all-gather"]
-    assert gather["count"] > 0 and gather["bytes"] > 0
     if kind == "train_4k":
+        assert gather["count"] == 0
         assert rec["collectives"]["all-reduce"]["count"] > 0
+    else:
+        assert gather["count"] > 0 and gather["bytes"] > 0
+    if kind == "prefill_32k":
+        assert gather["count"] == 2 * 2 + 1
     mem = rec["memory"]
     assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
     assert mem["peak_bytes"] >= mem["argument_bytes"]
@@ -247,19 +282,119 @@ def test_smoke_cell_traces_on_a_fake_world(smoke_records, kind):
                             "n_layers": 2}
 
 
+def _whole_but_stored_cut(model, cfg, mesh) -> int:
+    """How many weights are stored cut over 'model' and computed whole
+    (gathered once a train step)."""
+    from repro_torch.dist.sharding import partition_params
+    from repro_torch.models.moe import is_expert_weight
+    from repro_torch.models.params import is_spec, tree_leaves, tree_paths
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        dense_weight_key
+
+    dense = dense_mesh_layout(cfg, mesh)
+    n = 0
+    for path, spec in zip(tree_paths(model.defs), tree_leaves(
+            partition_params(model, cfg, mesh), is_leaf=is_spec)):
+        key = dense_weight_key(model, path)
+        n += ("model" in spec and dense.get(key, ((),))[0] == ()
+              and not is_expert_weight(path))
+    return n
+
+
 @pytest.mark.parametrize("kind", list(SMOKE_SHAPES))
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     """Each family's built train, prefill and decode function on fake
     DTensors: whisper's frame embeddings are cut over 'model' too, and
-    the functions take their rows whole (``collectives.local_rows``)."""
-    rec = D.run_cell(arch, kind, False, device="cpu",
-                     cfg=get_smoke_config(arch), shape=_smoke_shape(kind),
-                     mesh=fake_mesh)
+    the functions take their rows whole (``collectives.local_rows``).
+    A train step gathers the weights computed whole and stored cut, and
+    nothing else but for the MoE's expert-parallel exchange (DTensor's
+    all-to-all gathers on a CPU mesh) and whisper's frame embeddings; a
+    prefill gathers at least its logits, a decode step its weights."""
+    cfg = get_smoke_config(arch)
+    rec = D.run_cell(arch, kind, False, device="cpu", cfg=cfg,
+                     shape=_smoke_shape(kind), mesh=fake_mesh)
     assert rec["status"] == "ok"
     assert rec["cost"]["flops_per_device"] > 0
-    assert rec["collectives"]["all-gather"]["count"] > 0
+    gathers = rec["collectives"]["all-gather"]["count"]
+    if kind == "train_4k":
+        whole = _whole_but_stored_cut(build_model(cfg), cfg, fake_mesh)
+        if cfg.n_experts or cfg.family == "audio":
+            assert gathers >= whole
+        else:
+            assert gathers == whole
+    else:
+        assert gathers > 0
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
+
+
+#: smoke configs whose attention leaves a remainder on a 2-way 'model'
+#: axis: one KV head (each rank picks it), one query head (whole)
+REMAINDER_CFGS = {"granite-kv1": ("granite-8b", {"n_kv_heads": 1}),
+                  "starcoder2-h1": ("starcoder2-3b", {"n_heads": 1,
+                                                      "n_kv_heads": 1})}
+
+
+@pytest.mark.parametrize("kind", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("name", list(REMAINDER_CFGS))
+def test_tp_flops_count_the_replicated_remainder(fake_mesh, name, kind):
+    """A rank's FLOPs where the layout leaves part of attention whole:
+    its share of the count plus that part, exactly."""
+    arch, over = REMAINDER_CFGS[name]
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    shape = _smoke_shape(kind)
+    rec = D.run_cell(arch, kind, False, device="cpu", cfg=cfg, shape=shape,
+                     mesh=fake_mesh)
+    assert rec["cost"]["flops_per_device"] == pytest.approx(
+        _expected_flops(cfg, shape), rel=EXACT)
+    # the remainder is there: more than the even share
+    assert rec["cost"]["flops_per_device"] > _expected_flops(
+        cfg, shape, remainder=False)
+
+
+_FULL_WIDTH_TRACE = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import SHAPES
+from repro_torch.roofline import step_flops
+D.fake_world(256)
+mesh = make_mesh((16, 16), ("data", "model"), device_type="cpu")
+cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+shape = dataclasses.replace(SHAPES["train_4k"], seq_len=128,
+                            global_batch=16)
+rec = D.run_cell("stablelm-1.6b", "train_4k", False, device="cpu", cfg=cfg,
+                 shape=shape, mesh=mesh)
+# step_flops runs the logits 4 times (its remat multiplier); the loss
+# is outside the remat, so they run 3 times
+logits = 2 * shape.tokens * cfg.d_model * cfg.vocab
+print(json.dumps({"status": rec["status"],
+                  "flops": rec["cost"]["flops_per_device"],
+                  "share": (step_flops(cfg, shape) - logits) / 256,
+                  "gathers": rec["collectives"]["all-gather"]["count"]}))
+"""
+
+
+def test_full_width_train_flops_a_rank_on_a_16x16_world():
+    """stablelm-1.6b at full width (32 heads, 5632 FF, 100352 vocab),
+    cut to 2 layers and 16 x 128 tokens, on rank 0 of a fake (16, 16)
+    world (its own process: this module's fixture made a 4-rank world
+    here): the rank's FLOPs are its 1/256 share of the analytic count,
+    not the whole model's 1/16 (fake tensors: no storage).  At 2 layers
+    the logits are most of the count, so the share takes off the fourth
+    pass over them that ``step_flops``'s remat multiplier adds (the loss
+    is not recomputed)."""
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", _FULL_WIDTH_TRACE],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"] == "ok" and got["gathers"] == 0
+    assert 0.95 <= got["flops"] / got["share"] <= 1.1, got
 
 
 #: xlstm's smoke cells at two lengths: one mLSTM chunk of 256, and 16
@@ -348,7 +483,10 @@ def test_xlstm_trace_does_not_grow_with_the_sequence(xlstm_traces, kind):
 def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
     """At 256 tokens the trace's FLOPs on rank 0 (the op's formulas)
     equal ``FlopCounterMode``'s count of the same rows through the
-    single-device function with the sLSTM's plain loop."""
+    single-device function with the sLSTM's plain loop, less the half
+    of the logits that the vocab cut over the 2-way 'model' axis leaves
+    to the other rank (the forward's and, in training, the backward's
+    two products: three times the forward's)."""
     from torch.utils._pytree import tree_map as tmap
 
     from repro_torch.models import xlstm as X
@@ -376,7 +514,10 @@ def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
         args = tmap(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
         with FlopCounterMode(display=False) as fc:
             fn(*args)
-    assert traces[kind, s]["flops"] == fc.get_total_flops()
+    rows = 2 * (s if kind == "train_4k" else 1)    # the logits' rows
+    passes = 3 if kind == "train_4k" else 1
+    other_half = passes * 2 * rows * cfg.d_model * cfg.vocab // 2
+    assert traces[kind, s]["flops"] == fc.get_total_flops() - other_half
 
 
 def test_skipped_cell_writes_its_reason():
