@@ -161,22 +161,37 @@ Phases (any failure exits non-zero):
    only); (a) in phase 12 between (a) and (b): deepseek's weights
    laid out on the mesh without a copy, ``serve.step.build_prefill``
    (the MoE's expert-parallel path: the grouped kernel behind a one-rank
-   all_to_all, 9 tiled launches) and ``build_decode`` (135 thin) on the
+   all_to_all, 9 tiled launches) and ``build_decode`` from the
+   prefill's caches laid out by ``serve.step.shard_cache`` (the latent
+   cache read split-KV, ``apply_moe_decode``: 135 thin launches) on the
    same prompts: the logits within MESH_TOL of phase 12's and the same
    greedy tokens; (b) after phase 12 (c): one mixtral-8x22b MoE layer at
    full width through ``apply_moe_tp`` against ``apply_moe``: 3 tiled
    launches, within the grouped bound; warm times of both paths in
-   turns (phase 12 (d), the int8 cache, runs after the mesh is gone);
-   phase 16 (b) runs inside (a);
+   turns; (f) after (b): the decode on the reference's cache layout —
+   stablelm-1.6b whole and mixtral-8x22b at MIX_LAYERS layers from a
+   seed, MESH_DECODE_STEPS greedy steps of ``build_decode`` on the mesh
+   against the single-device decode from the same prefill: the same
+   tokens, the logits within MESH_DECODE_TOL, mixtral's grouped launches by
+   body (12 thin a step), warm steps in turns, each path's device time
+   a step and the collectives a mesh step dispatches;
+   ``softmax_combine_local`` over 4 and 16 chunks of a 32k cache
+   against one softmax within COMBINE_TOL; the grouped kernel at a
+   rank's buckets of the production decode (RANK_GROUPED_SHAPES:
+   mixtral's on the tiled body, deepseek's on the thin one) against
+   its plain version and ``torch.bmm``, beside its bound (phase 12 (d),
+   the int8 cache, runs after the mesh is gone); phase 16 (b) runs
+   inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in two processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
    mixtral-8x22b on decode_32k, and xlstm-125m's train_4k and
    prefill_32k, one process each; each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices`` (stablelm's
-   train_4k and prefill_32k must be within x0.85–1.25 of it: the
-   dense blocks tensor-parallel over the 16-way 'model' axis), peak
-   bytes a rank,
+   train_4k and prefill_32k must be within x0.85–1.25 of it, its
+   decode_32k within x0.8–1.5: the dense blocks tensor-parallel over
+   the 16-way 'model' axis, the cache read split-KV), peak bytes a rank
+   (stablelm's and mixtral's decode_32k under the card's 80 GiB),
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -200,7 +215,9 @@ Phases (any failure exits non-zero):
    the counted main paths made at that head dim, tallied from the
    wrapper's ``launches_by_head_dim``), each with its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
-   four buckets, with its launches on the mesh paths; each with its
+   four buckets, with its launches on the mesh paths, and at a rank's
+   four buckets of the production decode, which no path of a one-rank
+   mesh launches (0 launches, with a note); each with its
    body, ring stages and split count), the card's line, and the ``{"ok": true, ...}`` last line.
 
 Exits non-zero without a result when no CUDA device is present or when
@@ -376,6 +393,30 @@ NOISE_FRACTION = 1e-6
 #: nothing, so both should be bitwise equal
 MESH_TOL = 1e-5
 MESH_TRAIN_STEPS = 2
+#: phase 15 (f): greedy steps of the mesh decode and of the single
+#: device; the split softmax over a 32k cache in 4 and 16 chunks against
+#: one softmax (max |diff| / max |out|, fp32); a rank's grouped buckets
+#: at decode_32k on (16, 16) (name, E, C, d, f): mixtral's 8 experts on
+#: an FF slice of 1024 at the global batch's capacity 40, deepseek's 10
+#: experts a data rank on an FF slice of 96 at capacity 8
+MESH_DECODE_STEPS = 16
+#: phase 15 (f): the mesh decode's logits against the single device's,
+#: fp32, as ``torch.testing.assert_close(atol=, rtol=)`` holds them:
+#: |mesh - single| <= MESH_DECODE_TOL x (1 + |single|) element by
+#: element.  A one-rank mesh is not bitwise the single device: the
+#: split-KV combine divides after the value product
+MESH_DECODE_TOL = 1e-5
+COMBINE_SHAPE, COMBINE_VALID = (4, 32768, 32, 64), 20000
+COMBINE_CHUNKS, COMBINE_TOL = (4, 16), 1e-5
+RANK_GROUPED_SHAPES = [("mixtral_decode_rank", 8, 40, 6144, 1024),
+                       ("mixtral_decode_rank_wo", 8, 40, 1024, 6144),
+                       ("deepseek_decode_rank", 10, 8, 5120, 96),
+                       ("deepseek_decode_rank_wo", 10, 8, 96, 5120)]
+#: phase 16 (a): stablelm's decode_32k FLOPs a rank against step_flops /
+#: 256 (the dense blocks and the split cache), and the card's memory
+#: that stablelm's and mixtral's decode_32k peaks a rank stay under
+DECODE_RATIO = (0.8, 1.5)
+CARD_GIB = 80
 #: flash at head dims between the kernel's (zero-padded to 128, 128 and
 #: 256): (BH, S, D), causal, fp32
 FLASH_PADDED = [(64, 1024, 80), (64, 1024, 96), (32, 1024, 192)]
@@ -2918,16 +2959,19 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
 def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
     """Phase 15 (a), inside phase 12 while deepseek's weights live: the
     same weights as DTensors on the mesh (no copy), ``build_prefill``
-    and ``build_decode`` on phase 12's prompts: the MoE on its expert-
-    parallel path (the grouped kernel behind a one-rank all_to_all) in
-    the prefill, the single-device path in decode; logits and greedy
-    tokens against phase 12's, launches counted, times in turns."""
+    and ``build_decode`` on phase 12's prompts (the prefill's caches laid
+    out by ``shard_cache``): the MoE on its expert-parallel path (the
+    grouped kernel behind a one-rank all_to_all) in the prefill, on
+    ``apply_moe_decode`` (the whole batch onto the stored experts) in
+    decode, the latent cache read split-KV; logits and greedy tokens
+    against phase 12's, launches counted by body, times in turns."""
     from repro_torch.dist.collectives import distribute
     from repro_torch.dist.sharding import partition_params
     from repro_torch.models.config import ShapeSpec
     from repro_torch.models.params import is_spec, tree_leaves, tree_map
     from repro_torch.models.transformer import moe_mesh_layout
-    from repro_torch.serve.step import build_decode, build_prefill
+    from repro_torch.serve.step import build_decode, build_prefill, \
+        shard_cache
     from repro_torch.train.step import make_ctx
 
     cache_len = PROMPT_LEN + GEN_TOKENS
@@ -2942,7 +2986,7 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
     prefill, _, b_specs = build_prefill(
         res.model, cfg, ShapeSpec("prefill", cache_len, REQUESTS,
                                   "prefill"), mesh, tuner=res.tuner)
-    decode, _, _ = build_decode(
+    decode, _, (_, c_specs, _) = build_decode(
         res.model, cfg, ShapeSpec("decode", cache_len, REQUESTS, "decode"),
         mesh, tuner=res.tuner)
     batch = {"tokens": distribute(res.prompts, mesh, b_specs["tokens"])}
@@ -2957,6 +3001,7 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
         real_peak = torch.cuda.max_memory_allocated()
         toks = logits.argmax(-1)[:, None]
         gen = [toks]
+        cache = shard_cache(cache, mesh, c_specs)
         for i in range(GEN_TOKENS - 1):
             step_logits, cache = decode(sharded, toks, cache,
                                         PROMPT_LEN + i)
@@ -2970,17 +3015,19 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
         del cache
         want_pre = {"tiled": 3 * moe_layers, "thin": 0}
         want_dec = 3 * moe_layers * (GEN_TOKENS - 1)
+        dec_by = {k: n_all["grouped_by_variant"][k]
+                  - n_pre["grouped_by_variant"][k] for k in want_pre}
         print(f"[chip_smoke] mesh (a): deepseek on the (1, 1) mesh (MoE "
               f"path {path!r}, weights laid out without a copy: "
               f"{no_copy}): prefill grouped launches "
               f"{n_pre['grouped_by_variant']} (expected {want_pre}), "
-              f"decode {n_all['grouped'] - n_pre['grouped']} thin "
-              f"(expected {want_dec}), flash {n_all['flash']}, matmul "
+              f"decode {dec_by} (expected {want_dec} thin: "
+              f"apply_moe_decode), flash {n_all['flash']}, matmul "
               f"{n_all['matmul']}; prefill logits max rel err {rel:.3e} "
               f"(tol {MESH_TOL:g}) against phase 12's; {GEN_TOKENS} greedy "
               f"tokens the same: {same_tokens}")
         if path != "ep" or n_pre["grouped_by_variant"] != want_pre \
-                or n_all["grouped"] - n_pre["grouped"] != want_dec \
+                or dec_by != {"thin": want_dec, "tiled": 0} \
                 or n_all["flash"] or n_all["matmul"]:
             raise SystemExit("[chip_smoke] FAIL: the mesh path did not run "
                              "the grouped kernel as expected")
@@ -2998,7 +3045,7 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
                                                 pctx)[0],
             "mesh": lambda: prefill(sharded, batch)[0]}, torch, iters=2)
         _, c1 = res.model.prefill(res.params, res.prompts, pctx)
-        _, cm = prefill(sharded, batch)
+        cm = shard_cache(prefill(sharded, batch)[1], mesh, c_specs)
         tok = res.tokens[:, :1]
         decode_ms = in_turns({
             "single": lambda: res.model.decode_step(
@@ -3132,6 +3179,205 @@ def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
             "aux_abs_err": aux_err, "layer_ms": ms}
 
 
+def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (f), one model: ``arch`` at full width (cut to
+    ``n_layers``, or whole), random fp32 weights from a seed, prefilled
+    on the single device (4 x 1024), then MESH_DECODE_STEPS greedy steps
+    of the single-device decode and of ``serve.step.build_decode`` on
+    the mesh from the same caches (laid out by ``shard_cache``): the
+    mesh decode reads every attention cache split-KV, the dense blocks
+    through the tensor-parallel path and the MoE through
+    ``apply_moe_decode`` (the grouped kernel, counted by body); the same
+    greedy tokens, the logits within MESH_DECODE_TOL (absolute and
+    relative), warm steps
+    in turns, each path's device time a step (``torch.profiler``) and
+    the collectives a mesh step dispatches (``CommDebugMode``)."""
+    import dataclasses
+
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.step import _map_arrays, build_decode, \
+        shard_cache
+    from repro_torch.train.step import make_ctx
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    steps = MESH_DECODE_STEPS
+    cache_len = PROMPT_LEN + steps
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+                            generator=gen, device="cuda")
+    decode, p_specs, (_, c_specs, _) = build_decode(
+        model, cfg, ShapeSpec("decode", cache_len, REQUESTS, "decode"),
+        mesh)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+    dctx = make_ctx("decode", cache_len=cache_len)
+    moe_layers = sum(s.mlp == "moe" for s in model.plan)
+    with torch.inference_mode():
+        logits, cache1 = model.prefill(
+            params, prompts, make_ctx("prefill", cache_len=cache_len))
+        cache_m = shard_cache(_map_arrays(lambda t: t.clone(), cache1),
+                              mesh, c_specs)
+        tok1 = tokm = logits.argmax(-1, keepdim=True)
+        got1, gotm, want = [tok1], [tokm], []
+        for i in range(steps):
+            l1, cache1 = model.decode_step(params, tok1, cache1,
+                                           PROMPT_LEN + i, dctx)
+            tok1 = l1.argmax(-1, keepdim=True)
+            got1.append(tok1)
+            want.append(l1)
+        torch.cuda.synchronize()
+        reset_counts(M, fa, G)
+        errs = []
+        for i in range(steps):
+            lm, cache_m = decode(sharded, tokm, cache_m, PROMPT_LEN + i)
+            tokm = lm.argmax(-1, keepdim=True)
+            gotm.append(tokm)
+            errs.append(lm - want[i])
+        torch.cuda.synchronize()
+        n = kernel_counts(M, fa, G)
+        # while the tokens agree both paths step from the same token
+        err = max(e.abs().max().item() for e in errs)
+        scale = max(w.abs().max().item() for w in want)
+        # the largest |diff| - rtol |single|, within atol
+        over = max((e.abs() - MESH_DECODE_TOL * w.abs()).max().item()
+                   for e, w in zip(errs, want))
+        same = torch.equal(torch.cat(got1, 1), torch.cat(gotm, 1))
+        del errs, want
+        tok = got1[1]
+        fns = {"single": lambda: model.decode_step(params, tok, cache1,
+                                                   PROMPT_LEN, dctx)[0],
+               "mesh": lambda: decode(sharded, tok, cache_m,
+                                      PROMPT_LEN)[0]}
+        ms = in_turns(fns, torch, iters=5)
+        # device time a step, and the collectives a mesh step dispatches
+        traced = {k: trace_steps(f, torch) for k, f in fns.items()}
+        with CommDebugMode() as comm:
+            fns["mesh"]()
+        colls = {str(k).split(".")[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+    want = {"thin": 3 * moe_layers * steps, "tiled": 0}
+    print(f"[chip_smoke] mesh (f): {cfg.name} ({cfg.n_layers} layers) "
+          f"{steps} greedy steps of the mesh decode (split-KV caches, "
+          f"tensor-parallel blocks, apply_moe_decode) against the single "
+          f"device: the same tokens {same}; logits max |diff| "
+          f"{err:.3e} (max |logit| {scale:.3f}; max |diff| - rtol "
+          f"|logit| {over:.3e}, atol = rtol = {MESH_DECODE_TOL:g}); "
+          f"grouped launches {n['grouped_by_variant']} (expected {want}), "
+          f"flash {n['flash']}, matmul {n['matmul']}; warm step in turns "
+          f"single {ms['single']:.2f} ms, mesh {ms['mesh']:.2f} ms; device "
+          f"time a step single {traced['single']['device_ms']:.2f} ms, mesh "
+          f"{traced['mesh']['device_ms']:.2f} ms; collectives a mesh step "
+          f"{colls}")
+    if not (same and over <= MESH_DECODE_TOL):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode "
+                         "disagrees with the single-device decode")
+    if n["grouped_by_variant"] != want or n["flash"] or n["matmul"]:
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode did "
+                         "not run the grouped kernel as expected")
+    del params, sharded, cache1, cache_m
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
+            "same_tokens": same, "logits_max_abs_err": err,
+            "logits_max_abs": scale, "logits_over_rtol": over,
+            "tol": MESH_DECODE_TOL, "launches": n["grouped_by_variant"],
+            "step_ms": ms, "trace": traced, "collectives": colls}
+
+
+def combine_on_card(torch) -> dict:
+    """Phase 15 (f): ``softmax_combine_local`` over 4 and 16 chunks of a
+    32k cache (COMBINE_SHAPE: 4 x 32768 slots x 32 heads x 64, fp32,
+    valid through slot COMBINE_VALID: the last chunks have no valid
+    slot) against one softmax
+    over the whole cache (the single-device decode's arithmetic), max
+    |diff| / max |out| within COMBINE_TOL; times of each."""
+    from repro_torch.dist.collectives import softmax_combine_local
+    from repro_torch.models.layers import _decode_scores, _repeat_kv, \
+        decode_partial
+
+    b, n, h, d = COMBINE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda")
+    k = torch.randn((b, n, h, d), generator=gen, device="cuda")
+    v = torch.randn((b, n, h, d), generator=gen, device="cuda")
+    valid = (torch.arange(n, device="cuda") <= COMBINE_VALID)[None]
+
+    def whole():
+        probs = torch.softmax(_decode_scores(q, k, valid), dim=-1)
+        return torch.einsum("bhk,bkhd->bhd", probs, _repeat_kv(v, h))
+
+    def split(chunks):
+        return lambda: softmax_combine_local([
+            decode_partial(q, kc, vc, mc) for kc, vc, mc in zip(
+                k.tensor_split(chunks, 1), v.tensor_split(chunks, 1),
+                valid.tensor_split(chunks, 1))])
+
+    out = {}
+    with torch.inference_mode():
+        want = whole()
+        scale = want.abs().max().item()
+        out["whole_ms"] = cuda_ms(whole, iters=5, warmup=1)
+        for chunks in COMBINE_CHUNKS:
+            err = (split(chunks)() - want).abs().max().item() / scale
+            out[str(chunks)] = {"max_rel_err": err,
+                                "ms": cuda_ms(split(chunks), iters=5,
+                                              warmup=1)}
+    print(f"[chip_smoke] mesh (f): softmax_combine_local over a {b}x{n}x"
+          f"{h}x{d} cache against one softmax ({out['whole_ms']:.2f} ms): "
+          + ", ".join(f"{c} chunks max rel err "
+                      f"{out[str(c)]['max_rel_err']:.2e} in "
+                      f"{out[str(c)]['ms']:.2f} ms" for c in COMBINE_CHUNKS)
+          + f" (tol {COMBINE_TOL:g})")
+    if not all(out[str(c)]["max_rel_err"] <= COMBINE_TOL
+               for c in COMBINE_CHUNKS):
+        raise SystemExit("[chip_smoke] FAIL: the split softmax disagrees "
+                         "with one softmax")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_decode(art: Path, mesh, M, fa, G, torch) -> tuple[dict, dict]:
+    """Phase 15 (f): the decode on the reference's cache layout on the
+    one-rank mesh — stablelm-1.6b whole and mixtral-8x22b at
+    MIX_LAYERS layers (:func:`mesh_decode_model`; deepseek's runs in
+    (a)), the split softmax on the card (:func:`combine_on_card`), and
+    the grouped kernel at a rank's buckets of the production decode
+    (decode_32k on (16, 16), RANK_GROUPED_SHAPES) against its plain
+    version and ``torch.bmm``."""
+    from repro_torch.core import AdsalaTuner
+
+    out = {"stablelm": mesh_decode_model(ARCH, None, mesh, M, fa, G,
+                                         torch),
+           "mixtral": mesh_decode_model(MIX_ARCH, MIX_LAYERS, mesh, M, fa,
+                                        G, torch),
+           "combine": combine_on_card(torch)}
+    tuner = AdsalaTuner.from_artifact(str(art))
+    shapes = time_grouped(G, torch, tuner, RANK_GROUPED_SHAPES, seed=18)
+    for name, _, c, _, _ in RANK_GROUPED_SHAPES:
+        # C 40 > 16 takes the tiled body, deepseek's F 96 the thin one's
+        # masked edge
+        want = "tiled" if c > 16 else "thin"
+        if shapes[name]["variant"] != want:
+            raise SystemExit(f"[chip_smoke] FAIL: {name} took the "
+                             f"{shapes[name]['variant']} body")
+    # no path of this run gives these shapes: a one-rank mesh routes the
+    # whole batch onto every expert at the single-device buckets
+    entry = {"shapes": shapes, "launches": 0,
+             "launches_by_variant": {"thin": 0, "tiled": 0},
+             "note": "a rank's bucket of decode_32k on a (16, 16) mesh: "
+                     "no path of a one-rank mesh launches it"}
+    return out, entry
+
+
 def phase_dryrun(torch) -> dict:
     """Phase 16 (a): ``python -m repro_torch.launch.dryrun --device cuda
     --mesh single`` in subprocesses (a fake world is global to its
@@ -3257,6 +3503,19 @@ def phase_dryrun(torch) -> dict:
     if not all(TP_RATIO[0] <= r <= TP_RATIO[1] for r in tp_ratios.values()):
         raise SystemExit("[chip_smoke] FAIL: a rank of the dry run does not "
                          "compute its share of stablelm's cells")
+    # the decode on the reference's cache layout: its share of the FLOPs,
+    # and a rank's peak inside the card
+    decode_ratio = by_cell["stablelm-1.6b", "decode_32k"]["flops_ratio"]
+    decode_peaks = {arch: by_cell[arch, "decode_32k"]["peak_gib"]
+                    for arch in ("stablelm-1.6b", "mixtral-8x22b")}
+    print(f"[chip_smoke] dry run (a): stablelm decode_32k FLOPs a rank "
+          f"against step_flops / 256: {decode_ratio:.3f} (expected "
+          f"{DECODE_RATIO[0]}-{DECODE_RATIO[1]}); decode_32k peaks a rank "
+          f"{decode_peaks} GiB (under {CARD_GIB})")
+    if not (DECODE_RATIO[0] <= decode_ratio <= DECODE_RATIO[1]
+            and all(p < CARD_GIB for p in decode_peaks.values())):
+        raise SystemExit("[chip_smoke] FAIL: a rank of the dry run's decode "
+                         "does not compute its share or fit the card")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))
@@ -3442,8 +3701,14 @@ def main() -> int:
         t1 = time.perf_counter()
         mesh_out["mixtral_tp"] = mesh_mixtral_tp(mesh, mm, fa, gm, torch)
         mesh_out["mixtral_tp_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        mesh_out["decode"], rank_grouped = mesh_decode(art, mesh, mm, fa,
+                                                       gm, torch)
+        mesh_out["decode_s"] = time.perf_counter() - t1
+        print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s")
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
-    deepseek["phase_s"] = time.perf_counter() - t0 - mesh_out["mixtral_tp_s"]
+    deepseek["phase_s"] = (time.perf_counter() - t0
+                           - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"])
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
@@ -3492,10 +3757,12 @@ def main() -> int:
     # entry) and the largest cube, the grouped kernel at mixtral's decode
     # bucket (the main entry: 180 of its 192 launches) and prefill bucket,
     # and at deepseek-v2's four buckets with the launches of deepseek's
-    # path (no main entry there)
+    # path (no main entry there), and at a rank's four buckets of the
+    # production decode with none (no path here gives those shapes)
     # the grouped kernel's launches on the mesh paths (phase 15)
     grouped_entry["mesh_launches"] = {
-        "mixtral_tp_call": mesh_out["mixtral_tp"]["launches"]}
+        "mixtral_tp_call": mesh_out["mixtral_tp"]["launches"],
+        "mixtral_mesh_decode": mesh_out["decode"]["mixtral"]["launches"]}
     ds_grouped["mesh_launches"] = {
         "deepseek_prefill_ep": mesh_out["deepseek"]["prefill_launches"],
         "deepseek_decode": mesh_out["deepseek"]["decode_launches"]}
@@ -3507,6 +3774,9 @@ def main() -> int:
              grouped_errs, "mixtral_decode"),
             ("grouped_matmul", "grouped_matmul.cu",
              "src/repro/kernels/grouped_matmul.py:51", ds_grouped,
+             grouped_errs, None),
+            ("grouped_matmul", "grouped_matmul.cu",
+             "src/repro/kernels/grouped_matmul.py:51", rank_grouped,
              grouped_errs, None)):
         for key in sorted(entry["shapes"], key=lambda k: k != main):
             row = entry["shapes"][key]
@@ -3525,6 +3795,7 @@ def main() -> int:
                    if "launches_by_variant" in entry else {}),
                 **({"mesh_launches": entry["mesh_launches"]}
                    if "mesh_launches" in entry else {}),
+                **({"note": entry["note"]} if "note" in entry else {}),
                 **({"case_max_abs_err": errs_} if key == main else {}),
                 **{k: v for k, v in row.items()
                    if k in ("cta", "k_step", "group", "ms_by_tile")}})

@@ -37,6 +37,14 @@ of the rank's vocab range, summed over the group), :func:`vocab_logz`
 and the sum of exponentials over the group) and :func:`vocab_gold` (the
 label's logit, held by one rank, summed over the group).
 
+A decode step reads a cache cut on its sequence over 'model' as a
+split softmax (split-KV): each rank attends over its own slots and
+:func:`softmax_combine` merges the ranks' partial outputs;
+:func:`softmax_combine_local` is its collective-free twin over a list
+of chunks.  Neither has a gradient (a decode runs under ``no_grad``).
+:func:`gather_rows` joins the ranks' rows of a batch over the axes
+that cut it, :func:`row_index` gives a rank's place in that order.
+
 :func:`local_at` moves a DTensor (or a full tensor, taken as
 replicated) to the placements a computation wants and returns the local
 piece, differentiably, without a copy where only mesh dims of size 1
@@ -53,13 +61,19 @@ import torch.distributed as dist
 
 __all__ = ["all_to_all", "copy_to", "reduce_from", "pmean", "all_gather",
            "TPGroup", "vocab_embed", "vocab_logz", "vocab_gold",
-           "local_at", "local_rows", "distribute", "replicated",
-           "partial_over", "axis_size"]
+           "softmax_combine", "softmax_combine_local", "gather_rows",
+           "row_index", "local_at", "local_rows", "rows_placements",
+           "relay_rows", "distribute", "replicated", "partial_over",
+           "axis_size"]
 
 
 def axis_size(mesh, axis: str) -> int:
-    """The size of one named mesh axis."""
-    return int(mesh.size(list(mesh.mesh_dim_names).index(axis)))
+    """The size of one named mesh axis (of a torch ``DeviceMesh`` or a
+    :class:`~repro_torch.dist.sharding.MeshShape`)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return int(mesh.shape[axis])
+    return int(mesh.size(list(names).index(axis)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +247,65 @@ def vocab_gold(logits: torch.Tensor, labels: torch.Tensor, tp: TPGroup
     return reduce_from(gold, tp.group)
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: a decode step runs "
+                           "under torch.no_grad()")
+
+
+def softmax_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    group) -> torch.Tensor:
+    """The softmax-weighted output over the slots of every rank of
+    ``group`` from each rank's partial over its own slots: ``o`` (...,
+    Dv) the fp32 sum of exp(score - m) x value, not normalised, ``m``
+    (...) the max score, ``l`` (...) the sum of exp(score - m).
+
+    M is the max of ``m`` over the group; o·exp(m - M) and l·exp(m - M)
+    are summed over it (one all-reduce), then divided.  A rank whose
+    slots are all masked (m = -1e30, the decode's mask value) weighs
+    exp(m - M) = 0 beside any rank with a valid slot.  The division
+    comes after the value product, so one rank is not bitwise
+    ``torch.softmax``'s result.  No gradient: raises under grad.
+    """
+    _refuse_grad("softmax_combine", o, m, l)
+    top = m.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m - top)
+    both = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    return both[..., :-1] / both[..., -1:]
+
+
+def softmax_combine_local(parts: Sequence[tuple]) -> torch.Tensor:
+    """:func:`softmax_combine` over a list of ``(o, m, l)`` partials of
+    one tensor's chunks, with no collective."""
+    _refuse_grad("softmax_combine_local", *(t for p in parts for t in p))
+    top = parts[0][1]
+    for _, m, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    num = sum(o * torch.exp(m - top)[..., None] for o, m, _ in parts)
+    den = sum(l * torch.exp(m - top) for _, m, l in parts)
+    return num / den[..., None]
+
+
+def row_index(mesh, axes: Sequence[str]) -> int:
+    """This rank's block of a batch cut over ``axes`` (mesh order, the
+    first outermost): the batch's rows ``[i * b_loc, (i + 1) * b_loc)``."""
+    i = 0
+    for a in axes:
+        i = i * axis_size(mesh, a) + int(mesh.get_local_rank(a))
+    return i
+
+
+def gather_rows(x: torch.Tensor, mesh, axes: Sequence[str]
+                ) -> torch.Tensor:
+    """The whole batch from each rank's rows ``x`` (dim 0) cut over
+    ``axes``, in the batch's order (:func:`row_index`)."""
+    for a in reversed(tuple(axes)):
+        x = all_gather(x, mesh.get_group(a), dim=0)
+    return x
+
+
 def _same_layout(mesh, a: Sequence, b: Sequence) -> bool:
     """Do two placement lists cut the tensor alike (a mesh dim of size 1
     cuts nothing, whatever its placement)?"""
@@ -280,13 +353,11 @@ def local_rows(t: torch.Tensor) -> torch.Tensor:
     also cut a wider dim over 'model', as the audio frame embeddings'
     does, where the computation wants the rows whole).  A plain tensor
     passes unchanged."""
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor
 
     if not isinstance(t, DTensor):
         return t
-    rows = tuple(p if not p.is_shard() or p.dim == 0 else Replicate()
-                 for p in t.placements)
-    return local_at(t, t.device_mesh, rows)
+    return local_at(t, t.device_mesh, rows_placements(t.placements))
 
 
 def distribute(t: torch.Tensor, mesh, spec: tuple):
@@ -300,3 +371,25 @@ def distribute(t: torch.Tensor, mesh, spec: tuple):
     placements = to_placements(spec, mesh)
     return DTensor.from_local(local_at(t, mesh, placements).contiguous(),
                               mesh, placements, run_check=False)
+
+
+def rows_placements(placements: Sequence) -> tuple:
+    """``placements`` with every cut but that of dim 0 (the rows)
+    replaced by ``Replicate``: the layout :func:`local_rows` gives."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if not p.is_shard() or p.dim == 0 else Replicate()
+                 for p in placements)
+
+
+def relay_rows(rows: torch.Tensor, mesh, placements: Sequence):
+    """The DTensor laid out by ``placements`` from this rank's rows
+    ``rows`` of it (cut on dim 0 as ``placements`` cut it, whole along
+    the other dims): each rank keeps its piece of the rows, with no
+    communication (:func:`local_rows`'s inverse)."""
+    from torch.distributed.tensor import DTensor
+
+    at = DTensor.from_local(rows, mesh, rows_placements(placements),
+                            run_check=False)
+    return DTensor.from_local(local_at(at, mesh, placements).contiguous(),
+                              mesh, tuple(placements), run_check=False)

@@ -124,6 +124,17 @@ def _tensors(tree: Any) -> list[torch.Tensor]:
     return out
 
 
+def _cell_tensors(tree: Any) -> list[torch.Tensor]:
+    """The local tensors of a cell's inputs or outputs, the fields of
+    the cache dataclasses included."""
+    from repro_torch.serve.step import _map_arrays
+
+    out: list[torch.Tensor] = []
+    _map_arrays(lambda t: out.append(
+        t.to_local() if isinstance(t, DTensor) else t), tree)
+    return out
+
+
 def _nbytes(tensors: list[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -231,40 +242,13 @@ def fake_dtensor(shape, dtype: torch.dtype, spec: tuple, mesh,
                               .stride())
 
 
-def _zip_map(fn, tree: Any, specs: Any) -> Any:
-    """``fn(tensor, spec)`` on every tensor of ``tree`` and its spec in
-    ``specs``, a tree of the same structure (dicts, lists, the cache
-    dataclasses)."""
-    import dataclasses
-
-    if isinstance(tree, torch.Tensor):
-        return fn(tree, specs)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{
-            f.name: _zip_map(fn, getattr(tree, f.name),
-                             getattr(specs, f.name))
-            for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)})
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
-    return tree
-
-
 def lay_out(tree: Any, specs: Any, mesh, device: str) -> Any:
     """``meta`` stand-ins -> fake DTensors laid out by the spec tree."""
-    return _zip_map(lambda t, spec: fake_dtensor(t.shape, t.dtype, spec,
-                                                 mesh, device), tree, specs)
+    from repro_torch.serve.step import _map_arrays
 
-
-def _rows_of(tree: Any, specs: Any, mesh, device: str) -> Any:
-    """This rank's rows of a cache tree: each tensor cut on its batch
-    dim as its spec cuts it, whole along the others, as plain tensors."""
-    def rows(t, spec):
-        spec = (spec[0],) + (None,) * (t.ndim - 1) if t.ndim else ()
-        return fake_dtensor(t.shape, t.dtype, spec, mesh, device).to_local()
-    return _zip_map(rows, tree, specs)
+    return _map_arrays(lambda t, spec: fake_dtensor(t.shape, t.dtype, spec,
+                                                    mesh, device),
+                       tree, specs)
 
 
 def build_cell(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
@@ -298,13 +282,12 @@ def build_cell(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
         fn, p_specs, (t_spec, c_specs, _) = build_decode(
             model, cfg, shape, mesh)
         token, cache, _ = decode_inputs_sds(model, cfg, shape, dtype)
-        # the port's decode takes this rank's rows of the caches, whole
-        # along the other dims (the prefill's output), and reads its
-        # position on the host: the stand-in is the cache's last slot
+        # the port's decode reads its position on the host: the stand-in
+        # is the cache's last slot
         args = (lay_out(abstract_params(model.defs, dtype), p_specs, mesh,
                         device),
                 lay_out(token, t_spec, mesh, device),
-                _rows_of(cache, c_specs, mesh, device),
+                lay_out(cache, c_specs, mesh, device),
                 shape.seq_len - 1)
     return fn, args
 
@@ -316,14 +299,14 @@ def trace_cell(fn, args: tuple, device: str) -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
 
     mode = TraceMode(torch.device(device).type)
-    inputs = _tensors(args)
+    inputs = _cell_tensors(args)
     mode.track(inputs)
     argument_bytes = mode.live_bytes
     t0 = time.perf_counter()
     with DispatchRecorder() as rec, CommDebugMode() as comm, mode:
         out = fn(*args)
     trace_s = time.perf_counter() - t0
-    outs = [t for t in _tensors(out)
+    outs = [t for t in _cell_tensors(out)
             if t.device.type == mode.device_type]
     output_bytes = sum(
         st.nbytes() for st in {id(t.untyped_storage()): t.untyped_storage()

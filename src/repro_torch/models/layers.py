@@ -15,13 +15,16 @@ TPGroup` of the 'model' axis): :func:`attention_train` and
 :func:`apply_mlp` then run on this rank's shard of the weights, the
 whole heads of its range and its slice of the FF width, between
 ``copy_to`` on the block's input and ``reduce_from`` on its output
-(Megatron's f and g), as GSPMD partitions the reference's.  The
-recorder's events keep the global widths.
+(Megatron's f and g), as GSPMD partitions the reference's;
+:func:`attention_decode` too, and it reads a cache cut on its sequence
+(:class:`SplitKV`) as a split softmax.  The recorder's events keep the
+global widths.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +39,9 @@ __all__ = [
     "rope_angles", "apply_rope",
     "attention_defs", "attention_train", "attention_decode",
     "chunked_attention_xla", "kv_range", "tp_heads", "kv_heads_whole",
-    "attention_decode_paged", "AttnSpec", "KVCache", "init_kv_cache", "seed_kv_cache",
+    "attention_decode_paged", "decode_partial", "softmax_parts",
+    "AttnSpec", "KVCache", "SplitKV", "CacheSlots", "cache_slots",
+    "init_kv_cache", "seed_kv_cache",
 ]
 
 _NEG_INF = -1e30
@@ -433,28 +438,129 @@ def seed_kv_cache(k: torch.Tensor, v: torch.Tensor, capacity: int, *,
     return cache
 
 
+def _decode_scores(q: torch.Tensor, k: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """fp32 scores (B, H, n) of one query a head, q (B, 1, H, Dh), over
+    slots k (B, n, Hkv, Dh), scaled by Dh^-0.5 and masked to -1e30 where
+    ``valid`` (1 or B, n) is false."""
+    kk = _repeat_kv(k, q.shape[2])
+    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
+                          kk.float()) * (q.shape[-1] ** -0.5)
+    return torch.where(valid[:, None, :], scores, _NEG_INF)
+
+
+def softmax_parts(scores: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(exp(scores - m), m, l) of scores (..., n): the row max m and the
+    row sum l of the exponentials, for a split softmax."""
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    return e, m, e.sum(dim=-1)
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One query a head over a chunk of the cache's slots, as a partial
+    softmax: q (B, 1, H, Dh), k / v (B, n, Hkv, Dh), ``valid`` (1 or B,
+    n) -> (o (B, H, Dh) fp32, not normalised; m (B, H) the max score;
+    l (B, H) the sum of exponentials), for
+    :func:`~repro_torch.dist.collectives.softmax_combine`.  The scores
+    are the single-device decode's (:func:`_decode_scores`)."""
+    e, m, l = softmax_parts(_decode_scores(q, k, valid))
+    o = torch.einsum("bhk,bkhd->bhd", e, _repeat_kv(v, q.shape[2]).float())
+    return o, m, l
+
+
+def _decode_out(p: dict, x: torch.Tensor, s: AttnSpec, out: torch.Tensor,
+                tuner, tp=None) -> torch.Tensor:
+    """The output projection of the attention ``out`` (B, H, Dh) of every
+    head; with ``tp`` the rank's heads through its rows of ``wo``,
+    summed over the group."""
+    b = x.shape[0]
+    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
+                site="attn.out_proj")
+    if tp is not None:
+        per = s.n_heads // tp.size
+        out = out[:, tp.rank * per:(tp.rank + 1) * per]
+    y = linear(out.reshape(b, 1, -1).to(x.dtype), p["wo"])
+    return y if tp is None else C.reduce_from(y, tp.group)
+
+
 def _decode_attend(p: dict, x: torch.Tensor, s: AttnSpec, q: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-                   tuner) -> torch.Tensor:
+                   tuner, tp=None) -> torch.Tensor:
     """The one-token attention both decode paths share: q (B, 1, H, Dh)
     over k, v (B, cap, Hkv, Dh) with ``valid`` (1 or B, cap) masking the
     slots it may read, then the output projection."""
-    b = x.shape[0]
-    kk = _repeat_kv(k, s.n_heads)
-    vv = _repeat_kv(v, s.n_heads)
-    scores = torch.einsum("bohd,bkhd->bhk", q.float(),
-                          kk.float()) * (s.head_dim ** -0.5)
-    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", probs, vv.float())
-    out = out.reshape(b, 1, s.n_heads * s.head_dim).to(x.dtype)
-    ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
-                site="attn.out_proj")
-    return linear(out, p["wo"])
+    probs = torch.softmax(_decode_scores(q, k, valid), dim=-1)
+    out = torch.einsum("bhk,bkhd->bhd", probs,
+                       _repeat_kv(v, s.n_heads).float())
+    return _decode_out(p, x, s, out, tuner, tp)
 
 
-def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
-                     pos: int, tuner=None) -> tuple[torch.Tensor, KVCache]:
+@dataclasses.dataclass
+class SplitKV:
+    """A decode cache cut on its sequence (dim 1 of each of its tensors)
+    over ``tp``'s group: ``cache`` (a :class:`KVCache` or an MLA latent
+    cache) holds this rank's slots ``[tp.rank * n, (tp.rank + 1) * n)``
+    of ``tp.size * n``.  The decode reads it split-KV: each rank attends
+    over its own slots and the partial softmaxes are combined."""
+    cache: Any
+    tp: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSlots:
+    """Where a decode cache's slots lie: this rank holds the global slots
+    ``[lo, lo + n)`` of ``cap``."""
+    lo: int
+    n: int
+    cap: int
+
+    def local(self, slot: int) -> int | None:
+        """The local index of global ``slot``, or None where another rank
+        holds it (this rank then writes nothing)."""
+        here = slot - self.lo
+        return here if 0 <= here < self.n else None
+
+    def ids(self, device) -> torch.Tensor:
+        """The global ids of this rank's slots, on which the masks are
+        computed."""
+        return self.lo + torch.arange(self.n, device=device)
+
+
+def cache_slots(cache) -> tuple[Any, CacheSlots]:
+    """(the cache a decode step reads and writes, its slots): a
+    :class:`SplitKV`'s local piece and its place in the whole cache, or
+    any other cache (a :class:`KVCache`, an MLA latent cache) with every
+    slot."""
+    local = cache.cache if isinstance(cache, SplitKV) else cache
+    n = getattr(local, dataclasses.fields(local)[0].name).shape[1]
+    if isinstance(cache, SplitKV):
+        return local, CacheSlots(cache.tp.rank * n, n, cache.tp.size * n)
+    return local, CacheSlots(0, n, n)
+
+
+def _decode_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
+                positions: torch.Tensor, tuner, tp
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B, 1, H, Dh) and the new k, v (B, 1, Hkv, Dh) of every head;
+    with ``tp`` projected on the rank's heads (as :func:`attention_train`
+    does) and gathered over the group."""
+    if tp is None:
+        return _project_qkv(p, x, s, positions, tuner)
+    local, lo, hi, _ = tp_heads(s, tp)
+    if s.n_kv_heads % tp.size:
+        cols = slice(lo * s.head_dim, hi * s.head_dim)
+        p = {**p, "wk": p["wk"][:, cols], "wv": p["wv"][:, cols]}
+    q, k, v = _project_qkv(p, x, s, positions, tuner, local)
+    return (C.all_gather(q, tp.group, dim=2), kv_heads_whole(k, s, tp),
+            kv_heads_whole(v, s, tp))
+
+
+def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
+                     pos: int, tuner=None, tp=None):
     """One-token decode: x (B, 1, D); ``pos`` = tokens so far.
 
     The cache update is tagged routine="trsm" as in the reference (a
@@ -464,35 +570,52 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache: KVCache,
     array, the new row is written into ``cache`` in place, and the same
     cache is returned; an int8 cache takes the quantised row and its
     scales in place too, and attends over the dequantised cache.
+
+    On a mesh: with ``tp`` (H divisible by its size) q, k and v are
+    projected on the rank's heads and gathered, and the output leaves
+    through the rank's rows of ``wo`` (Megatron's g); a
+    :class:`SplitKV` cache is read split-KV: the rank that holds the
+    written slot writes it, each rank attends every head over its own
+    slots (the mask on global slot ids), and
+    :func:`~repro_torch.dist.collectives.softmax_combine` merges them.
     """
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, s, positions, tuner)
-    cap = cache.k.shape[1]
+    q, k_new, v_new = _decode_qkv(p, x, s, positions, tuner, tp)
+    kv, slots = cache_slots(cache)
+    cap = slots.cap
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
                 routine="trsm", site="attn.cache_update")
-    slot = int(pos) % cap if cache.windowed else min(int(pos), cap - 1)
-    if cache.quantized:
-        kq, ks = _quantize_kv(k_new)
-        vq, vs = _quantize_kv(v_new)
-        cache.k[:, slot] = kq[:, 0]
-        cache.v[:, slot] = vq[:, 0]
-        cache.k_scale[:, slot] = ks[:, 0]
-        cache.v_scale[:, slot] = vs[:, 0]
-        k = _dequantize_kv(cache.k, cache.k_scale, x.dtype)
-        v = _dequantize_kv(cache.v, cache.v_scale, x.dtype)
+    slot = int(pos) % cap if kv.windowed else min(int(pos), cap - 1)
+    here = slots.local(slot)
+    if kv.quantized:
+        if here is not None:
+            kq, ks = _quantize_kv(k_new)
+            vq, vs = _quantize_kv(v_new)
+            kv.k[:, here] = kq[:, 0]
+            kv.v[:, here] = vq[:, 0]
+            kv.k_scale[:, here] = ks[:, 0]
+            kv.v_scale[:, here] = vs[:, 0]
+        k = _dequantize_kv(kv.k, kv.k_scale, x.dtype)
+        v = _dequantize_kv(kv.v, kv.v_scale, x.dtype)
     else:
-        cache.k[:, slot] = k_new[:, 0]
-        cache.v[:, slot] = v_new[:, 0]
-        k, v = cache.k, cache.v
+        if here is not None:
+            kv.k[:, here] = k_new[:, 0]
+            kv.v[:, here] = v_new[:, 0]
+        k, v = kv.k, kv.v
 
-    kv_ids = torch.arange(cap, device=x.device)
-    if cache.windowed:
+    kv_ids = slots.ids(x.device)
+    if kv.windowed:
         # ring buffer: valid slots are the last min(pos+1, cap) writes
         valid = (slot - kv_ids) % cap < min(int(pos) + 1, cap)
     else:
         valid = kv_ids <= pos
-    return _decode_attend(p, x, s, q, k, v, valid[None, :], tuner), cache
+    if not isinstance(cache, SplitKV):
+        return _decode_attend(p, x, s, q, k, v, valid[None, :], tuner,
+                              tp), cache
+    out = C.softmax_combine(*decode_partial(q, k, v, valid[None, :]),
+                            cache.tp.group)
+    return _decode_out(p, x, s, out, tuner, tp), cache
 
 
 def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,

@@ -14,7 +14,8 @@ q/k have qk_nope + qk_rope dims and v has v_head_dim, which the flash
 kernel does not take.  Unlike the reference, whose
 ``dynamic_update_slice`` returns new arrays, :func:`mla_decode` writes
 the new latent row into the cache in place and returns the same cache,
-as :func:`layers.attention_decode` does.
+as :func:`layers.attention_decode` does; on a mesh it reads a latent
+cache cut on its sequence split-KV, as that function does.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
+    softmax_parts,
     chunked_attention_xla,
     linear,
     rmsnorm,
@@ -184,6 +186,36 @@ def seed_mla_cache(c_kv: torch.Tensor, k_rope: torch.Tensor,
     return cache
 
 
+def _absorbed_scores(p: dict, s: MLASpec, q: torch.Tensor,
+                     c_kv32: torch.Tensor, k_rope: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """fp32 scores (B, H, n) of q (B, 1, H, qk_head_dim) over the latent
+    slots c_kv32 (B, n, R_kv, fp32) and k_rope (B, n, R_rope), masked to
+    -1e30 where ``valid`` (1 or B, n) is false.
+
+    Absorbed-projection trick: q_nope is absorbed through wk_b, so the
+    cache is never decompressed to per-head K."""
+    q_nope = q[..., : s.qk_nope_dim]       # (B, 1, H, nope)
+    q_rope = q[..., s.qk_nope_dim:]        # (B, 1, H, rope)
+    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
+    q_lat = torch.einsum("bohd,rhd->bhr", q_nope.float(), wk_b.float())
+    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, c_kv32)
+    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * (s.qk_head_dim ** -0.5)
+    return torch.where(valid[:, None, :], scores, _NEG_INF)
+
+
+def _absorbed_out(p: dict, x: torch.Tensor, s: MLASpec,
+                  o_lat: torch.Tensor) -> torch.Tensor:
+    """The attention output in latent space o_lat (B, H, R_kv) out
+    through wv_b per head, then the output projection."""
+    b = x.shape[0]
+    wv_b = p["wv_b"].reshape(s.kv_lora_rank, s.n_heads, s.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b.float())
+    out = out.reshape(b, 1, s.n_heads * s.v_head_dim).to(x.dtype)
+    return linear(out, p["wo"])
+
+
 def _absorbed_attend(p: dict, x: torch.Tensor, s: MLASpec,
                      q: torch.Tensor, c_kv: torch.Tensor,
                      k_rope: torch.Tensor,
@@ -191,49 +223,52 @@ def _absorbed_attend(p: dict, x: torch.Tensor, s: MLASpec,
     """The one-token attention both decode paths share, in latent space:
     q (B, 1, H, qk_head_dim) over c_kv (B, cap, R_kv) and k_rope (B, cap,
     R_rope) with ``valid`` (1 or B, cap) masking the slots it may read,
-    then the output projection.
-
-    Absorbed-projection trick: q_nope is absorbed through wk_b, so the
-    cache is never decompressed to per-head K/V; the output leaves
-    latent space through wv_b per head."""
-    b = x.shape[0]
-    q_nope = q[..., : s.qk_nope_dim]       # (B, 1, H, nope)
-    q_rope = q[..., s.qk_nope_dim:]        # (B, 1, H, rope)
-    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
-    q_lat = torch.einsum("bohd,rhd->bhr", q_nope.float(), wk_b.float())
+    then the output projection (:func:`_absorbed_out`)."""
     c_kv32 = c_kv.float()
-    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, c_kv32)
-    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
-    scores = (s_lat + s_rope) * (s.qk_head_dim ** -0.5)
-    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(_absorbed_scores(p, s, q, c_kv32, k_rope, valid),
+                          dim=-1)
     o_lat = torch.einsum("bhk,bkr->bhr", probs, c_kv32)
-    wv_b = p["wv_b"].reshape(s.kv_lora_rank, s.n_heads, s.v_head_dim)
-    out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b.float())
-    out = out.reshape(b, 1, s.n_heads * s.v_head_dim).to(x.dtype)
-    return linear(out, p["wo"])
+    return _absorbed_out(p, x, s, o_lat)
 
 
-def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache: MLACache,
-               pos: int, tuner=None) -> tuple[torch.Tensor, MLACache]:
+def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache,
+               pos: int, tuner=None):
     """One-token decode against the latent cache: x (B, 1, D); ``pos`` =
     tokens so far.  The new latent row is written into ``cache`` in
     place (slot ``min(pos, cap - 1)``, where the reference's
-    ``dynamic_update_slice`` clamps), and the same cache is returned."""
+    ``dynamic_update_slice`` clamps), and the same cache is returned.
+
+    A :class:`~repro_torch.models.layers.SplitKV` cache (the latent
+    cache cut on its sequence over 'model') is read split-KV: the rank
+    that holds the slot writes the row, each rank's absorbed scores and
+    latent output over its own slots are a partial softmax, merged by
+    :func:`~repro_torch.dist.collectives.softmax_combine` before wv_b
+    decompresses.  The weights are whole on every rank."""
+    from repro_torch.dist.collectives import softmax_combine
+    from repro_torch.models.layers import SplitKV, cache_slots
+
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
     q, c_kv_new, k_rope_new = _latents(p, x, s, positions, tuner)
-    cap = cache.c_kv.shape[1]
+    lat, slots = cache_slots(cache)
     # latent cache update: sequential append + triangular-prefix read,
     # TRSM-adjacent exactly like the GQA KV cache update
-    ops.observe(cap, s.kv_lora_rank, b * s.n_heads,
+    ops.observe(slots.cap, s.kv_lora_rank, b * s.n_heads,
                 tuner, routine="trsm", site="mla.cache_update")
-    slot = min(int(pos), cap - 1)
-    cache.c_kv[:, slot] = c_kv_new[:, 0]
-    cache.k_rope[:, slot] = k_rope_new[:, 0]
-    valid = torch.arange(cap, device=x.device) <= pos
-    return _absorbed_attend(p, x, s, q, cache.c_kv, cache.k_rope,
-                            valid[None, :]), cache
+    here = slots.local(min(int(pos), slots.cap - 1))
+    if here is not None:
+        lat.c_kv[:, here] = c_kv_new[:, 0]
+        lat.k_rope[:, here] = k_rope_new[:, 0]
+    valid = (slots.ids(x.device) <= pos)[None, :]
+    if not isinstance(cache, SplitKV):
+        return _absorbed_attend(p, x, s, q, lat.c_kv, lat.k_rope,
+                                valid), cache
+    c_kv32 = lat.c_kv.float()
+    e, m, l = softmax_parts(_absorbed_scores(p, s, q, c_kv32, lat.k_rope,
+                                              valid))
+    o_lat = softmax_combine(torch.einsum("bhk,bkr->bhr", e, c_kv32), m, l,
+                            cache.tp.group)
+    return _absorbed_out(p, x, s, o_lat), cache
 
 
 def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,

@@ -16,7 +16,10 @@ grouped_matmul` dispatches (sites ``moe.wi`` / ``moe.wg`` /
 same kernel runs on each rank's local experts: behind an expert-axis
 ``all_to_all`` in :func:`apply_moe_ep`, or on an FF slice of every
 expert ahead of one all-reduce in :func:`apply_moe_tp`; the
-collectives' gradients follow :mod:`repro_torch.dist.collectives`.
+collectives' gradients follow :mod:`repro_torch.dist.collectives`.  A
+decode step on a mesh (:func:`apply_moe_decode`) routes the whole
+batch, as the reference's one-hot path does under GSPMD, and runs each
+rank's stored experts and FF slice.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from repro_torch.models.layers import linear
 from repro_torch.models.params import ParamDef
 
 __all__ = ["MoESpec", "moe_defs", "apply_moe", "apply_moe_ep",
-           "apply_moe_tp", "is_expert_weight"]
+           "apply_moe_tp", "apply_moe_decode", "is_expert_weight"]
 
 #: the expert weights, which a mesh path lays out by expert (EP) or by
 #: FF slice (TP); the router and the shared experts are replicated
@@ -258,3 +261,67 @@ def apply_moe_tp(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
     if s.n_shared:
         out = out + _shared_ffn(p, xf, tuner)
     return out.reshape(b, sl, d), aux
+
+
+def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
+                     mesh, row_axes: tuple, backend: str = "auto"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE of a decode step on ``mesh``: ``x`` is this rank's rows
+    (B_loc, S, D) of a batch cut over ``row_axes`` (whole over the
+    others), the expert weights are as stored (DTensors: the experts cut
+    over the data axes, their FF width over 'model'; a plain tensor is
+    whole), the router and the shared experts whole.
+
+    The reference runs its one-hot ``apply_moe`` on the global batch
+    under GSPMD, so its capacity and each expert's (token, choice) order
+    count every row.  Here the rows are gathered over ``row_axes`` and
+    routed and dispatched as one batch (the same buckets); each rank
+    runs the grouped GEMMs on its own experts and FF slice, combines
+    what they give every token, the partial outputs are summed over the
+    mesh axes that cut the experts or FF, and the rank keeps its rows.
+    No weight moves.
+    """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import collectives as C
+
+    b_loc, sl, d = x.shape
+    xf = C.gather_rows(x, mesh, row_axes).reshape(-1, d)
+    n_tok = xf.shape[0]
+    cap = s.capacity(n_tok)
+    gate_vals, gate_idx, aux = _route(p, xf, s)
+    buckets, dest, order, valid = _dispatch(xf, gate_idx, s, cap)
+
+    names = tuple(mesh.mesh_dim_names)
+    cuts, w = set(), {}
+    for k in EXPERT_WEIGHTS:
+        t = p[k]
+        if isinstance(t, DTensor):
+            cuts |= {names[i] for i, pl in enumerate(t.placements)
+                     if pl.is_shard() and mesh.size(i) > 1}
+            t = t.to_local()
+        w[k] = t
+    e_loc = w["wi"].shape[0]
+    e0 = 0
+    if e_loc < s.n_experts:
+        by = [names[i] for i, pl in enumerate(p["wi"].placements)
+              if pl.is_shard(0) and mesh.size(i) > 1]
+        e0 = C.row_index(mesh, by) * e_loc
+    mine = buckets[e0:e0 + e_loc]
+    hi = ops.grouped_matmul(mine, w["wi"], tuner=tuner, site="moe.wi",
+                            backend=backend)
+    hg = ops.grouped_matmul(mine, w["wg"], tuner=tuner, site="moe.wg",
+                            backend=backend)
+    y = ops.grouped_matmul(F.silu(hg) * hi, w["wo"], tuner=tuner,
+                           site="moe.wo", backend=backend)
+    y = F.pad(y, (0, 0, 0, 0, e0, s.n_experts - e0 - e_loc))
+    out = _combine(y, dest, order, valid, gate_vals, n_tok, s)
+    for a in names:
+        if a in cuts:
+            out = C.reduce_from(out, mesh.get_group(a))
+    i = C.row_index(mesh, row_axes)
+    out = out.reshape(-1, sl, d)[i * b_loc:(i + 1) * b_loc]
+    if s.n_shared:
+        out = out + _shared_ffn(p, x.reshape(-1, d), tuner).reshape(
+            b_loc, sl, d)
+    return out, aux

@@ -19,13 +19,15 @@ table, decode reads and writes per-layer page pools instead
 each layer runs under ``torch.utils.checkpoint`` when ``ctx.remat`` is
 set (the reference's ``jax.checkpoint`` on its scanned unit).  MoE
 layers choose their path as the reference's ``_moe_apply`` does: the
-single-device one without a mesh or in decode, else expert or tensor
-parallelism on the ctx's torch ``DeviceMesh``.  On a mesh, train and
-prefill also run the dense blocks tensor-parallel over 'model'
-(:func:`dense_mesh_layout`: the embedding and the loss cut on the
-vocab, GQA attention on whole heads, the MLP on its FF width), each
-rank on its shards, with the residual stream whole on every rank of
-the axis, as GSPMD partitions the reference's.  A recurrent layer's
+single-device one without a mesh, the whole batch routed onto each
+rank's stored experts in a decode step, else expert or tensor
+parallelism on the ctx's torch ``DeviceMesh``.  On a mesh the dense
+blocks also run tensor-parallel over 'model' (:func:`dense_mesh_layout`:
+the embedding and the loss or logits cut on the vocab, GQA attention on
+whole heads, the MLP on its FF width), each rank on its shards, with
+the residual stream whole on every rank of the axis, as GSPMD
+partitions the reference's; a decode step reads the attention caches
+cut on their sequence split-KV.  A recurrent layer's
 prefill by-product is its final state, which is already the decode
 cache; its decode step returns a new state, where attention layers
 write their caches in place.
@@ -178,10 +180,13 @@ class Ctx:
     mesh: Any = None               # torch DeviceMesh of the mesh paths
                                    # (None: one device)
     dp_axes: tuple[str, ...] = ("data",)
+    batch_axes: tuple[str, ...] = ()   # a decode step's: the mesh axes
+                                       # that cut its batch (the MoE
+                                       # gathers its rows over them)
     tp_axis: str = "model"
     tp: Any = None                 # this rank's TPGroup of tp_axis: the
-                                   # dense blocks of train and prefill
-                                   # compute on their shards (None: whole)
+                                   # dense blocks compute on their shards
+                                   # (None: whole)
     cache_len: int = 0             # decode capacity
     tuner: Any = None              # AdsalaTuner threaded to every
                                    # routine-aware call site (None = the
@@ -413,20 +418,29 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE dispatch-path selection.
 
-    * no mesh / decode step  -> the single-device path,
+    * no mesh                -> the single-device path,
+    * a decode step          -> :func:`~repro_torch.models.moe.
+                                apply_moe_decode`: the whole batch
+                                routed, each rank's stored experts,
     * E divisible by tp size -> expert parallelism (deepseek),
     * otherwise              -> expert tensor parallelism (mixtral).
 
     On a mesh, ``x`` is this rank's (B_loc, S, D) rows, replicated over
     the tp axis; the weights are DTensors (their stored layout) or whole
-    tensors.  Each is moved to the layout of :func:`moe_mesh_layout`,
-    the path runs on the local pieces, and the output is rebuilt as the
-    rank's whole rows; the aux loss is averaged over every mesh axis.
+    tensors.  In train and prefill each is moved to the layout of
+    :func:`moe_mesh_layout`, the path runs on the local pieces, and the
+    output is rebuilt as the rank's whole rows; the aux loss is averaged
+    over every mesh axis.  A decode step's batch is cut over
+    ``ctx.batch_axes``.
     """
     spec = _moe_spec(cfg)
-    if ctx.mesh is None or ctx.mode == "decode":
+    if ctx.mesh is None:
         return MOE.apply_moe(p, x, spec, tuner=ctx.tuner,
                              backend=ctx.backend)
+    if ctx.mode == "decode":
+        return MOE.apply_moe_decode(p, x, spec, tuner=ctx.tuner,
+                                    mesh=ctx.mesh, row_axes=ctx.batch_axes,
+                                    backend=ctx.backend)
     from torch.distributed.tensor import DTensor
 
     from repro_torch.dist import collectives as C
@@ -512,7 +526,9 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     """``page_table`` switches the attention mixer onto the paged read
     path (the cache is a PagedKV or PagedLatent pool, ``pos`` is (B,)
     per-sequence positions, ``plan`` the step's page plan) — the
-    continuous-batching decode."""
+    continuous-batching decode.  On a mesh an attention layer's cache
+    may be a :class:`~repro_torch.models.layers.SplitKV` (read
+    split-KV)."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     if spec.kind == "rglru":
         mix, cache = REC.rglru_block_decode(p["mixer"], h, cache)
@@ -535,7 +551,8 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     else:
         mix, cache = L.attention_decode(p["mixer"], h,
                                         _attn_spec(cfg, spec.kind), cache,
-                                        pos, tuner=ctx.tuner)
+                                        pos, tuner=ctx.tuner,
+                                        tp=_cut(cfg, ctx, "heads"))
     x, _ = _apply_ffn(p, x + mix, cfg, spec, ctx)
     return x, cache
 
@@ -714,9 +731,20 @@ class LM:
         With ``page_table`` (B, P) the cache list holds page pools and
         ``pos`` is (B,) per-sequence positions (-1 = inactive slot) —
         the continuous-batching paged decode (repro_torch.serve.scheduler).
+
+        With ``ctx.tp`` the dense blocks compute on the rank's shards, as
+        in :meth:`forward`, and the logits are vocab-parallel, gathered
+        over the group; the caches of the attention layers come as
+        :class:`~repro_torch.models.layers.SplitKV` where they are cut on
+        their sequence (:func:`repro_torch.serve.step.build_decode`).
         """
         cfg = self.cfg
-        x = params["embed"][token]
+        tp = _cut(cfg, ctx, "vocab")
+        if tp is None:
+            x = params["embed"][token]
+        else:
+            from repro_torch.dist.collectives import vocab_embed
+            x = vocab_embed(params["embed"], token, tp)
         plan = None
         if page_table is not None:
             # one page plan serves every layer's pools this step
@@ -729,7 +757,7 @@ class LM:
                                         page_table, plan)
             new.append(c2)
         x = L.apply_norm(params["ln_f"], x, cfg.norm_kind)
-        return self.logits_last(params, x), new
+        return self.logits_last(params, x, ctx), new
 
 
 def build_lm(cfg: ArchConfig) -> LM:

@@ -7,16 +7,19 @@ cache sequence/width dim — over 'model'; page pools page-sharded).
 
 On a mesh the built functions take the parameters as DTensors laid out
 by the param specs and this rank's rows of the batch (the batch specs'
-layout), and return this rank's rows of the logits and caches, whole.
-A prefill computes tensor-parallel: the dense blocks' weights move to
-the layout of :func:`repro_torch.models.transformer.dense_mesh_layout`
-(the rank's heads, FF slice and vocab range), the MoE experts to their
-expert- or tensor-parallel layout
-(:func:`repro_torch.models.transformer._moe_apply`), every other weight
-is gathered whole; the K/V of the local heads and the logits of the
-local vocab are gathered over 'model'.  A decode step gathers every
-weight whole and takes the MoE's single-device path, as the
-reference's does.
+layout).  The dense blocks' weights move to the layout of
+:func:`repro_torch.models.transformer.dense_mesh_layout` (the rank's
+heads, FF slice and vocab range), and every weight neither they nor
+the MoE place is gathered whole.  A prefill returns this rank's rows of
+the logits and caches, whole: the MoE experts move to their expert- or
+tensor-parallel layout (:func:`repro_torch.models.transformer.
+_moe_apply`), the K/V of the local heads and the logits of the local
+vocab are gathered over 'model'.  A decode step takes the caches as
+DTensors in the layout of :func:`cache_specs` (:func:`shard_cache` lays
+a prefill's out so) and returns them in it: an attention cache cut on
+its sequence is read split-KV in place, every other cache with its rows
+whole; the MoE routes the whole batch onto each rank's experts where
+they are stored (:func:`repro_torch.models.moe.apply_moe_decode`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from repro_torch.train.step import make_ctx
 
 __all__ = ["build_prefill", "build_decode", "build_decode_paged",
            "prefill_batch_sds", "decode_inputs_sds", "cache_specs",
-           "cache_sds", "paged_cache_sds", "forward_params"]
+           "cache_sds", "paged_cache_sds", "forward_specs", "forward_params",
+           "shard_cache"]
 
 
 def prefill_batch_sds(cfg: ArchConfig, shape: ShapeSpec,
@@ -75,20 +79,25 @@ def _is_pool(x: Any) -> bool:
     return isinstance(x, (PagedKV, PagedLatent))
 
 
-def _map_arrays(fn, tree: Any) -> Any:
-    """``fn`` on every tensor of a cache tree: dicts, lists and the
-    cache dataclasses (their tensor fields; ``None`` and flags kept)."""
+def _map_arrays(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` on every tensor of a cache tree (dicts, lists and the cache
+    dataclasses' tensor fields; ``None`` and flags kept), with the
+    matching leaves of the trees ``rest`` of the same structure (a
+    spec tree's leaves are its specs)."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
-            f.name: _map_arrays(fn, getattr(tree, f.name))
+            f.name: _map_arrays(fn, getattr(tree, f.name),
+                                *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)
             if isinstance(getattr(tree, f.name), torch.Tensor)})
     if isinstance(tree, dict):
-        return {k: _map_arrays(fn, v) for k, v in tree.items()}
+        return {k: _map_arrays(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_arrays(fn, v) for v in tree)
+        return type(tree)(_map_arrays(fn, v, *rs)
+                          for v, *rs in zip(tree, *rest))
     return tree
 
 
@@ -139,33 +148,45 @@ def decode_inputs_sds(model, cfg: ArchConfig, shape: ShapeSpec,
     return token, cache, pos
 
 
+def forward_specs(paths: Any, mesh, *, keep_experts: bool,
+                  model=None) -> list:
+    """The spec a rank computes each parameter with, by its path in
+    ``paths``: None for a MoE expert with ``keep_experts`` (left where it
+    is stored, for the MoE's mesh path, which moves it in a prefill and
+    computes where it is stored in a decode); with ``model``, a dense
+    block's weight at its
+    :func:`~repro_torch.models.transformer.dense_mesh_layout` spec; every
+    other weight ``()``, whole.  The rule :func:`forward_params` applies;
+    ``mesh`` may be a :class:`~repro_torch.dist.sharding.MeshShape`."""
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        dense_weight_key
+
+    dense = {} if model is None else dense_mesh_layout(model.cfg, mesh)
+    return [None if keep_experts and is_expert_weight(path) else
+            dense.get(dense_weight_key(model, path), ((), False))[0]
+            for path in paths]
+
+
 def forward_params(params: Any, mesh, *, keep_experts: bool,
                    model=None) -> Any:
-    """The parameters a rank computes with: every DTensor gathered whole
-    (no copy where the mesh does not cut it), except, with
-    ``keep_experts``, the MoE experts, left as DTensors for the MoE's
-    mesh path to move, and, with ``model``, the dense blocks' weights,
-    moved to :func:`~repro_torch.models.transformer.dense_mesh_layout`'s
-    layout (the local pieces).  Plain tensors pass unchanged."""
+    """The parameters a rank computes with: each DTensor moved to its
+    :func:`forward_specs` spec, the local piece (no copy where the mesh
+    does not cut it), or left as it is where that is None.  Plain
+    tensors pass unchanged."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.dist import collectives as C
     from repro_torch.dist.sharding import to_placements
-    from repro_torch.models.transformer import dense_mesh_layout, \
-        dense_weight_key
 
     if mesh is None:
         return params
-    dense = {} if model is None else dense_mesh_layout(model.cfg, mesh)
-    paths = iter(tree_paths(params))
+    specs = iter(forward_specs(tree_paths(params), mesh,
+                               keep_experts=keep_experts, model=model))
 
     def one(t):
-        path = next(paths)
-        if not isinstance(t, DTensor):
+        spec = next(specs)
+        if not isinstance(t, DTensor) or spec is None:
             return t
-        if keep_experts and is_expert_weight(path):
-            return t
-        spec, _ = dense.get(dense_weight_key(model, path), ((), False))
         return C.local_at(t, mesh, to_placements(spec, mesh))
     return tree_map(one, params)
 
@@ -174,6 +195,57 @@ def _rows(t: Any) -> Any:
     """This rank's rows of a batch input (whole along its other dims)."""
     from repro_torch.dist.collectives import local_rows
     return local_rows(t)
+
+
+def shard_cache(cache: Any, mesh, specs: Any) -> Any:
+    """A prefill's caches (this rank's rows, whole along the other dims,
+    as :func:`build_prefill` returns them) as DTensors laid out by
+    ``specs`` (:func:`build_decode`'s cache specs): each rank keeps its
+    piece of its rows, with no communication."""
+    from repro_torch.dist.collectives import relay_rows
+    from repro_torch.dist.sharding import to_placements
+
+    return _map_arrays(lambda t, spec: relay_rows(
+        t, mesh, to_placements(spec, mesh)), cache, specs)
+
+
+def _split_view(cache: Any, tp) -> Any:
+    """An attention layer's cache as the decode reads it split-KV: a
+    :class:`~repro_torch.models.layers.SplitKV` of its local pieces when
+    'model' cuts every tensor of it on the sequence (dim 1), or cuts
+    nothing on a one-rank axis; else None."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist.sharding import TP_AXIS
+    from repro_torch.models.layers import KVCache, SplitKV
+    from repro_torch.models.mla import MLACache
+
+    if tp is None or not isinstance(cache, (KVCache, MLACache)):
+        return None
+    ts = [getattr(cache, f.name) for f in dataclasses.fields(cache)
+          if isinstance(getattr(cache, f.name), torch.Tensor)]
+    if not all(isinstance(t, DTensor) for t in ts):
+        return None
+    i = list(ts[0].device_mesh.mesh_dim_names).index(TP_AXIS)
+    if tp.size > 1 and any(t.placements[i] != Shard(1) for t in ts):
+        return None
+    return SplitKV(_map_arrays(lambda t: t.to_local(), cache), tp)
+
+
+def _laid_back(new: Any, old: Any) -> Any:
+    """A layer's cache after the step in ``old``'s layout: a split-KV
+    cache was updated in place; any other is this rank's rows, each
+    tensor laid out as ``old``'s (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.collectives import relay_rows
+    from repro_torch.models.layers import SplitKV
+
+    if isinstance(new, SplitKV):
+        return old
+    return _map_arrays(lambda n, o: relay_rows(n, o.device_mesh,
+                                               o.placements)
+                       if isinstance(o, DTensor) else n, new, old)
 
 
 def build_prefill(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
@@ -210,21 +282,48 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     ``tuner`` reaches the decode call sites through the Ctx; the
     per-layer KV/latent cache updates dispatch as TRSM-adjacent events
     (sequential along the cache axis), observable by a recorder.
+
+    On a mesh ``decode_fn(params, token, cache, pos)`` takes the
+    parameters and the caches as DTensors laid out by the returned specs
+    and the token as this rank's rows (or a DTensor by its spec), and
+    returns this rank's rows of the logits and the caches in the layout
+    it took them in, so that step n + 1 takes step n's output.  The
+    decoder LM computes tensor-parallel (``Ctx.tp``): the embedding,
+    the MLP and the logits on the rank's vocab range and FF slice, GQA
+    attention on its heads; the MoE routes the whole batch onto the
+    experts where they are stored.  An attention layer's cache that the
+    layout cuts on its sequence over 'model' (every tensor of it on dim
+    1; on a one-rank axis the rank holds every slot) is read split-KV
+    (:class:`~repro_torch.models.layers.SplitKV`) and written in place
+    by the rank that holds the slot; every other cache (another cut
+    dim, a recurrent state, the encoder-decoder's) is taken with its
+    rows whole (gathered over 'model') and its update laid back out.
     """
     ctx = make_ctx("decode", mesh=mesh, cache_len=shape.seq_len,
                    tuner=tuner)
+    if mesh is None:
+        def decode(params, token, cache, pos):
+            return model.decode_step(params, token, cache, pos, ctx)
+        return decode, None, None
+
+    t_entry = divisible_axes(shape.global_batch, data_axes(mesh), mesh)
+    # the MoE gathers the batch over the axes that cut it
+    ctx = dataclasses.replace(
+        ctx, batch_axes=() if t_entry is None else
+        (t_entry,) if isinstance(t_entry, str) else tuple(t_entry))
 
     def decode(params, token, cache, pos):
-        params = forward_params(params, mesh, keep_experts=False)
-        return model.decode_step(params, _rows(token), cache, pos, ctx)
+        params = forward_params(params, mesh, keep_experts=True,
+                                model=model)
+        views = [_split_view(c, ctx.tp) or _map_arrays(_rows, c)
+                 for c in cache]
+        logits, new = model.decode_step(params, _rows(token), views, pos,
+                                        ctx)
+        return logits, [_laid_back(n, c) for n, c in zip(new, cache)]
 
-    if mesh is None:
-        return decode, None, None
     p_specs = partition_params(model, cfg, mesh)
     c_specs = cache_specs(cache_sds(model, cfg, shape), mesh)
-    t_spec = (divisible_axes(shape.global_batch, data_axes(mesh), mesh),
-              None)
-    return decode, p_specs, (t_spec, c_specs, ())
+    return decode, p_specs, ((t_entry, None), c_specs, ())
 
 
 def build_decode_paged(model, cfg: ArchConfig, *, slots: int,
@@ -239,7 +338,9 @@ def build_decode_paged(model, cfg: ArchConfig, *, slots: int,
     data axes; the pool is page-sharded 2D via cache_specs/paged_spec.
     """
     cache_len = table_pages * page_size
-    ctx = make_ctx("decode", mesh=mesh, cache_len=cache_len, tuner=tuner)
+    # every block computes whole on the rank's slots, the MoE too (its
+    # capacity counts those slots): the pools are not read split-KV
+    ctx = make_ctx("decode", cache_len=cache_len, tuner=tuner)
 
     def decode(params, token, pool, pos, table):
         params = forward_params(params, mesh, keep_experts=False)

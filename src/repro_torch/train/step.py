@@ -34,9 +34,9 @@ def make_ctx(mode: str, *, mesh=None, cache_len: int = 0,
     """Ctx for ``mode`` (train | prefill | decode), on one device or on
     ``mesh`` (a torch ``DeviceMesh``, or a ``MeshShape`` for deriving
     specs only; its data axes are every axis but 'model').  On a
-    ``DeviceMesh``, train and prefill carry the rank's 'model' group
-    (``Ctx.tp``): their dense blocks compute on their shards.  A decode
-    step computes them whole.
+    ``DeviceMesh`` every mode carries the rank's 'model' group
+    (``Ctx.tp``): the dense blocks compute on their shards, and a decode
+    step reads its sequence-cut caches split-KV over the group.
 
     Training runs on the ``library`` backend on any device, whatever
     ``backend`` says: no CUDA kernel has a backward.
@@ -54,7 +54,7 @@ def make_ctx(mode: str, *, mesh=None, cache_len: int = 0,
         return Ctx(mode=mode, cache_len=cache_len, remat=remat,
                    tuner=tuner, kv_quantized=kv_q, backend=backend)
     tp = None
-    if mode != "decode" and hasattr(mesh, "get_group"):
+    if hasattr(mesh, "get_group"):
         from repro_torch.dist.collectives import TPGroup
         tp = TPGroup.of(mesh, TP_AXIS)
     return Ctx(mode=mode, mesh=mesh, dp_axes=data_axes(mesh),

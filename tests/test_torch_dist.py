@@ -20,7 +20,8 @@ paths), as tests/test_distributed.py does.
   state the same; deepseek-v2's smoke config (MoE on the mesh) steps
   with its replicated weights equal on both ranks;
 * ``make_global_batch``, mesh-aware ``build_prefill`` / ``build_decode``
-  against the single-device path;
+  (the prefill's caches laid out by ``shard_cache``) against the
+  single-device path;
 * a checkpoint saved on (1, 2) restored onto (2, 1) bit for bit, the
   host copies made on the writing rank only.
 """
@@ -239,12 +240,15 @@ def _train_case(mesh, arch, steps):
 
 def _serve_case(mesh, rank_rows):
     """Mesh-aware prefill (deepseek's MoE on its EP path, no drops at
-    this size) and one decode step against the single-device path."""
+    this size), its caches laid out by the decode's cache specs
+    (``shard_cache``) and one decode step against the single-device
+    path."""
     from repro_torch.configs import build_model, get_smoke_config
     from repro_torch.dist.collectives import distribute
     from repro_torch.models.config import ShapeSpec
     from repro_torch.models.params import is_spec, tree_leaves, tree_map
-    from repro_torch.serve.step import build_decode, build_prefill
+    from repro_torch.serve.step import build_decode, build_prefill, \
+        shard_cache
     from repro_torch.train.step import make_ctx
 
     cfg = get_smoke_config("deepseek-v2-236b")
@@ -252,7 +256,7 @@ def _serve_case(mesh, rank_rows):
     params = model.init(torch.Generator().manual_seed(1))
     shape = ShapeSpec("p", 12, 4, "prefill")   # cache_len 12
     prefill, p_specs, b_specs = build_prefill(model, cfg, shape, mesh)
-    decode, _, (t_spec, _, _) = build_decode(
+    decode, _, (t_spec, c_specs, _) = build_decode(
         model, cfg, ShapeSpec("d", 12, 4, "decode"), mesh)
     it = iter(tree_leaves(p_specs, is_leaf=is_spec))
     sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
@@ -265,7 +269,8 @@ def _serve_case(mesh, rank_rows):
         ctx = make_ctx("prefill", cache_len=12)
         want, cache1 = model.prefill(params, tokens, ctx)
         tok = logits.argmax(-1, keepdim=True)
-        step_logits, _ = decode(sharded, tok, cache, 8)
+        step_logits, _ = decode(sharded, tok,
+                                shard_cache(cache, mesh, c_specs), 8)
         want_step, _ = model.decode_step(
             params, want.argmax(-1, keepdim=True), cache1, 8,
             make_ctx("decode", cache_len=12))

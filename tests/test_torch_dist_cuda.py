@@ -180,3 +180,62 @@ def test_tp_step_and_prefill_on_a_one_rank_mesh_are_bitwise(nccl_mesh,
     assert torch.equal(logits, want)
     assert all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
                for a, b in zip(cache, cache1))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b"])
+def test_mesh_decode_of_a_smoke_model_on_the_card(nccl_mesh, arch):
+    """build_decode on the (1, 1) mesh from a prefill's caches laid out by
+    ``shard_cache``: every attention cache read split-KV (one shard
+    holding every slot), the MoE through ``apply_moe_decode`` on the
+    grouped kernel's thin body (3 launches a MoE layer a step), 4 greedy
+    steps against the single-device decode: the same tokens, logits
+    within 1e-5 (the combine divides after the value product, so not
+    bitwise)."""
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import SplitKV
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve import step as S
+    from repro_torch.train.step import make_ctx
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    prompt, steps = 40, 4
+    cap = prompt + steps
+    decode, p_specs, (_, c_specs, _) = S.build_decode(
+        model, cfg, ShapeSpec("d", cap, 2, "decode"), nccl_mesh)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, nccl_mesh, next(it)), params)
+    tokens = torch.randint(0, cfg.vocab, (2, prompt), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(4))
+    split = []
+    orig = S._split_view
+    S._split_view = lambda c, tp: split.append(orig(c, tp)) or split[-1]
+    dctx = make_ctx("decode", cache_len=cap)
+    moe = sum(s.mlp == "moe" for s in model.plan)
+    try:
+        with torch.no_grad():
+            logits, cache1 = model.prefill(params, tokens,
+                                           make_ctx("prefill",
+                                                    cache_len=cap))
+            cache = S.shard_cache(S._map_arrays(lambda t: t.clone(),
+                                                cache1), nccl_mesh, c_specs)
+            tok1 = tok = logits.argmax(-1, keepdim=True)
+            for i in range(steps):
+                want, cache1 = model.decode_step(params, tok1, cache1,
+                                                 prompt + i, dctx)
+                before = dict(G.grouped_matmul_cuda.launches_by_variant)
+                got, cache = decode(sharded, tok, cache, prompt + i)
+                torch.cuda.synchronize()
+                after = G.grouped_matmul_cuda.launches_by_variant
+                assert after["thin"] - before["thin"] == 3 * moe
+                assert after["tiled"] == before["tiled"]
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+                tok1, tok = want.argmax(-1, keepdim=True), \
+                    got.argmax(-1, keepdim=True)
+                assert torch.equal(tok, tok1)
+    finally:
+        S._split_view = orig
+    assert split and all(isinstance(v, SplitKV) for v in split)

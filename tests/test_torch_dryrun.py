@@ -33,10 +33,11 @@ the dense blocks tensor-parallel over 'model', so a rank computes its
 data group's rows through its shards: ``step_flops / (dp x tp)``, plus
 what the layout leaves whole on every rank, computed here exactly (the
 KV heads a rank picks beyond its share where Hkv % tp != 0; the whole
-attention where H % tp != 0).  A decode step gathers the weights and
-computes its rows through the whole model: ``step_flops / dp``.  Train
-and decode count the same einsums as the analytic model, so they agree
-to rounding (1e-9).  A prefill differs by two known terms, computed
+attention where H % tp != 0).  A decode step does the same on its rows
+and reads its cache cut on the sequence split-KV, each rank scoring
+every head over its own slots, so the attention core has no remainder.
+Train and decode count the same einsums as the analytic model, so they
+agree to rounding (1e-9).  A prefill differs by two known terms, computed
 here exactly: the port's prefill takes the logits of the last position
 only, and the plain attention computes every (query, key) score where
 the analytic count averages a causal context of S / 2.  One more test
@@ -214,8 +215,6 @@ def _expected_flops(cfg, shape, dp: int = 2, tp: int = 2,
     from repro_torch.roofline import step_flops
 
     want = step_flops(cfg, shape) / dp
-    if shape.kind == "decode":
-        return want
     rows = shape.global_batch // dp
     s, hd, d = shape.seq_len, cfg.resolved_head_dim, cfg.d_model
     h, hk = cfg.n_heads, cfg.n_kv_heads
@@ -228,14 +227,17 @@ def _expected_flops(cfg, shape, dp: int = 2, tp: int = 2,
     mult = 4 if shape.kind == "train" else 1       # fwd, remat, 2 x bwd
     per_tok = 0.0
     if h % tp:                                     # attention whole
-        # the plain attention computes every score (context s)
-        attn = 2 * d * hd * (h + 2 * hk) + 2 * h * hd * d \
-            + 2 * s * h * hd * 2
+        attn = 2 * d * hd * (h + 2 * hk) + 2 * h * hd * d
+        if shape.kind != "decode":
+            # the plain attention computes every score (context s); a
+            # decode step scores its own slots of the split cache
+            attn += 2 * s * h * hd * 2
         per_tok = attn * (1 - 1 / tp)
     elif hk % tp:                                  # the picked KV heads
         lo, hi = kv_range(_attn_spec(cfg, "attn"), tp, 0)
         per_tok = 2 * d * hd * 2 * ((hi - lo) - hk / tp)
-    return want + mult * rows * s * cfg.n_layers * per_tok
+    toks = rows if shape.kind == "decode" else rows * s
+    return want + mult * toks * cfg.n_layers * per_tok
 
 
 @pytest.mark.parametrize("kind", list(SMOKE_SHAPES))
@@ -256,7 +258,7 @@ def test_smoke_cell_traces_on_a_fake_world(smoke_records, kind):
     # heads, FF width and vocab are cut over 'model'): no gather; its
     # blocks' partial sums and the data average are all-reduces; a
     # prefill gathers each layer's K and V and the last logits; a decode
-    # step gathers the weights
+    # step each layer's q, new K and new V, and the last logits
     gather = rec["collectives"]["all-gather"]
     if kind == "train_4k":
         assert gather["count"] == 0
@@ -265,6 +267,8 @@ def test_smoke_cell_traces_on_a_fake_world(smoke_records, kind):
         assert gather["count"] > 0 and gather["bytes"] > 0
     if kind == "prefill_32k":
         assert gather["count"] == 2 * 2 + 1
+    if kind == "decode_32k":
+        assert gather["count"] == 2 * 3 + 1
     mem = rec["memory"]
     assert mem["argument_bytes"] > 0 and mem["output_bytes"] > 0
     assert mem["peak_bytes"] >= mem["argument_bytes"]
@@ -310,7 +314,7 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     A train step gathers the weights computed whole and stored cut, and
     nothing else but for the MoE's expert-parallel exchange (DTensor's
     all-to-all gathers on a CPU mesh) and whisper's frame embeddings; a
-    prefill gathers at least its logits, a decode step its weights."""
+    prefill gathers at least its logits, a decode step its logits."""
     cfg = get_smoke_config(arch)
     rec = D.run_cell(arch, kind, False, device="cpu", cfg=cfg,
                      shape=_smoke_shape(kind), mesh=fake_mesh)
@@ -328,6 +332,42 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
 
 
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-236b"])
+def test_decode_cell_holds_its_cache_slots(fake_mesh, arch):
+    """A decode cell at two cache lengths (64 and 128 slots) on the fake
+    (2, 2) world: the inputs a rank holds grow by exactly the whole
+    cache's growth / (dp x tp) (its rows and its slots of every GQA or
+    MLA latent cache, which the specs cut on the sequence), and its peak
+    by less than 3 x that (its slots and one layer's fp32 copies of
+    them; gathering its rows whole would add its rows, twice its
+    slots, besides); the FLOPs grow by its rows' attention over its new
+    slots (MLA's absorbed scores and latent output: 2 H (2 R_kv +
+    R_rope) a slot, more than the analytic 2 H (qk + v) a slot)."""
+    from repro_torch.serve.step import cache_sds
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    recs, whole = [], []
+    for cap in (64, 128):
+        shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=cap,
+                                    global_batch=4)
+        recs.append(D.run_cell(arch, "decode_32k", False, device="cpu",
+                               cfg=cfg, shape=shape, mesh=fake_mesh))
+        whole.append(sum(t.numel() * t.element_size() for c in cache_sds(
+            model, cfg, shape) for t in vars(c).values()
+            if isinstance(t, torch.Tensor)))
+    args = [r["memory"]["argument_bytes"] for r in recs]
+    peaks = [r["memory"]["peak_bytes"] for r in recs]
+    assert args[1] - args[0] == (whole[1] - whole[0]) // 4
+    assert peaks[1] - peaks[0] < 3 * (args[1] - args[0])
+    h = cfg.n_heads
+    slot = 2 * h * (2 * cfg.kv_lora_rank + cfg.qk_rope_dim) \
+        if cfg.attn_kind == "mla" else 2 * 2 * h * cfg.resolved_head_dim
+    got = [r["cost"]["flops_per_device"] for r in recs]
+    assert got[1] - got[0] == pytest.approx(
+        2 * cfg.n_layers * (64 // 2) * slot, rel=EXACT)
+
+
 #: smoke configs whose attention leaves a remainder on a 2-way 'model'
 #: axis: one KV head (each rank picks it), one query head (whole)
 REMAINDER_CFGS = {"granite-kv1": ("granite-8b", {"n_kv_heads": 1}),
@@ -335,7 +375,7 @@ REMAINDER_CFGS = {"granite-kv1": ("granite-8b", {"n_kv_heads": 1}),
                                                       "n_kv_heads": 1})}
 
 
-@pytest.mark.parametrize("kind", ["train_4k", "prefill_32k"])
+@pytest.mark.parametrize("kind", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("name", list(REMAINDER_CFGS))
 def test_tp_flops_count_the_replicated_remainder(fake_mesh, name, kind):
     """A rank's FLOPs where the layout leaves part of attention whole:

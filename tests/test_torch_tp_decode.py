@@ -1,0 +1,494 @@
+"""The decode step on the reference's cache layout, on multi-rank gloo
+worlds on the CPU.
+
+A decode step on a mesh takes its caches as DTensors laid out by
+``serve.step.cache_specs`` (``shard_cache`` lays a prefill's out so):
+a GQA or MLA latent cache cut on its sequence over 'model' is read
+split-KV (each rank attends over its own slots, ``softmax_combine``
+merges them), any other cut is gathered whole for its layer; the dense
+blocks compute on their 'model' shards; the MoE routes the whole batch
+onto the experts where they are stored.
+
+Four worlds over ("data", "model"), each spawned once
+(``init_method=file://``: no port) and running every case in one go,
+one world after another while the reference runs in this process; the
+tests below read what the ranks wrote.  The kernels' plain
+versions run (CPU tensors).
+
+* (1, 2), (2, 2) and (1, 4): smoke stablelm-1.6b (MHA), granite-8b (2
+  KV heads, fewer than 4 ranks), mixtral-8x22b (a ring cache of 32
+  slots seeded past its window by a 47-token prompt, so that the
+  written slot crosses a shard boundary; MoE), deepseek-v2-236b (MLA's
+  latent cache, routed and shared experts), stablelm with the int8
+  cache, all with 48 cache slots and an 8-token prompt (positions below
+  ``cap / tp``: ranks with no valid slot), and stablelm with 12 slots,
+  where the cache specs cut the head dim (16 > 12) and the layer reads
+  its cache gathered whole;
+* (2, 1): the MoE's decode capacity over the global batch: smoke
+  deepseek at batch 16, ten rows with one prompt (five a rank), so that
+  an expert takes ten (token, choice) pairs at the global capacity 8
+  (the reference drops two) while a rank's eight rows cannot overflow
+  its own.
+
+Each rank: the port's single-device prefill of the whole batch on the
+reference's weights (carried across by ``convert.params_from_jax``),
+its rows of the caches through ``shard_cache``, then ``STEPS`` greedy
+steps of the built mesh decode.  Held against the JAX reference's
+``prefill`` and ``decode_step`` on the whole batch: logits within
+``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy tokens equal, and
+each rank holding ``cap / tp`` slots of every split cache.
+
+Without a world: ``softmax_combine_local`` over 1 to 8 chunks of a
+cache, some with no valid slot, against one softmax (``COMBINE_TOL``);
+and the production cache specs on the (16, 16) mesh: every decoder LM's
+decode_32k and long_500k GQA, ring and MLA latent caches cut their
+sequence over 'model', K, V and the int8 scales alike.
+"""
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.timeout(400)
+
+BATCH, PROMPT, CACHE_LEN, STEPS = 4, 8, 48, 3
+LOGIT_TOL = 1e-5
+COMBINE_TOL = 1e-6
+#: (case id, arch, config overrides, prompt, cache_len, int8 cache)
+CASES = [
+    ("stablelm", "stablelm-1.6b", {}, PROMPT, CACHE_LEN, False),
+    ("granite", "granite-8b", {}, PROMPT, CACHE_LEN, False),
+    ("mixtral", "mixtral-8x22b", {}, 47, 56, False),
+    ("deepseek", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False),
+    ("stablelm-int8", "stablelm-1.6b", {}, PROMPT, CACHE_LEN, True),
+    ("stablelm-dh-cut", "stablelm-1.6b", {}, PROMPT, 12, False),
+]
+#: the overflow case: batch 16, rows with one prompt
+OVERFLOW = ("overflow", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False)
+OVERFLOW_BATCH = 16
+OVERFLOW_SAME = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
+WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES,
+          (2, 1): [OVERFLOW]}
+
+
+def _batch(case) -> int:
+    return OVERFLOW_BATCH if case[0] == "overflow" else BATCH
+
+
+def _tokens(case) -> np.ndarray:
+    cid, arch, over, prompt, _, _ = case
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, 256, (_batch(case), prompt))
+    if cid == "overflow":
+        tokens[list(OVERFLOW_SAME)] = tokens[0]
+    return tokens
+
+
+# ---------------------------------------------------------------------------
+# the ranks' work (runs in spawned processes: imports no jax)
+# ---------------------------------------------------------------------------
+
+class _Int8:
+    """``ADSALA_KV_INT8`` set (or not) while the contexts are made."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        self.old = os.environ.pop("ADSALA_KV_INT8", None)
+        if self.on:
+            os.environ["ADSALA_KV_INT8"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ.pop("ADSALA_KV_INT8", None)
+        if self.old is not None:
+            os.environ["ADSALA_KV_INT8"] = self.old
+
+
+def _local_slots(cache) -> list:
+    """Per attention layer: {field: local shape} of its DTensors."""
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.mla import MLACache
+
+    out = []
+    for c in cache:
+        if isinstance(c, (KVCache, MLACache)):
+            out.append({f.name: list(getattr(c, f.name).to_local().shape)
+                        for f in dataclasses.fields(c)
+                        if isinstance(getattr(c, f.name), torch.Tensor)})
+    return out
+
+
+def _case(mesh, tmp: str, case) -> dict:
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import build_model, get_smoke_config
+    from repro_torch.dist.collectives import distribute, row_index
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.step import _map_arrays, build_decode, \
+        shard_cache
+    from repro_torch.train.step import make_ctx
+
+    cid, arch, over, prompt, cache_len, int8 = case
+    batch = _batch(case)
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    model = build_model(cfg)
+    params = torch.load(f"{tmp}/../ref_{cid}.pt")["params"]
+    with _Int8(int8):
+        decode, p_specs, (t_spec, c_specs, _) = build_decode(
+            model, cfg, ShapeSpec("d", cache_len, batch, "decode"), mesh)
+        pctx = make_ctx("prefill", cache_len=cache_len)
+        dctx = make_ctx("decode", cache_len=cache_len)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+    n_dp = mesh.size(0)
+    b_loc = batch // n_dp
+    i = row_index(mesh, ("data",))
+    rows = slice(i * b_loc, (i + 1) * b_loc)
+    with torch.no_grad():
+        logits, whole = model.prefill(
+            params, torch.from_numpy(_tokens(case)), pctx)
+        mine = _map_arrays(lambda t: t[rows].clone(), whole)
+        cache = shard_cache(mine, mesh, c_specs)
+        before = _local_slots(cache)
+        tok = logits[rows].argmax(-1, keepdim=True)
+        first = tok[:, 0].tolist()
+        out_logits, out_tokens, own_rows = [], [], None
+        for s in range(STEPS):
+            if cid == "overflow" and s == 0:
+                # a decode whose MoE counts the rank's rows only: the
+                # single-device path on them
+                own = _map_arrays(lambda t: t.clone(), mine)
+                own_rows = model.decode_step(params, tok, own, prompt,
+                                           dctx)[0].numpy()
+            step_logits, cache = decode(sharded, tok, cache, prompt + s)
+            out_logits.append(step_logits.numpy())
+            tok = step_logits.argmax(-1, keepdim=True)
+            out_tokens.append(tok[:, 0].tolist())
+    leaves = []
+    _map_arrays(leaves.append, cache)
+    np.save(f"{tmp}/logits_{cid}_{mesh.get_rank()}.npy",
+            np.stack(out_logits))
+    if own_rows is not None:
+        np.save(f"{tmp}/own_rows_{cid}_{mesh.get_rank()}.npy", own_rows)
+    return {"rows": [rows.start, rows.stop], "first": first,
+            "tokens": out_tokens, "t_spec": list(t_spec),
+            "slots_before": before, "slots_after": _local_slots(cache),
+            "all_dtensors": all(isinstance(t, DTensor) for t in leaves)}
+
+
+def _world(rank, world, shape, tmp):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init",
+                            rank=rank, world_size=world)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        res = {"coord": list(mesh.get_coordinate())}
+        for case in WORLDS[shape]:
+            res[case[0]] = _case(mesh, tmp, case)
+        with open(f"{tmp}/res_{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _start(shape, tmp):
+    import torch.multiprocessing as mp
+
+    world = shape[0] * shape[1]
+    return mp.start_processes(_world, args=(world, shape, tmp),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def _join(shape, ctx, deadline: float) -> None:
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the {shape} world did not finish")
+
+
+# ---------------------------------------------------------------------------
+# the reference (this process), then the worlds
+# ---------------------------------------------------------------------------
+
+def _reference_model(case):
+    import jax
+
+    from repro.configs import build_model as jax_build_model
+    from repro.configs import get_smoke_config as jax_smoke_config
+
+    cid, arch, over, prompt, cache_len, int8 = case
+    jcfg = dataclasses.replace(jax_smoke_config(arch), **over)
+    jm = jax_build_model(jcfg)
+    return jm, jm.init(jax.random.PRNGKey(0))
+
+
+def _reference(case, jm, jp) -> dict:
+    """The reference's prefill's greedy tokens and its decode steps'
+    logits and greedy tokens on the whole batch."""
+    import jax.numpy as jnp
+
+    from repro.train.step import make_ctx as jax_make_ctx
+
+    cid, arch, over, prompt, cache_len, int8 = case
+    with _Int8(int8):
+        pctx = jax_make_ctx(None, "prefill", cache_len=cache_len,
+                            remat=False)
+        dctx = jax_make_ctx(None, "decode", cache_len=cache_len)
+    logits, cache = jm.prefill(jp, jnp.asarray(_tokens(case), jnp.int32),
+                               pctx)
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    first = np.asarray(tok[:, 0])
+    steps, tokens = [], []
+    for s in range(STEPS):
+        logits, cache = jm.decode_step(jp, tok, cache, jnp.int32(prompt + s),
+                                       dctx)
+        steps.append(np.asarray(logits))
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        tokens.append(np.asarray(tok[:, 0]))
+    return {"first": first, "logits": np.stack(steps),
+            "tokens": np.stack(tokens)}
+
+
+def _run_worlds(root, errors: list) -> None:
+    """Each world in turn (at most 4 ranks at once beside the reference,
+    which runs meanwhile)."""
+    try:
+        for shape in WORLDS:
+            tmp = root / f"w{shape[0]}x{shape[1]}"
+            tmp.mkdir()
+            _join(shape, _start(shape, str(tmp)), time.monotonic() + 300)
+    except BaseException as e:  # noqa: BLE001 - re-raised by the fixture
+        errors.append(e)
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """The reference's weights saved for the ranks, the worlds run one
+    after another in a thread while the reference's decode runs here,
+    then the ranks' results read back."""
+    import threading
+
+    import jax
+
+    from repro_torch.convert import params_from_jax
+
+    root = tmp_path_factory.mktemp("tp_decode")
+    models = {}
+    for case in CASES + [OVERFLOW]:
+        jm, jp = models[case[0]] = _reference_model(case)
+        torch.save({"params": params_from_jax(jax.tree.map(np.asarray, jp))},
+                   root / f"ref_{case[0]}.pt")
+    errors: list = []
+    runner = threading.Thread(target=_run_worlds, args=(root, errors),
+                              daemon=True)
+    runner.start()
+    out = {"ref": {case[0]: _reference(case, *models[case[0]])
+                   for case in CASES + [OVERFLOW]}}
+    runner.join(timeout=4 * 300)
+    assert not runner.is_alive(), "the worlds did not finish"
+    if errors:
+        raise errors[0]
+    for shape in WORLDS:
+        tmp = root / f"w{shape[0]}x{shape[1]}"
+        res = []
+        for r in range(shape[0] * shape[1]):
+            with open(tmp / f"res_{r}.json") as f:
+                got = json.load(f)
+            for case in WORLDS[shape]:
+                cid = case[0]
+                got[cid]["logits"] = np.load(tmp / f"logits_{cid}_{r}.npy")
+                if cid == "overflow":
+                    got[cid]["own_rows"] = np.load(
+                        tmp / f"own_rows_{cid}_{r}.npy")
+            res.append(got)
+        out[shape] = res
+    return out
+
+
+def _ids(item):
+    shape, case = item
+    return f"{shape[0]}x{shape[1]}-{case[0]}"
+
+
+ITEMS = [(shape, case) for shape, cases in WORLDS.items()
+         for case in cases]
+
+
+def _cut(case, tp: int) -> str:
+    """Which dim the cache specs cut over a ``tp``-way 'model' axis."""
+    return "head_dim" if case[0] == "stablelm-dh-cut" and tp > 1 \
+        else "sequence"
+
+
+# ---------------------------------------------------------------------------
+# tests
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("item", ITEMS, ids=_ids)
+def test_mesh_decode_matches_reference(worlds, item):
+    """STEPS greedy steps of the built mesh decode against the
+    reference's ``decode_step`` on the whole batch: every step's logits
+    within LOGIT_TOL (fp32), the prefill's and every step's greedy
+    tokens equal."""
+    shape, case = item
+    ref = worlds["ref"][case[0]]
+    for r in worlds[shape]:
+        got = r[case[0]]
+        rows = slice(*got["rows"])
+        assert got["first"] == ref["first"][rows].tolist()
+        for s in range(STEPS):
+            np.testing.assert_allclose(got["logits"][s],
+                                       ref["logits"][s][rows],
+                                       atol=LOGIT_TOL, rtol=LOGIT_TOL)
+            assert got["tokens"][s] == ref["tokens"][s][rows].tolist()
+
+
+@pytest.mark.parametrize("item", ITEMS, ids=_ids)
+def test_mesh_decode_keeps_the_cache_layout(worlds, item):
+    """The decode takes and returns the caches as DTensors in the specs'
+    layout: each rank holds ``cap / tp`` slots of every GQA and MLA
+    cache cut on its sequence (K, V and the int8 scales alike) and its
+    rows of the batch; the head-dim cut keeps the sequence whole."""
+    shape, case = item
+    n_dp, tp = shape
+    cid, arch, over, prompt, cache_len, int8 = case
+    b_loc = _batch(case) // n_dp
+    for r in worlds[shape]:
+        got = r[cid]
+        assert got["all_dtensors"]
+        assert got["slots_before"] == got["slots_after"]
+        assert got["t_spec"] == ["data", None]         # the rows divide
+        assert got["slots_after"]
+        for layer in got["slots_after"]:
+            if int8:
+                assert set(layer) == {"k", "v", "k_scale", "v_scale"}
+            for name, local in layer.items():
+                assert local[0] == b_loc, name
+                if _cut(case, tp) == "sequence":
+                    cap = 32 if arch == "mixtral-8x22b" else cache_len
+                    assert local[1] == cap // tp, (name, local)
+                else:
+                    assert local[1] == cache_len, (name, local)
+                    assert local[3] == 16 // tp, (name, local)
+
+
+def test_decode_capacity_counts_the_global_batch(worlds):
+    """The MoE of a mesh decode keeps the reference's (token, choice)
+    pairs at the capacity of the global batch: the rows with one prompt
+    give an expert ten pairs at capacity 8, so the reference drops two.
+    The single-device path on a rank's own rows (a MoE whose capacity
+    counts those rows) drops none and misses the reference there; the
+    mesh decode matches it on every rank
+    (test_mesh_decode_matches_reference)."""
+    ref = worlds["ref"]["overflow"]["logits"][0]
+    miss = []
+    for r in worlds[(2, 1)]:
+        got = r["overflow"]
+        rows = slice(*got["rows"])
+        np.testing.assert_allclose(got["logits"][0], ref[rows],
+                                   atol=LOGIT_TOL, rtol=LOGIT_TOL)
+        miss.append(float(np.abs(got["own_rows"] - ref[rows]).max()))
+    assert max(miss) > 1e-3, miss
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["full", "ring"])
+@pytest.mark.parametrize("n_chunks", range(1, 9))
+def test_softmax_combine_local_matches_one_softmax(n_chunks, ring):
+    """The split softmax over ``n_chunks`` uneven chunks of 37 slots,
+    only 6 of them valid (a full cache at position 5: the later chunks
+    have no valid slot; or a ring written at slot 3 whose 12 valid slots
+    wrap round to 29 through 36), against ``torch.softmax`` over the whole
+    cache (the single-device decode's arithmetic), within COMBINE_TOL."""
+    from repro_torch.dist.collectives import softmax_combine_local
+    from repro_torch.models.layers import _decode_scores, _repeat_kv, \
+        decode_partial
+
+    rng = np.random.default_rng(n_chunks)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 4, 16))).float()
+    k = torch.from_numpy(rng.standard_normal((2, 37, 2, 16))).float()
+    v = torch.from_numpy(rng.standard_normal((2, 37, 2, 16))).float()
+    ids = torch.arange(37)
+    valid = ((3 - ids) % 37 < 12) if ring else ids <= 5
+    probs = torch.softmax(_decode_scores(q, k, valid[None]), dim=-1)
+    want = torch.einsum("bhk,bkhd->bhd", probs, _repeat_kv(v, 4))
+    parts = [decode_partial(q, kc, vc, mc[None]) for kc, vc, mc in zip(
+        k.tensor_split(n_chunks, 1), v.tensor_split(n_chunks, 1),
+        valid.tensor_split(n_chunks))]
+    masked = [not bool(mc.any()) for mc in valid.tensor_split(n_chunks)]
+    if n_chunks > 1 and not ring:
+        assert any(masked)
+    for (o, m, l), none in zip(parts, masked):
+        if none:
+            assert bool((m == -1e30).all())
+    got = softmax_combine_local(parts)
+    torch.testing.assert_close(got, want, atol=COMBINE_TOL,
+                               rtol=COMBINE_TOL)
+
+
+def test_softmax_combine_refuses_grad():
+    from repro_torch.dist.collectives import softmax_combine_local
+    from repro_torch.models.layers import decode_partial
+
+    q = torch.ones((1, 1, 2, 4), requires_grad=True)
+    k = v = torch.ones((1, 3, 2, 4))
+    with pytest.raises(RuntimeError, match="no backward"):
+        softmax_combine_local([decode_partial(q, k, v,
+                                              torch.ones(1, 3).bool())])
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_production_caches_cut_their_sequence(shape, monkeypatch):
+    """On the (16, 16) production mesh every decoder LM's attention
+    caches (full, ring, int8 and MLA's latent) cut dim 1, the sequence,
+    over 'model', every tensor of a cache alike, and their batch over
+    'data' where it divides: the layout the decode reads split-KV."""
+    from repro_torch.configs import ARCH_IDS, build_model, get_config
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.launch.dryrun import cell_is_runnable
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.layers import KVCache
+    from repro_torch.models.mla import MLACache
+    from repro_torch.serve.step import cache_sds, cache_specs
+
+    mesh = MeshShape({"data": 16, "model": 16})
+    seen = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        if cfg.family == "audio" or not cell_is_runnable(arch, shape)[0]:
+            continue
+        model = build_model(cfg)
+        for int8 in (False, True):
+            monkeypatch.setenv("ADSALA_KV_INT8", "1" if int8 else "0")
+            caches = cache_sds(model, cfg, SHAPES[shape])
+            specs = cache_specs(caches, mesh)
+            for c, spec in zip(caches, specs):
+                if not isinstance(c, (KVCache, MLACache)):
+                    continue
+                names = [f.name for f in dataclasses.fields(c)
+                         if isinstance(getattr(c, f.name), torch.Tensor)]
+                assert names == (["k", "v", "k_scale", "v_scale"]
+                                 if int8 and isinstance(c, KVCache)
+                                 else ["c_kv", "k_rope"]
+                                 if isinstance(c, MLACache) else ["k", "v"])
+                batch = "data" if SHAPES[shape].global_batch % 16 == 0 \
+                    else None
+                for name in names:
+                    got = getattr(spec, name)
+                    assert got[:2] == (batch, "model"), (arch, name, got)
+                    assert "model" not in got[2:], (arch, name, got)
+                seen += 1
+    assert seen > 0
