@@ -179,9 +179,17 @@ Phases (any failure exits non-zero):
    against one softmax within COMBINE_TOL; the grouped kernel at a
    rank's buckets of the production decode (RANK_GROUPED_SHAPES:
    mixtral's on the tiled body, deepseek's on the thin one) against
-   its plain version and ``torch.bmm``, beside its bound (phase 12 (d),
-   the int8 cache, runs after the mesh is gone); phase 16 (b) runs
-   inside (a);
+   its plain version and ``torch.bmm``, beside its bound; (g) the paged
+   decode on the mesh (``build_decode_paged``: each pool read split-KV
+   over its pages) — stablelm-1.6b whole on (f)'s weights and deepseek
+   at DS_LAYERS layers on phase 12's, at the end of (f) and of (a):
+   PAGED_STEPS greedy steps against the single-device paged decode on
+   the same pools and page table (PAGED_SLOTS slots, an inactive slot,
+   holes): the same tokens, the logits within MESH_DECODE_TOL, the pools
+   alike after the steps, deepseek's grouped launches by body (9 thin a
+   step), warm steps in turns, each path's device time a step and the
+   collectives a mesh step dispatches (phase 12 (d), the int8 cache,
+   runs after the mesh is gone); phase 16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in two processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
@@ -215,7 +223,8 @@ Phases (any failure exits non-zero):
    the counted main paths made at that head dim, tallied from the
    wrapper's ``launches_by_head_dim``), each with its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
-   four buckets, with its launches on the mesh paths, and at a rank's
+   four buckets, with its launches on the mesh paths (the paged one of
+   phase 15 (g) too), and at a rank's
    four buckets of the production decode, which no path of a one-rank
    mesh launches (0 launches, with a note); each with its
    body, ring stages and split count), the card's line, and the ``{"ok": true, ...}`` last line.
@@ -412,6 +421,15 @@ RANK_GROUPED_SHAPES = [("mixtral_decode_rank", 8, 40, 6144, 1024),
                        ("mixtral_decode_rank_wo", 8, 40, 1024, 6144),
                        ("deepseek_decode_rank", 10, 8, 5120, 96),
                        ("deepseek_decode_rank_wo", 10, 8, 96, 5120)]
+#: phase 15 (g): the paged decode on the mesh against the single device:
+#: PAGED_SLOTS slots over pools of PAGED_SLOTS x PAGED_TABLE pages of
+#: PAGED_PAGE slots (random fp32 contents from a seed), a table dealing
+#: out a permutation of the pages, positions from a seed in the second
+#: half of the capacity; slot PAGED_INACTIVE inactive (pos -1), slot
+#: PAGED_HOLES at a quarter of it with holes past its pages; PAGED_STEPS
+#: greedy steps of each path, the logits held at MESH_DECODE_TOL
+PAGED_SLOTS, PAGED_PAGE, PAGED_TABLE, PAGED_STEPS = 8, 16, 66, 8
+PAGED_INACTIVE, PAGED_HOLES = 5, 2
 #: phase 16 (a): stablelm's decode_32k FLOPs a rank against step_flops /
 #: 256 (the dense blocks and the split cache), and the card's memory
 #: that stablelm's and mixtral's decode_32k peaks a rank stay under
@@ -2964,7 +2982,8 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
     grouped kernel behind a one-rank all_to_all) in the prefill, on
     ``apply_moe_decode`` (the whole batch onto the stored experts) in
     decode, the latent cache read split-KV; logits and greedy tokens
-    against phase 12's, launches counted by body, times in turns."""
+    against phase 12's, launches counted by body, times in turns; then
+    phase 15 (g)'s deepseek (:func:`mesh_paged`)."""
     from repro_torch.dist.collectives import distribute
     from repro_torch.dist.sharding import partition_params
     from repro_torch.models.config import ShapeSpec
@@ -3059,13 +3078,16 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
           f"{decode_ms['mesh']:.2f} ms")
     del sharded, batch
     torch.cuda.empty_cache()
+    # phase 15 (g): the paged decode on the mesh, on the same weights
+    paged = mesh_paged(res.model, res.params, mesh, M, fa, G, torch,
+                       tuner=res.tuner)
     return {"arch": cfg.name, "n_layers": cfg.n_layers, "moe_path": path,
             "weights_copied": not no_copy,
             "prefill_launches": n_pre["grouped_by_variant"],
             "decode_launches": n_all["grouped"] - n_pre["grouped"],
             "prefill_logits_max_rel_err": rel, "same_tokens": same_tokens,
             "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
-            "trace": trace}
+            "trace": trace, "paged": paged}
 
 
 def trace_mesh_prefill(res, cfg, mesh, prefill, b_specs, tiled: int,
@@ -3179,7 +3201,8 @@ def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
             "aux_abs_err": aux_err, "layer_ms": ms}
 
 
-def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch) -> dict:
+def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
+                      paged: bool = False) -> dict:
     """Phase 15 (f), one model: ``arch`` at full width (cut to
     ``n_layers``, or whole), random fp32 weights from a seed, prefilled
     on the single device (4 x 1024), then MESH_DECODE_STEPS greedy steps
@@ -3191,7 +3214,8 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch) -> dict:
     greedy tokens, the logits within MESH_DECODE_TOL (absolute and
     relative), warm steps
     in turns, each path's device time a step (``torch.profiler``) and
-    the collectives a mesh step dispatches (``CommDebugMode``)."""
+    the collectives a mesh step dispatches (``CommDebugMode``).  With
+    ``paged``, phase 15 (g) on the same weights (:func:`mesh_paged`)."""
     import dataclasses
 
     from torch.distributed.tensor.debug import CommDebugMode
@@ -3283,13 +3307,157 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch) -> dict:
     if n["grouped_by_variant"] != want or n["flash"] or n["matmul"]:
         raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode did "
                          "not run the grouped kernel as expected")
-    del params, sharded, cache1, cache_m
+    del sharded, cache1, cache_m, fns
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
-            "same_tokens": same, "logits_max_abs_err": err,
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
+           "same_tokens": same, "logits_max_abs_err": err,
+           "logits_max_abs": scale, "logits_over_rtol": over,
+           "tol": MESH_DECODE_TOL, "launches": n["grouped_by_variant"],
+           "step_ms": ms, "trace": traced, "collectives": colls}
+    if paged:
+        out["paged"] = mesh_paged(model, params, mesh, M, fa, G, torch)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_paged(model, params, mesh, M, fa, G, torch, tuner=None) -> dict:
+    """Phase 15 (g), one model: ``serve.step.build_decode_paged`` on the
+    mesh against the single-device paged ``decode_step`` on the same
+    pools and page table (PAGED_*: an inactive slot, holes past a
+    prefix), PAGED_STEPS greedy steps of each from the same token: the
+    mesh step reads each pool split-KV over its pages
+    (``kv_cache.PagedSplit``), the dense blocks through the
+    tensor-parallel path and the MoE through ``apply_moe_decode`` (the
+    grouped kernel, counted by body); the same tokens, the logits within
+    MESH_DECODE_TOL (absolute and relative), the pools alike after the
+    steps, warm steps in turns, each path's device time a step
+    (``torch.profiler``), the collectives a mesh step dispatches
+    (``CommDebugMode``) and the bytes each path's step allocates above
+    what it holds (``max_memory_allocated``)."""
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve.kv_cache import pages_for
+    from repro_torch.serve.step import _map_arrays, build_decode_paged
+    from repro_torch.train.step import make_ctx
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    b, page, width, steps = PAGED_SLOTS, PAGED_PAGE, PAGED_TABLE, \
+        PAGED_STEPS
+    cap, n_pages = width * page, b * width
+    rng = np.random.default_rng(26)
+    table = rng.permutation(n_pages).reshape(b, width)
+    pos = rng.integers(cap // 2, cap - steps, b)
+    tok0 = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1))).cuda()
+    pos[PAGED_INACTIVE] = -1
+    pos[PAGED_HOLES] = cap // 4
+    table[PAGED_HOLES, pages_for(cap // 4 + steps, page):] = -1
+    table_t, pos0 = torch.from_numpy(table).cuda(), \
+        torch.from_numpy(pos).cuda()
+    decode, p_specs, (_, pool_specs, _, _) = build_decode_paged(
+        model, cfg, slots=b, n_pages=n_pages, page_size=page,
+        table_pages=width, mesh=mesh, tuner=tuner)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+    dctx = make_ctx("decode", cache_len=cap, tuner=tuner)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    pool1 = _map_arrays(
+        lambda t: torch.randn(t.shape, generator=gen, device="cuda"),
+        model.init_paged_cache(n_pages, page, dctx, device="meta"))
+    # a one-rank mesh lays a tensor out without a copy: clone first
+    pool_m = _map_arrays(lambda t, spec: distribute(t.clone(), mesh, spec),
+                         pool1, pool_specs)
+    moe_layers = sum(s.mlp == "moe" for s in model.plan)
+
+    def run(step):
+        tok, at, logits, toks = tok0, pos0, [], [tok0]
+        for _ in range(steps):
+            out = step(tok, at)
+            tok = out.argmax(-1, keepdim=True)
+            logits.append(out)
+            toks.append(tok)
+            at = torch.where(at >= 0, at + 1, at)
+        return logits, torch.cat(toks, 1)
+
+    with torch.inference_mode():
+        want, got1 = run(lambda tok, at: model.decode_step(
+            params, tok, pool1, at, dctx, table_t)[0])
+        torch.cuda.synchronize()
+        reset_counts(M, fa, G)
+        logits_m, gotm = run(lambda tok, at: decode(
+            sharded, tok, pool_m, at, table_t)[0])
+        torch.cuda.synchronize()
+        n = kernel_counts(M, fa, G)
+        same = torch.equal(got1, gotm)
+        err = max((m - w).abs().max().item()
+                  for m, w in zip(logits_m, want))
+        scale = max(w.abs().max().item() for w in want)
+        over = max(((m - w).abs() - MESH_DECODE_TOL * w.abs()).max().item()
+                   for m, w in zip(logits_m, want))
+        leaves1, leaves_m = [], []
+        _map_arrays(leaves1.append, pool1)
+        _map_arrays(leaves_m.append, pool_m)
+        pool_err = max((a - c.to_local()).abs().max().item()
+                       for a, c in zip(leaves1, leaves_m))
+        del logits_m, want
+        fns = {"single": lambda: model.decode_step(
+                   params, tok0, pool1, pos0, dctx, table_t)[0],
+               "mesh": lambda: decode(sharded, tok0, pool_m, pos0,
+                                      table_t)[0]}
+        ms = in_turns(fns, torch, iters=3)
+        traced = {k: trace_steps(f, torch) for k, f in fns.items()}
+        with CommDebugMode() as comm:
+            fns["mesh"]()
+        colls = {str(k).split(".")[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+        # the bytes a step allocates above what it holds before and after
+        transient = {}
+        for k, f in fns.items():
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            f()
+            torch.cuda.synchronize()
+            transient[k] = torch.cuda.max_memory_allocated() - held
+    want_n = {"thin": 3 * moe_layers * steps, "tiled": 0}
+    print(f"[chip_smoke] mesh (g): {cfg.name} ({cfg.n_layers} layers) "
+          f"{steps} greedy steps of the paged mesh decode ({b} slots, "
+          f"{n_pages} pages of {page}, cap {cap}, slot {PAGED_INACTIVE} "
+          f"inactive, slot {PAGED_HOLES} with holes; pools split-KV over "
+          f"their pages, tensor-parallel blocks, apply_moe_decode) against "
+          f"the single-device paged decode: the same tokens {same}; logits "
+          f"max |diff| {err:.3e} (max |logit| {scale:.3f}; max |diff| - "
+          f"rtol |logit| {over:.3e}, atol = rtol = {MESH_DECODE_TOL:g}); "
+          f"pools max |diff| {pool_err:.3e}; grouped launches "
+          f"{n['grouped_by_variant']} (expected {want_n}), flash "
+          f"{n['flash']}, matmul {n['matmul']}; warm step in turns single "
+          f"{ms['single']:.2f} ms, mesh {ms['mesh']:.2f} ms; device time a "
+          f"step single {traced['single']['device_ms']:.2f} ms, mesh "
+          f"{traced['mesh']['device_ms']:.2f} ms; collectives a mesh step "
+          f"{colls}; transient bytes a step single {transient['single']}, "
+          f"mesh {transient['mesh']}")
+    if not (same and over <= MESH_DECODE_TOL
+            and pool_err <= MESH_DECODE_TOL):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s paged mesh "
+                         "decode disagrees with the single-device one")
+    if n["grouped_by_variant"] != want_n or n["flash"] or n["matmul"]:
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s paged mesh "
+                         "decode did not run the grouped kernel as expected")
+    del sharded, pool1, pool_m, leaves1, leaves_m
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "slots": b,
+            "page_size": page, "n_pages": n_pages, "cap": cap,
+            "steps": steps, "same_tokens": same, "logits_max_abs_err": err,
             "logits_max_abs": scale, "logits_over_rtol": over,
-            "tol": MESH_DECODE_TOL, "launches": n["grouped_by_variant"],
-            "step_ms": ms, "trace": traced, "collectives": colls}
+            "pools_max_abs_err": pool_err, "tol": MESH_DECODE_TOL,
+            "launches": n["grouped_by_variant"], "step_ms": ms,
+            "trace": traced, "collectives": colls,
+            "transient_bytes": transient,
+            "phase_s": time.perf_counter() - t0}
 
 
 def combine_on_card(torch) -> dict:
@@ -3352,11 +3520,12 @@ def mesh_decode(art: Path, mesh, M, fa, G, torch) -> tuple[dict, dict]:
     (a)), the split softmax on the card (:func:`combine_on_card`), and
     the grouped kernel at a rank's buckets of the production decode
     (decode_32k on (16, 16), RANK_GROUPED_SHAPES) against its plain
-    version and ``torch.bmm``."""
+    version and ``torch.bmm``; phase 15 (g)'s stablelm on (f)'s
+    weights."""
     from repro_torch.core import AdsalaTuner
 
     out = {"stablelm": mesh_decode_model(ARCH, None, mesh, M, fa, G,
-                                         torch),
+                                         torch, paged=True),
            "mixtral": mesh_decode_model(MIX_ARCH, MIX_LAYERS, mesh, M, fa,
                                         G, torch),
            "combine": combine_on_card(torch)}
@@ -3705,7 +3874,13 @@ def main() -> int:
         mesh_out["decode"], rank_grouped = mesh_decode(art, mesh, mm, fa,
                                                        gm, torch)
         mesh_out["decode_s"] = time.perf_counter() - t1
-        print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s")
+        mesh_out["paged"] = {
+            "stablelm": mesh_out["decode"]["stablelm"].pop("paged"),
+            "deepseek": mesh_out["deepseek"].pop("paged")}
+        print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s"
+              f", (g) " + ", ".join(
+                  f"{k} {v['phase_s']:.1f}s"
+                  for k, v in mesh_out["paged"].items()))
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
     deepseek["phase_s"] = (time.perf_counter() - t0
                            - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"])
@@ -3765,7 +3940,8 @@ def main() -> int:
         "mixtral_mesh_decode": mesh_out["decode"]["mixtral"]["launches"]}
     ds_grouped["mesh_launches"] = {
         "deepseek_prefill_ep": mesh_out["deepseek"]["prefill_launches"],
-        "deepseek_decode": mesh_out["deepseek"]["decode_launches"]}
+        "deepseek_decode": mesh_out["deepseek"]["decode_launches"],
+        "deepseek_paged_decode": mesh_out["paged"]["deepseek"]["launches"]}
     for name, source, replaces, entry, errs_, main in (
             ("matmul", "matmul.cu", "src/repro/kernels/matmul.py:57",
              gemm_entry, gemm_errs, f"gemm_{LARGE_CUBE}"),

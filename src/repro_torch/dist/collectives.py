@@ -37,8 +37,9 @@ of the rank's vocab range, summed over the group), :func:`vocab_logz`
 and the sum of exponentials over the group) and :func:`vocab_gold` (the
 label's logit, held by one rank, summed over the group).
 
-A decode step reads a cache cut on its sequence over 'model' as a
-split softmax (split-KV): each rank attends over its own slots and
+A decode step reads a cache cut on its sequence over 'model', or a page
+pool cut on its pages over the data axes, as a split softmax
+(split-KV): each rank attends over its own slots and
 :func:`softmax_combine` merges the ranks' partial outputs;
 :func:`softmax_combine_local` is its collective-free twin over a list
 of chunks.  Neither has a gradient (a decode runs under ``no_grad``).
@@ -259,6 +260,9 @@ def softmax_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     ``group`` from each rank's partial over its own slots: ``o`` (...,
     Dv) the fp32 sum of exp(score - m) x value, not normalised, ``m``
     (...) the max score, ``l`` (...) the sum of exp(score - m).
+    ``group`` is a process group, or a sequence of them (the slots cut
+    over several mesh axes: the max and the sums are taken over each in
+    turn; an empty one combines nothing).
 
     M is the max of ``m`` over the group; o·exp(m - M) and l·exp(m - M)
     are summed over it (one all-reduce), then divided.  A rank whose
@@ -268,11 +272,14 @@ def softmax_combine(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
     ``torch.softmax``'s result.  No gradient: raises under grad.
     """
     _refuse_grad("softmax_combine", o, m, l)
+    groups = tuple(group) if isinstance(group, (list, tuple)) else (group,)
     top = m.clone()
-    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    for g in groups:
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
     w = torch.exp(m - top)
     both = torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1)
-    dist.all_reduce(both, group=group)
+    for g in groups:
+        dist.all_reduce(both, group=g)
     return both[..., :-1] / both[..., -1:]
 
 

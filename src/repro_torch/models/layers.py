@@ -40,6 +40,7 @@ __all__ = [
     "attention_defs", "attention_train", "attention_decode",
     "chunked_attention_xla", "kv_range", "tp_heads", "kv_heads_whole",
     "attention_decode_paged", "decode_partial", "softmax_parts",
+    "page_mask", "page_parts",
     "AttnSpec", "KVCache", "SplitKV", "CacheSlots", "cache_slots",
     "init_kv_cache", "seed_kv_cache",
 ]
@@ -618,9 +619,77 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
     return _decode_out(p, x, s, out, tuner, tp), cache
 
 
+def page_mask(plan, pos: torch.Tensor, cap: int, page: int
+              ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(valid (B, cap): the slots a sequence may read, ``<= pos``; here
+    (B, cap) or None: the slots of pages this rank stores, from a mesh
+    plan's :attr:`~repro_torch.serve.kv_cache.PagePlan.here`)."""
+    valid = torch.arange(cap, device=pos.device)[None, :] <= pos[:, None]
+    if plan.here is None:
+        return valid, None
+    return valid, plan.here.repeat_interleave(page, dim=1)
+
+
+def page_parts(scores: torch.Tensor, valid: torch.Tensor,
+               here: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`softmax_parts` of fp32 scores (B, H, n) over a gathered
+    view of a rank's pages: masked to -1e30 where not ``valid``, as on
+    one device, and left out (weight 0) where another rank stores the
+    page, so that the combine over the ranks weighs every slot of the
+    whole view once — an inactive slot too, whose every score is -1e30
+    (one device's uniform average over the view).  A sequence none of
+    whose pages lie here has m = -1e30 and l = 0."""
+    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
+    scores = torch.where(here[:, None, :], scores, float("-inf"))
+    m = scores.amax(dim=-1)
+    m = torch.where(m == float("-inf"), _NEG_INF, m)
+    e = torch.exp(scores - m[..., None])
+    return e, m, e.sum(dim=-1)
+
+
+def _attend_pages(s: AttnSpec, view, plan, q: torch.Tensor,
+                  k_new: torch.Tensor, v_new: torch.Tensor
+                  ) -> torch.Tensor:
+    """The paged decode's attention on a mesh: q (B_loc, 1, H, Dh) and
+    the new k, v (B_loc, 1, Hkv, Dh) of every head, over a
+    :class:`~repro_torch.serve.kv_cache.PagedSplit` pool.  The rows of
+    every slot are gathered; the rank writes its piece of the new rows
+    of the slots whose pages it stores and attends every slot over its
+    pages (its columns of the head dim, whose scores are summed over
+    'model', or its KV heads and their query heads); the partial
+    softmaxes are merged over the page axes, the rank keeps its rows
+    and their pieces are joined over 'model'.  Returns (B_loc, H, Dh)
+    fp32, normalised."""
+    from repro_torch.serve.kv_cache import append_token, gather_pages
+
+    cut = view.cuts["k"]
+    if cut != view.cuts["v"] or cut not in (None, 2, 3):
+        raise NotImplementedError(
+            f"paged decode of a pool cut on dims {view.cuts} over 'model'")
+    pool = view.pool
+    q, k_new, v_new = (view.gather(t) for t in (q, k_new, v_new))
+    active = plan.pos >= 0
+    append_token(pool.k, plan.table, plan.pos, view.piece(k_new[:, 0], "k"),
+                 active, plan)
+    append_token(pool.v, plan.table, plan.pos, view.piece(v_new[:, 0], "v"),
+                 active, plan)
+    k = gather_pages(pool.k, plan.table, plan)   # (B, cap, Hkv', Dh')
+    v = gather_pages(pool.v, plan.table, plan)
+    q = view.piece(q, "k")                       # (B, 1, H', Dh')
+    raw = torch.einsum("bohd,bkhd->bhk", q.float(),
+                       _repeat_kv(k, q.shape[2]).float())
+    scores = view.scores([(raw, "k")]) * (s.head_dim ** -0.5)
+    e, m, l = page_parts(scores, *page_mask(plan, plan.pos, k.shape[1],
+                                            pool.page_size))
+    o = torch.einsum("bhk,bkhd->bhd", e, _repeat_kv(v, q.shape[2]).float())
+    out = view.keep(C.softmax_combine(o, m, l, view.pages))
+    return view.join(out, "v")
+
+
 def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
                            page_table: torch.Tensor, pos: torch.Tensor,
-                           tuner=None, plan=None):
+                           tuner=None, plan=None, tp=None):
     """One-token decode against a paged KV pool (continuous batching).
 
     x (B, 1, D); ``pos`` is (B,) int — every sequence in the batch sits
@@ -638,24 +707,32 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
     :func:`attention_decode`, the new rows are written into the pool in
     place and the same pool is returned; an inactive slot writes
     nothing.  ``plan`` is the step's
-    :func:`~repro_torch.serve.kv_cache.plan_pages` for this table and
+    :func:`~repro_torch.serve.kv_cache.plan_step` for this table and
     these positions, computed once for all layers (else here).
+
+    On a mesh: with ``tp`` q, k and v are projected on the rank's heads
+    and gathered, the output leaves through the rank's rows of ``wo``
+    (as :func:`attention_decode`); a
+    :class:`~repro_torch.serve.kv_cache.PagedSplit` pool is read
+    split-KV over its pages (:func:`_attend_pages`).
     """
-    from repro_torch.serve.kv_cache import (append_token, gather_pages,
-                                            plan_pages)
+    from repro_torch.serve.kv_cache import (PagedSplit, append_token,
+                                            gather_pages, plan_step)
 
     if s.window is not None:
         raise NotImplementedError(
             "paged decode does not support sliding-window (ring) caches")
     b = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, x, s, pos[:, None], tuner)
+    q, k_new, v_new = _decode_qkv(p, x, s, pos[:, None], tuner, tp)
     cap = page_table.shape[1] * pool.page_size
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
                 routine="trsm", site="attn.cache_update")
-    active = pos >= 0
     if plan is None:
-        plan = plan_pages(page_table, pos, active, pool.n_pages,
-                          pool.page_size)
+        plan = plan_step(pool, page_table, pos)
+    if isinstance(pool, PagedSplit):
+        out = _attend_pages(s, pool, plan, q, k_new, v_new)
+        return _decode_out(p, x, s, out, tuner, tp), pool
+    active = pos >= 0
     append_token(pool.k, page_table, pos, k_new[:, 0], active, plan)
     append_token(pool.v, page_table, pos, v_new[:, 0], active, plan)
     k = gather_pages(pool.k, page_table, plan)     # (B, cap, Hkv, Dh)

@@ -15,7 +15,8 @@ kernel does not take.  Unlike the reference, whose
 ``dynamic_update_slice`` returns new arrays, :func:`mla_decode` writes
 the new latent row into the cache in place and returns the same cache,
 as :func:`layers.attention_decode` does; on a mesh it reads a latent
-cache cut on its sequence split-KV, as that function does.
+cache cut on its sequence split-KV, as that function does, and
+:func:`mla_decode_paged` a latent pool cut on its pages.
 """
 
 from __future__ import annotations
@@ -271,6 +272,53 @@ def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache,
     return _absorbed_out(p, x, s, o_lat), cache
 
 
+def _absorbed_pages(p: dict, s: MLASpec, view, plan, q: torch.Tensor,
+                    c_kv_new: torch.Tensor, k_rope_new: torch.Tensor
+                    ) -> torch.Tensor:
+    """The paged latent decode's attention on a mesh, over a
+    :class:`~repro_torch.serve.kv_cache.PagedSplit` latent pool: q
+    (B_loc, 1, H, qk_head_dim) and the new latent rows of this rank's
+    rows.  The rows of every slot are gathered; the rank writes its
+    columns of the new rows of the slots whose pages it stores, and
+    attends every slot over its pages on its columns of ``kv_lora_rank``
+    and ``qk_rope_dim`` (partial absorbed scores, summed over 'model'
+    for a cut field); the partial softmaxes are merged over the page
+    axes, the rank keeps its rows and its columns of o_lat are joined
+    over 'model'.  Returns o_lat (B_loc, H, R_kv) fp32, normalised."""
+    from repro_torch.dist.collectives import softmax_combine
+    from repro_torch.models.layers import page_mask, page_parts
+    from repro_torch.serve.kv_cache import append_token, gather_pages
+
+    if any(c not in (None, 2) for c in view.cuts.values()):
+        raise NotImplementedError(
+            f"paged decode of a latent pool cut on dims {view.cuts} over "
+            "'model'")
+    pool = view.pool
+    q, c_kv_new, k_rope_new = (view.gather(t)
+                               for t in (q, c_kv_new, k_rope_new))
+    active = plan.pos >= 0
+    append_token(pool.c_kv, plan.table, plan.pos,
+                 view.piece(c_kv_new[:, 0], "c_kv"), active, plan)
+    append_token(pool.k_rope, plan.table, plan.pos,
+                 view.piece(k_rope_new[:, 0], "k_rope"), active, plan)
+    c_kv32 = gather_pages(pool.c_kv, plan.table, plan).float()
+    k_rope = gather_pages(pool.k_rope, plan.table, plan)
+    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
+    q_lat = torch.einsum("bohd,rhd->bhr", q[..., : s.qk_nope_dim].float(),
+                         wk_b.float())
+    s_lat = torch.einsum("bhr,bkr->bhk", view.piece(q_lat, "c_kv"), c_kv32)
+    q_rope = view.piece(q[..., s.qk_nope_dim:], "k_rope")
+    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
+    scores = view.scores([(s_lat, "c_kv"), (s_rope, "k_rope")]) \
+        * (s.qk_head_dim ** -0.5)
+    e, m, l = page_parts(scores, *page_mask(plan, plan.pos,
+                                            c_kv32.shape[1],
+                                            pool.page_size))
+    o_lat = softmax_combine(torch.einsum("bhk,bkr->bhr", e, c_kv32), m, l,
+                            view.pages)
+    return view.join(view.keep(o_lat), "c_kv")
+
+
 def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
                      page_table: torch.Tensor, pos: torch.Tensor,
                      tuner=None, plan=None):
@@ -285,21 +333,26 @@ def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
     new rows are written into the pool in place and the same pool is
     returned; an inactive slot writes nothing, with no host sync.
     ``plan`` is the step's
-    :func:`~repro_torch.serve.kv_cache.plan_pages` for this table and
-    these positions, computed once for all layers (else here).
+    :func:`~repro_torch.serve.kv_cache.plan_step` for this table and
+    these positions, computed once for all layers (else here).  A
+    :class:`~repro_torch.serve.kv_cache.PagedSplit` pool (on a mesh) is
+    read split-KV over its pages (:func:`_absorbed_pages`), the weights
+    whole on every rank.
     """
-    from repro_torch.serve.kv_cache import (append_token, gather_pages,
-                                            plan_pages)
+    from repro_torch.serve.kv_cache import (PagedSplit, append_token,
+                                            gather_pages, plan_step)
 
     b = x.shape[0]
     q, c_kv_new, k_rope_new = _latents(p, x, s, pos[:, None], tuner)
     cap = page_table.shape[1] * pool.page_size
     ops.observe(cap, s.kv_lora_rank, b * s.n_heads,
                 tuner, routine="trsm", site="mla.cache_update")
-    active = pos >= 0
     if plan is None:
-        plan = plan_pages(page_table, pos, active, pool.n_pages,
-                          pool.page_size)
+        plan = plan_step(pool, page_table, pos)
+    if isinstance(pool, PagedSplit):
+        o_lat = _absorbed_pages(p, s, pool, plan, q, c_kv_new, k_rope_new)
+        return _absorbed_out(p, x, s, o_lat), pool
+    active = pos >= 0
     append_token(pool.c_kv, page_table, pos, c_kv_new[:, 0], active, plan)
     append_token(pool.k_rope, page_table, pos, k_rope_new[:, 0], active,
                  plan)

@@ -528,7 +528,8 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     per-sequence positions, ``plan`` the step's page plan) — the
     continuous-batching decode.  On a mesh an attention layer's cache
     may be a :class:`~repro_torch.models.layers.SplitKV` (read
-    split-KV)."""
+    split-KV), its pool a :class:`~repro_torch.serve.kv_cache.
+    PagedSplit` (read split-KV over its pages)."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     if spec.kind == "rglru":
         mix, cache = REC.rglru_block_decode(p["mixer"], h, cache)
@@ -547,7 +548,7 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     elif page_table is not None:
         mix, cache = L.attention_decode_paged(
             p["mixer"], h, _attn_spec(cfg, spec.kind), cache, page_table,
-            pos, tuner=ctx.tuner, plan=plan)
+            pos, tuner=ctx.tuner, plan=plan, tp=_cut(cfg, ctx, "heads"))
     else:
         mix, cache = L.attention_decode(p["mixer"], h,
                                         _attn_spec(cfg, spec.kind), cache,
@@ -736,7 +737,10 @@ class LM:
         in :meth:`forward`, and the logits are vocab-parallel, gathered
         over the group; the caches of the attention layers come as
         :class:`~repro_torch.models.layers.SplitKV` where they are cut on
-        their sequence (:func:`repro_torch.serve.step.build_decode`).
+        their sequence (:func:`repro_torch.serve.step.build_decode`), the
+        page pools as :class:`~repro_torch.serve.kv_cache.PagedSplit`
+        (:func:`repro_torch.serve.step.build_decode_paged`), and the MoE
+        routes the rows of ``ctx.batch_axes`` as one batch.
         """
         cfg = self.cfg
         tp = _cut(cfg, ctx, "vocab")
@@ -748,9 +752,8 @@ class LM:
         plan = None
         if page_table is not None:
             # one page plan serves every layer's pools this step
-            from repro_torch.serve.kv_cache import plan_pages
-            plan = plan_pages(page_table, pos, pos >= 0,
-                              cache[0].n_pages, cache[0].page_size)
+            from repro_torch.serve.kv_cache import plan_step
+            plan = plan_step(cache[0], page_table, pos)
         new = []
         for p, s, c in zip(params["layers"], self.plan, cache):
             x, c2 = _apply_layer_decode(p, x, c, pos, cfg, s, ctx,

@@ -31,19 +31,27 @@ Split of responsibilities, as in :mod:`repro.serve.kv_cache`:
 Unlike the reference's functional updates, :func:`append_token` and
 :func:`seed_pages` write the pool in place and return it, as the port's
 ``attention_decode`` and ``mla_decode`` write their caches.
+
+On a mesh a pool is cut over its pages (the data axes) and over a
+contracted dim or its KV heads ('model'), as ``paged_spec`` lays it out:
+:class:`PagedSplit` is one layer's pool as the paged decode then reads
+it, split-KV over pages.  :func:`plan_step` plans the step over the
+whole batch's rows on the rank's own pages: a slot on another rank's
+page writes nothing here, and the read masks it out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
 __all__ = [
     "HOLE", "PageAllocator", "PagedKV", "PagedLatent", "init_paged_kv",
     "init_paged_latent",
-    "PagePlan", "plan_pages", "gather_pages", "append_token",
-    "seed_pages", "pages_for",
+    "PagePlan", "PagedSplit", "plan_pages", "plan_step", "gather_pages",
+    "append_token", "seed_pages", "pages_for",
 ]
 
 #: page-table entry marking an unallocated slot
@@ -238,11 +246,18 @@ class PagePlan:
     src: torch.Tensor
     #: () bool: some slot writes at all
     write: torch.Tensor
+    #: on a rank's pages (``total`` given to :func:`plan_pages`): (B, T)
+    #: bool, the page of each table entry is stored here; else None
+    here: torch.Tensor | None = None
+    #: on a rank's pages: the whole batch's (B, T) table and (B,)
+    #: positions the plan is for (:func:`plan_step` gathers them)
+    table: torch.Tensor | None = None
+    pos: torch.Tensor | None = None
 
 
 def plan_pages(table: torch.Tensor, pos: torch.Tensor,
-               active: torch.Tensor, n_pages: int,
-               page: int) -> PagePlan:
+               active: torch.Tensor, n_pages: int, page: int, *,
+               lo: int = 0, total: int | None = None) -> PagePlan:
     """Plan one step's gathers and writes for a ``(B, T)`` page table
     and ``(B,)`` positions over pools of ``n_pages`` pages of ``page``
     token slots.
@@ -254,19 +269,146 @@ def plan_pages(table: torch.Tensor, pos: torch.Tensor,
     no row writes, every row rewrites its clamped slot with what it
     already holds — no host sync, and never a write to a page a live
     sequence owns.  Live sequences own disjoint pages, so the writing
-    rows' slots never collide."""
+    rows' slots never collide.
+
+    With ``total`` the pools are a rank's pages ``[lo, lo + n_pages)``
+    of ``total`` (a pool cut over its pages): the table's ids are
+    global, a hole reads global page 0 (the reference's clamp) wherever
+    that is stored, and a row whose page another rank stores (or that
+    is past ``total``, which the reference's scatter drops) is dropped
+    as well; ``here`` marks the entries this rank's pages serve."""
     cap = table.shape[1] * page
     idx = pos.clamp(0, cap - 1).long()
     page_ix = table.gather(1, (idx // page)[:, None])[:, 0].long()
     ok = active & (page_ix >= 0)
-    dest = page_ix.clamp(0, n_pages - 1) * page + idx % page
+    here = None
+    if total is None:
+        dest = page_ix.clamp(0, n_pages - 1) * page + idx % page
+        ids = table.clamp(0, n_pages - 1).reshape(-1).long()
+    else:
+        ok = ok & (page_ix >= lo) & (page_ix < lo + n_pages)
+        dest = (page_ix - lo).clamp(0, n_pages - 1) * page + idx % page
+        local = table.clamp(0, total - 1).long() - lo
+        here = (local >= 0) & (local < n_pages)
+        ids = local.clamp(0, n_pages - 1).reshape(-1)
     first = torch.argmax(ok.to(torch.int8))          # 0 when none is ok
     rows = torch.arange(table.shape[0], device=table.device)
     return PagePlan(
-        ids=table.clamp(0, n_pages - 1).reshape(-1).long(),
+        ids=ids,
         dest=torch.where(ok, dest, dest[first]),
         src=torch.where(ok, rows, first),
-        write=ok.any())
+        write=ok.any(), here=here,
+        table=None if total is None else table,
+        pos=None if total is None else pos)
+
+
+@dataclasses.dataclass
+class PagedSplit:
+    """One attention layer's page pool on a mesh, as the paged decode
+    reads it: split-KV over pages.
+
+    ``pool`` (a :class:`PagedKV` or :class:`PagedLatent` of local
+    tensors) holds this rank's pages ``[lo, lo + n_pages)`` of
+    ``total``, cut over the mesh axes whose process groups are
+    ``pages`` (mesh order; none where every rank holds every page).
+    ``cuts`` names, for each field, the pool dim the 'model' axis
+    (``tp``) cuts — a contracted dim (the head dim, MLA's latent and
+    rope widths) or the KV heads — or None where the field is whole on
+    every rank of a multi-rank 'model' axis (a one-rank axis counts as
+    cutting the last dim, so its collectives run).  The step's slots
+    are cut over the axes ``rows`` of ``mesh``.
+
+    A decode step gathers every slot's rows (:meth:`gather`), writes the
+    new row of each slot whose page the rank stores, attends every slot
+    over the rank's pages, merges the partial softmaxes over ``pages``
+    and keeps its rows (:meth:`keep`); no pool, and no slot's gathered
+    view, is gathered over 'model'."""
+    pool: Any
+    lo: int
+    total: int
+    pages: tuple
+    mesh: Any
+    rows: tuple
+    tp: Any
+    cuts: dict
+
+    @property
+    def n_pages(self) -> int:
+        return self.pool.n_pages
+
+    @property
+    def page_size(self) -> int:
+        return self.pool.page_size
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch from this rank's rows ``t`` (dim 0)."""
+        from repro_torch.dist.collectives import gather_rows
+        return gather_rows(t, self.mesh, self.rows)
+
+    def keep(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch ``t`` (dim 0)."""
+        from repro_torch.dist.collectives import axis_size, row_index
+        n = 1
+        for a in self.rows:
+            n *= axis_size(self.mesh, a)
+        b = t.shape[0] // n
+        i = row_index(self.mesh, self.rows)
+        return t[i * b:(i + 1) * b]
+
+    def _dim(self, name: str) -> int | None:
+        """Field ``name``'s cut as a negative dim (it names the same dim
+        of a row, a query or an output as of the pool), or None."""
+        cut = self.cuts[name]
+        return None if cut is None else \
+            cut - getattr(self.pool, name).dim()
+
+    def contracted(self, name: str) -> bool:
+        """Does 'model' cut field ``name`` on its last (contracted) dim?"""
+        return self._dim(name) == -1
+
+    def piece(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's piece of a whole ``t`` along field ``name``'s cut
+        (a new row, the query): its columns or its heads."""
+        d = self._dim(name)
+        if d is None:
+            return t
+        n = t.shape[d] // self.tp.size
+        return t.narrow(d, self.tp.rank * n, n)
+
+    def join(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The ranks' pieces of ``t`` along field ``name``'s cut, joined
+        over 'model' (:meth:`piece`'s inverse)."""
+        from repro_torch.dist.collectives import all_gather
+        d = self._dim(name)
+        return t if d is None else \
+            all_gather(t, self.tp.group, dim=t.dim() + d)
+
+    def scores(self, terms: list) -> torch.Tensor:
+        """The sum of score terms ``(scores, field)``: a term over a field
+        cut on its contracted dim is this rank's partial, summed over
+        'model'; any other is whole already."""
+        from repro_torch.dist.collectives import reduce_from
+        part = [t for t, name in terms if self.contracted(name)]
+        out = reduce_from(sum(part), self.tp.group) if part else None
+        for t, name in terms:
+            if not self.contracted(name):
+                out = t if out is None else out + t
+        return out
+
+
+def plan_step(pool, table: torch.Tensor, pos: torch.Tensor) -> PagePlan:
+    """:func:`plan_pages` for one decode step over every layer's pools,
+    laid out like ``pool``: on one device the caller's table and
+    positions; for a :class:`PagedSplit` the whole batch's (this rank's
+    rows gathered over the axes that cut the slots, one collective) on
+    the rank's pages."""
+    if not isinstance(pool, PagedSplit):
+        return plan_pages(table, pos, pos >= 0, pool.n_pages,
+                          pool.page_size)
+    both = pool.gather(torch.cat([table.long(), pos.long()[:, None]], 1))
+    table, pos = both[:, :-1], both[:, -1]
+    return plan_pages(table, pos, pos >= 0, pool.n_pages, pool.page_size,
+                      lo=pool.lo, total=pool.total)
 
 
 def gather_pages(pages: torch.Tensor, table: torch.Tensor,

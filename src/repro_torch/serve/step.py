@@ -19,7 +19,10 @@ DTensors in the layout of :func:`cache_specs` (:func:`shard_cache` lays
 a prefill's out so) and returns them in it: an attention cache cut on
 its sequence is read split-KV in place, every other cache with its rows
 whole; the MoE routes the whole batch onto each rank's experts where
-they are stored (:func:`repro_torch.models.moe.apply_moe_decode`).
+they are stored (:func:`repro_torch.models.moe.apply_moe_decode`).  A
+paged decode step takes its page pools in :func:`cache_specs`' layout
+and reads each split-KV over its pages, in place
+(:func:`build_decode_paged`).
 """
 
 from __future__ import annotations
@@ -191,6 +194,15 @@ def forward_params(params: Any, mesh, *, keep_experts: bool,
     return tree_map(one, params)
 
 
+def _rows_cut(ctx, entry) -> Any:
+    """``ctx`` whose ``batch_axes`` are the axes of the batch's spec entry
+    ``entry``: the decode's MoE (and a paged step's page read) gathers
+    the rows over them."""
+    axes = () if entry is None else \
+        (entry,) if isinstance(entry, str) else tuple(entry)
+    return dataclasses.replace(ctx, batch_axes=axes)
+
+
 def _rows(t: Any) -> Any:
     """This rank's rows of a batch input (whole along its other dims)."""
     from repro_torch.dist.collectives import local_rows
@@ -307,10 +319,7 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
         return decode, None, None
 
     t_entry = divisible_axes(shape.global_batch, data_axes(mesh), mesh)
-    # the MoE gathers the batch over the axes that cut it
-    ctx = dataclasses.replace(
-        ctx, batch_axes=() if t_entry is None else
-        (t_entry,) if isinstance(t_entry, str) else tuple(t_entry))
+    ctx = _rows_cut(ctx, t_entry)
 
     def decode(params, token, cache, pos):
         params = forward_params(params, mesh, keep_experts=True,
@@ -326,6 +335,41 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     return decode, p_specs, ((t_entry, None), c_specs, ())
 
 
+def _page_view(pool: Any, mesh, ctx) -> Any:
+    """A layer's page pool (DTensors in ``paged_spec``'s layout; a plain
+    tensor is taken as whole on every rank) as the paged decode reads
+    it: a :class:`~repro_torch.serve.kv_cache.PagedSplit` of its local
+    pieces, with the axes that cut its pages read from its placements
+    and, per field, the dim 'model' cuts."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist.collectives import replicated, row_index
+    from repro_torch.dist.sharding import TP_AXIS
+    from repro_torch.serve.kv_cache import PagedSplit
+
+    names = tuple(mesh.mesh_dim_names)
+    m = names.index(TP_AXIS)
+    fields = {f.name: getattr(pool, f.name)
+              for f in dataclasses.fields(pool)}
+    where = {k: t.placements if isinstance(t, DTensor) else
+             replicated(mesh) for k, t in fields.items()}
+    # paged_spec cuts every field's pages alike
+    first = next(iter(fields))
+    axes = tuple(a for a, pl in zip(names, where[first]) if pl == Shard(0))
+    cuts = {}
+    for k, t in fields.items():
+        pl = where[k][m]
+        cuts[k] = pl.dim if pl.is_shard() else \
+            t.dim() - 1 if mesh.size(m) == 1 else None
+    local = dataclasses.replace(pool, **{
+        k: t.to_local() if isinstance(t, DTensor) else t
+        for k, t in fields.items()})
+    return PagedSplit(local, lo=row_index(mesh, axes) * local.n_pages,
+                      total=fields[first].shape[0],
+                      pages=tuple(mesh.get_group(a) for a in axes),
+                      mesh=mesh, rows=ctx.batch_axes, tp=ctx.tp, cuts=cuts)
+
+
 def build_decode_paged(model, cfg: ArchConfig, *, slots: int,
                        n_pages: int, page_size: int, table_pages: int,
                        mesh, tuner=None):
@@ -336,22 +380,45 @@ def build_decode_paged(model, cfg: ArchConfig, *, slots: int,
     ``pos`` is (slots,) per-sequence positions and ``table``
     (slots, table_pages) the page table — both batch-sharded over the
     data axes; the pool is page-sharded 2D via cache_specs/paged_spec.
+
+    On a mesh ``decode_fn(params, token, pool, pos, table)`` takes the
+    parameters and the pools as DTensors laid out by the returned specs,
+    and token, ``pos`` and ``table`` as this rank's rows (or DTensors by
+    their specs); it returns this rank's rows of the logits and the
+    pools in their layout, written in place, so that step n + 1 takes
+    step n's output.  The dense blocks compute on their shards and the
+    MoE routes the whole batch onto the experts where they are stored
+    (its capacity counts every slot), as in :func:`build_decode`; each
+    pool is read split-KV over its pages
+    (:class:`~repro_torch.serve.kv_cache.PagedSplit`): every slot's rows
+    are gathered, each rank writes the new rows of the slots whose pages
+    it stores and attends every slot over its pages, on its cut of the
+    head dim (or latent widths, or KV heads) over 'model', and the
+    partial softmaxes are merged over the axes that cut the pages.  No
+    pool is gathered.  Any page table: a slot may read pages another
+    rank stores, a hole reads page 0 as on one device, an inactive slot
+    (pos -1) writes nothing.
     """
     cache_len = table_pages * page_size
-    # every block computes whole on the rank's slots, the MoE too (its
-    # capacity counts those slots): the pools are not read split-KV
-    ctx = make_ctx("decode", cache_len=cache_len, tuner=tuner)
+    ctx = make_ctx("decode", mesh=mesh, cache_len=cache_len, tuner=tuner)
+    if mesh is None:
+        def decode(params, token, pool, pos, table):
+            return model.decode_step(params, token, pool, pos, ctx, table)
+        return decode, None, None
+
+    slot_entry = divisible_axes(slots, data_axes(mesh), mesh)
+    ctx = _rows_cut(ctx, slot_entry)
 
     def decode(params, token, pool, pos, table):
-        params = forward_params(params, mesh, keep_experts=False)
-        return model.decode_step(params, _rows(token), pool, _rows(pos),
-                                 ctx, _rows(table))
+        params = forward_params(params, mesh, keep_experts=True,
+                                model=model)
+        views = [_page_view(c, mesh, ctx) for c in pool]
+        logits, _ = model.decode_step(params, _rows(token), views,
+                                      _rows(pos), ctx, _rows(table))
+        return logits, pool
 
-    if mesh is None:
-        return decode, None, None
     p_specs = partition_params(model, cfg, mesh)
     pool_specs = cache_specs(paged_cache_sds(model, n_pages, page_size),
                              mesh)
-    slot_entry = divisible_axes(slots, data_axes(mesh), mesh)
     return decode, p_specs, ((slot_entry, None), pool_specs,
                              (slot_entry,), (slot_entry, None))

@@ -239,3 +239,64 @@ def test_mesh_decode_of_a_smoke_model_on_the_card(nccl_mesh, arch):
     finally:
         S._split_view = orig
     assert split and all(isinstance(v, SplitKV) for v in split)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "deepseek-v2-236b"])
+def test_paged_mesh_decode_of_a_smoke_model_on_the_card(nccl_mesh, arch):
+    """build_decode_paged on the (1, 1) mesh over random pools laid out by
+    its pool specs (each read split-KV over its pages, one rank holding
+    every page), an inactive slot and a hole past a prefix; the MoE
+    through ``apply_moe_decode`` on the grouped kernel's thin body (3
+    launches a MoE layer a step); 4 greedy steps against the
+    single-device paged decode on a copy of the pools: the same tokens,
+    logits and pools within 1e-5, the pools returned in place."""
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.serve import step as S
+    from repro_torch.train.step import make_ctx
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init(gen)
+    slots, page, width, steps = 4, 4, 4, 4
+    cap, n_pages = page * width, slots * width
+    decode, p_specs, (_, pool_specs, _, _) = S.build_decode_paged(
+        model, cfg, slots=slots, n_pages=n_pages, page_size=page,
+        table_pages=width, mesh=nccl_mesh)
+    it = iter(tree_leaves(p_specs, is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, nccl_mesh, next(it)), params)
+    dctx = make_ctx("decode", cache_len=cap)
+    pool1 = S._map_arrays(
+        lambda t: torch.randn(t.shape, generator=gen, device="cuda"),
+        model.init_paged_cache(n_pages, page, dctx, device="meta"))
+    pools = S._map_arrays(
+        lambda t, spec: distribute(t.clone(), nccl_mesh, spec), pool1,
+        pool_specs)
+    table = torch.randperm(n_pages, device="cuda", generator=gen).view(
+        slots, width)
+    table[1, 2:] = -1
+    pos = torch.tensor([9, 3, -1, 11], device="cuda")
+    tok1 = tok = torch.randint(0, cfg.vocab, (slots, 1), device="cuda",
+                               generator=gen)
+    moe = sum(s.mlp == "moe" for s in model.plan)
+    with torch.no_grad():
+        for _ in range(steps):
+            want, _ = model.decode_step(params, tok1, pool1, pos, dctx, table)
+            before = dict(G.grouped_matmul_cuda.launches_by_variant)
+            got, out = decode(sharded, tok, pools, pos, table)
+            torch.cuda.synchronize()
+            after = G.grouped_matmul_cuda.launches_by_variant
+            assert after["thin"] - before["thin"] == 3 * moe
+            assert after["tiled"] == before["tiled"]
+            assert out is pools
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            tok1, tok = want.argmax(-1, keepdim=True), \
+                got.argmax(-1, keepdim=True)
+            assert torch.equal(tok, tok1)
+            pos = torch.where(pos >= 0, pos + 1, pos)
+    mine, single = [], []
+    S._map_arrays(lambda t: mine.append(t.to_local()), pools)
+    S._map_arrays(single.append, pool1)
+    for a, b in zip(mine, single):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)

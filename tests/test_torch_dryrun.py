@@ -779,21 +779,41 @@ def _example(name: str):
         sys.path.remove(EXAMPLES)
 
 
+#: the runtime model's evaluation latency (µs) both installs are given,
+#: by model class: each install measures it on the host clock
+#: (``_measure_eval_time``) and selects its model by the estimated
+#: speedup it enters, so two installs under load could pick differently
+T_EVAL_US = {"LinearRegression": 30.0, "BayesianRidgeRegression": 40.0,
+             "DecisionTreeRegressor": 60.0, "XGBRegressor": 400.0}
+
+
+def _fixed_eval_time(model, pipe, n_candidates, **kwargs) -> float:
+    return T_EVAL_US[type(model).__name__]
+
+
 @pytest.fixture(scope="module")
 def quickstart(tmp_path_factory):
+    from repro_torch.core import installer
+
     art = tmp_path_factory.mktemp("quickstart")
-    out = _example("quickstart_torch").main(
-        ["--backend", "simulated", "--device", "cpu", "--artifact",
-         str(art), "--samples", "40"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(installer, "_measure_eval_time", _fixed_eval_time)
+        out = _example("quickstart_torch").main(
+            ["--backend", "simulated", "--device", "cpu", "--artifact",
+             str(art), "--samples", "40"])
     return art, out
 
 
-def test_quickstart_picks_match_the_reference(quickstart, tmp_path):
+def test_quickstart_picks_match_the_reference(quickstart, tmp_path,
+                                              monkeypatch):
     """The reference quickstart's logic (examples/quickstart.py) at the
-    same budget and seed makes the same picks."""
+    same budget and seed makes the same picks, both installs given the
+    same evaluation latency per model class (T_EVAL_US)."""
     from repro.core import AdsalaTuner, InstallConfig, SimulatedBackend, \
         gather_data, install
+    from repro.core import installer
 
+    monkeypatch.setattr(installer, "_measure_eval_time", _fixed_eval_time)
     _, out = quickstart
     cfg = InstallConfig(
         n_samples=40, repeats=2, tile_ids=(0, 3),
