@@ -163,9 +163,12 @@ Phases (any failure exits non-zero):
    (the MoE's expert-parallel path: the grouped kernel behind a one-rank
    all_to_all, 9 tiled launches) and ``build_decode`` from the
    prefill's caches laid out by ``serve.step.shard_cache`` (the latent
-   cache read split-KV, ``apply_moe_decode``: 135 thin launches) on the
-   same prompts: the logits within MESH_TOL of phase 12's and the same
-   greedy tokens; (b) after phase 12 (c): one mixtral-8x22b MoE layer at
+   cache read split-KV, ``apply_moe_decode``: 135 thin launches, the
+   shared experts on their FF slice) on the same prompts, MLA on its
+   whole heads over the one-rank 'model' axis: the logits within
+   MESH_TOL of phase 12's and the same greedy tokens, a decode step's
+   device time and collectives (one all-gather of the absorbed query a
+   layer, no weight moved); (b) after phase 12 (c): one mixtral-8x22b MoE layer at
    full width through ``apply_moe_tp`` against ``apply_moe``: 3 tiled
    launches, within the grouped bound; warm times of both paths in
    turns; (f) after (b): the decode on the reference's cache layout —
@@ -191,15 +194,18 @@ Phases (any failure exits non-zero):
    collectives a mesh step dispatches (phase 12 (d), the int8 cache,
    runs after the mesh is gone); phase 16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
-   cuda --mesh single`` on a fake 256-rank world, in two processes run
+   cuda --mesh single`` on a fake 256-rank world, in processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
-   mixtral-8x22b on decode_32k, and xlstm-125m's train_4k and
-   prefill_32k, one process each; each cell's status, trace seconds,
+   mixtral-8x22b on decode_32k, xlstm-125m's train_4k and prefill_32k
+   and deepseek-v2-236b's prefill_32k and decode_32k, one process each;
+   each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices`` (stablelm's
    train_4k and prefill_32k must be within x0.85–1.25 of it, its
    decode_32k within x0.8–1.5: the dense blocks tensor-parallel over
    the 16-way 'model' axis, the cache read split-KV), peak bytes a rank
-   (stablelm's and mixtral's decode_32k under the card's 80 GiB),
+   (stablelm's and mixtral's decode_32k under the card's 80 GiB,
+   deepseek's under DS_DECODE_PEAK_GIB; deepseek's prefill_32k FLOPs at
+   most DS_PREFILL_RATIO_MAX of its share: MLA on its heads),
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -447,11 +453,19 @@ SLSTM_TURNS, SLSTM_ITERS = ("loop", "op", "op", "loop"), 2
 XL_STEP_S_LOOP = "18-19.6 s"
 #: phase 16 (a): (arch, shape or every shape) of each dry-run process
 DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
-                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")]
+                ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
+                ("deepseek-v2-236b", "prefill_32k"),
+                ("deepseek-v2-236b", "decode_32k")]
 DRYRUN_TIMEOUT = 300
 #: phase 16 (a): stablelm's train_4k and prefill_32k FLOPs a rank
 #: against step_flops / 256 (the dense blocks cut over 'model')
 TP_RATIO = (0.85, 1.25)
+#: phase 16 (a): deepseek's MLA on its heads: its prefill_32k FLOPs a
+#: rank at most this multiple of step_flops / 256 (x23.65 with MLA whole
+#: on every rank, G25), its decode_32k peak a rank under this many GiB
+#: (26.1 with the MLA and shared-expert weights gathered whole, G25)
+DS_PREFILL_RATIO_MAX = 4.0
+DS_DECODE_PEAK_GIB = 10.0
 #: the flash kernel's launches on the counted main-path runs, by the
 #: caller's head dim (tally_flash adds each run's to it)
 FLASH_PATH_BY_D: dict[int, int] = {}
@@ -2980,20 +2994,33 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
     and ``build_decode`` on phase 12's prompts (the prefill's caches laid
     out by ``shard_cache``): the MoE on its expert-parallel path (the
     grouped kernel behind a one-rank all_to_all) in the prefill, on
-    ``apply_moe_decode`` (the whole batch onto the stored experts) in
-    decode, the latent cache read split-KV; logits and greedy tokens
-    against phase 12's, launches counted by body, times in turns; then
-    phase 15 (g)'s deepseek (:func:`mesh_paged`)."""
+    ``apply_moe_decode`` (the whole batch onto the stored experts and
+    the shared experts on their FF slice) in decode, MLA on its whole
+    heads over 'model' (``dense_mesh_layout``'s ``mla.*`` cut, which a
+    one-rank axis keeps with its collectives) and the latent cache read
+    split-KV; logits and greedy tokens against phase 12's, launches
+    counted by body, times in turns, a decode step's device time
+    (``torch.profiler``) and collectives (``CommDebugMode``: each MLA
+    layer gathers its absorbed query once, no weight moves); then phase
+    15 (g)'s deepseek (:func:`mesh_paged`)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
     from repro_torch.dist.collectives import distribute
     from repro_torch.dist.sharding import partition_params
     from repro_torch.models.config import ShapeSpec
     from repro_torch.models.params import is_spec, tree_leaves, tree_map
-    from repro_torch.models.transformer import moe_mesh_layout
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        moe_mesh_layout
     from repro_torch.serve.step import build_decode, build_prefill, \
         shard_cache
     from repro_torch.train.step import make_ctx
 
     cache_len = PROMPT_LEN + GEN_TOKENS
+    mla_cut = sorted(k for k in dense_mesh_layout(cfg, mesh)
+                     if k.startswith("mla."))
+    if mla_cut != ["mla.wk_b", "mla.wo", "mla.wq_b", "mla.wv_b"]:
+        raise SystemExit(f"[chip_smoke] FAIL: the mesh does not cut "
+                         f"deepseek's MLA on its heads ({mla_cut})")
     it = iter(tree_leaves(partition_params(res.model, cfg, mesh),
                           is_leaf=is_spec))
     sharded = tree_map(lambda t: distribute(t, mesh, next(it)), res.params)
@@ -3066,16 +3093,35 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
         _, c1 = res.model.prefill(res.params, res.prompts, pctx)
         cm = shard_cache(prefill(sharded, batch)[1], mesh, c_specs)
         tok = res.tokens[:, :1]
-        decode_ms = in_turns({
-            "single": lambda: res.model.decode_step(
-                res.params, tok, c1, PROMPT_LEN, dctx)[0],
-            "mesh": lambda: decode(sharded, tok, cm, PROMPT_LEN)[0]},
-            torch, iters=5)
-        del c1, cm
+        fns = {"single": lambda: res.model.decode_step(
+                   res.params, tok, c1, PROMPT_LEN, dctx)[0],
+               "mesh": lambda: decode(sharded, tok, cm, PROMPT_LEN)[0]}
+        decode_ms = in_turns(fns, torch, iters=5)
+        # device time a step, and the collectives a mesh step dispatches
+        traced = {k: trace_steps(f, torch) for k, f in fns.items()}
+        with CommDebugMode() as comm:
+            fns["mesh"]()
+        colls = {str(k).split(".")[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+        del c1, cm, fns
+    # the all-gathers of a mesh decode step: each layer's absorbed query
+    # over 'model' (MLA on its heads), each MoE layer's rows, the logits
+    gathers = colls.get("_allgather_base_", 0)
+    want_gathers = cfg.n_layers + moe_layers + 1
     print(f"[chip_smoke] mesh (a) warm, in turns: prefill single "
           f"{prefill_ms['single']:.1f} ms, mesh {prefill_ms['mesh']:.1f} "
           f"ms; decode step single {decode_ms['single']:.2f} ms, mesh "
-          f"{decode_ms['mesh']:.2f} ms")
+          f"{decode_ms['mesh']:.2f} ms; device time a step single "
+          f"{traced['single']['device_ms']:.2f} ms, mesh "
+          f"{traced['mesh']['device_ms']:.2f} ms; collectives a mesh "
+          f"decode step {colls} (MLA cut on its heads: {mla_cut}; "
+          f"{want_gathers} all-gathers expected, one of the absorbed query "
+          f"a layer; no DTensor move of a weight)")
+    if gathers != want_gathers or any("functional" in str(k) for k in
+                                      comm.get_comm_counts()):
+        raise SystemExit("[chip_smoke] FAIL: deepseek's mesh decode step "
+                         "did not compute MLA on its heads, or moved a "
+                         "weight")
     del sharded, batch
     torch.cuda.empty_cache()
     # phase 15 (g): the paged decode on the mesh, on the same weights
@@ -3087,7 +3133,8 @@ def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
             "decode_launches": n_all["grouped"] - n_pre["grouped"],
             "prefill_logits_max_rel_err": rel, "same_tokens": same_tokens,
             "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
-            "trace": trace, "paged": paged}
+            "decode_trace": traced, "decode_collectives": colls,
+            "mla_cut": mla_cut, "trace": trace, "paged": paged}
 
 
 def trace_mesh_prefill(res, cfg, mesh, prefill, b_specs, tiled: int,
@@ -3685,6 +3732,21 @@ def phase_dryrun(torch) -> dict:
             and all(p < CARD_GIB for p in decode_peaks.values())):
         raise SystemExit("[chip_smoke] FAIL: a rank of the dry run's decode "
                          "does not compute its share or fit the card")
+    # deepseek's MLA on its heads and its decode's shared experts on 'ff'
+    ds_pre = by_cell["deepseek-v2-236b", "prefill_32k"]
+    ds_dec = by_cell["deepseek-v2-236b", "decode_32k"]
+    print(f"[chip_smoke] dry run (a): deepseek prefill_32k FLOPs a rank "
+          f"x{ds_pre['flops_ratio']:.3f} of step_flops / 256 (at most "
+          f"x{DS_PREFILL_RATIO_MAX:g}), peak {ds_pre['peak_gib']:.2f} GiB, "
+          f"collective GB {sum(ds_pre['collective_bytes'].values()) / 1e9:.3f}"
+          f"; decode_32k peak a rank {ds_dec['peak_gib']:.2f} GiB (under "
+          f"{DS_DECODE_PEAK_GIB:g}), FLOPs x{ds_dec['flops_ratio']:.3f}, "
+          f"collective GB {sum(ds_dec['collective_bytes'].values()) / 1e9:.3f}")
+    if not (ds_pre["flops_ratio"] <= DS_PREFILL_RATIO_MAX
+            and ds_dec["peak_gib"] < DS_DECODE_PEAK_GIB):
+        raise SystemExit("[chip_smoke] FAIL: a rank of deepseek's dry run "
+                         "does not compute MLA on its heads or still holds "
+                         "gathered weights")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))

@@ -16,7 +16,13 @@ kernel does not take.  Unlike the reference, whose
 the new latent row into the cache in place and returns the same cache,
 as :func:`layers.attention_decode` does; on a mesh it reads a latent
 cache cut on its sequence split-KV, as that function does, and
-:func:`mla_decode_paged` a latent pool cut on its pages.
+:func:`mla_decode_paged` a latent pool cut on its pages.  With ``tp``
+(a :class:`~repro_torch.dist.collectives.TPGroup` of the 'model' axis)
+every function computes the latents whole and the rank's whole query
+heads through its columns of ``wq_b``, ``wk_b`` and ``wv_b`` and its
+rows of ``wo``, as GSPMD partitions the reference's on 'heads'; a
+split-KV decode gathers the small absorbed query of every head, never
+the cache or a weight.  The recorder's events keep the global widths.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (
     softmax_parts,
@@ -100,9 +107,24 @@ def _rope_1head(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _heads(s: MLASpec, tp) -> int:
+    """How many query heads a rank computes: every head, or with ``tp``
+    its H / size whole heads."""
+    return s.n_heads if tp is None else s.n_heads // tp.size
+
+
 def _latents(p: dict, x: torch.Tensor, s: MLASpec, positions: torch.Tensor,
-             tuner=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B,S,H,qk_head_dim), c_kv (B,S,R_kv), k_rope (B,S,R_rope)."""
+             tuner=None, tp=None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q (B,S,H',qk_head_dim) of the heads the rank computes, c_kv
+    (B,S,R_kv), k_rope (B,S,R_rope).
+
+    The latents are whole on every rank.  With ``tp`` the rank's heads
+    are its columns of ``wq_b`` (head-major, so one contiguous range),
+    and the latents pass ``copy_to`` where they fork into the heads: the
+    gradient of each is summed over the group there, so it and the
+    latent weights' gradients are whole on every rank (nothing partial
+    to sum in the train step)."""
     b, sq, _ = x.shape
     # latent down-projections (d -> lora rank) are the skinny GEMMs MLA
     # trades cache memory for; tag them so the tuner prices that shape
@@ -112,38 +134,50 @@ def _latents(p: dict, x: torch.Tensor, s: MLASpec, positions: torch.Tensor,
     ops.observe(b * sq, s.q_lora_rank, s.n_heads * s.qk_head_dim,
                 tuner, site="mla.up_proj_q")
     q_lat = rmsnorm(linear(x, p["wq_a"]), p["q_norm"])
-    q = linear(q_lat, p["wq_b"]).reshape(b, sq, s.n_heads, s.qk_head_dim)
-    q_nope, q_rope = q[..., : s.qk_nope_dim], q[..., s.qk_nope_dim:]
-    q = torch.cat([q_nope, _rope_1head(q_rope, positions)], dim=-1)
     c_kv = rmsnorm(linear(x, p["wkv_a"]), p["kv_norm"])
     k_rope = _rope_1head(linear(x, p["wk_rope"]), positions)
+    if tp is not None:
+        q_lat, c_kv, k_rope = (C.copy_to(t, tp.group)
+                               for t in (q_lat, c_kv, k_rope))
+    q = linear(q_lat, p["wq_b"]).reshape(b, sq, _heads(s, tp),
+                                         s.qk_head_dim)
+    q_nope, q_rope = q[..., : s.qk_nope_dim], q[..., s.qk_nope_dim:]
+    q = torch.cat([q_nope, _rope_1head(q_rope, positions)], dim=-1)
     return q, c_kv, k_rope
 
 
 def _expand_kv(p: dict, c_kv: torch.Tensor, k_rope: torch.Tensor,
-               s: MLASpec, tuner=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Decompress latents to per-head K (nope+rope) and V."""
+               s: MLASpec, h: int, tuner=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress latents to K (nope+rope) and V of ``h`` heads (the
+    columns of wk_b / wv_b given); the recorder sees every head."""
     b, sk, _ = c_kv.shape
     # latent up-projection (kv lora rank -> per-head K/V)
     ops.observe(b * sk, s.kv_lora_rank,
                 s.n_heads * (s.qk_nope_dim + s.v_head_dim), tuner,
                 site="mla.up_proj_kv")
-    k_nope = linear(c_kv, p["wk_b"]).reshape(b, sk, s.n_heads,
-                                             s.qk_nope_dim)
-    v = linear(c_kv, p["wv_b"]).reshape(b, sk, s.n_heads, s.v_head_dim)
-    k_rope_h = k_rope[:, :, None, :].expand(b, sk, s.n_heads,
-                                            s.qk_rope_dim)
+    k_nope = linear(c_kv, p["wk_b"]).reshape(b, sk, h, s.qk_nope_dim)
+    v = linear(c_kv, p["wv_b"]).reshape(b, sk, h, s.v_head_dim)
+    k_rope_h = k_rope[:, :, None, :].expand(b, sk, h, s.qk_rope_dim)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     return k, v
 
 
-def mla_train(p: dict, x: torch.Tensor, s: MLASpec, tuner=None
+def mla_train(p: dict, x: torch.Tensor, s: MLASpec, tuner=None, tp=None
               ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (out, (c_kv, k_rope)) — the latents seed the decode cache."""
+    """Returns (out, (c_kv, k_rope)) — the latents seed the decode cache.
+
+    With ``tp`` (H divisible by its size) the rank computes the latents
+    whole and its whole query heads on them: q, k_nope and v through its
+    columns of ``wq_b``, ``wk_b`` and ``wv_b``, the shared rope key
+    broadcast to its heads, the attention core on them and the output
+    through its rows of ``wo``, summed over the group.  The latents
+    returned are whole; the recorder sees every head."""
     b, sq, _ = x.shape
+    h = _heads(s, tp)
     positions = torch.arange(sq, device=x.device)
-    q, c_kv, k_rope = _latents(p, x, s, positions, tuner)
-    k, v = _expand_kv(p, c_kv, k_rope, s, tuner)
+    q, c_kv, k_rope = _latents(p, x, s, positions, tuner, tp)
+    k, v = _expand_kv(p, c_kv, k_rope, s, h, tuner)
     # causal scores: SYRK-shaped like GQA attention (triangular output)
     ops.observe(sq, s.qk_head_dim, sq, tuner, routine="syrk",
                 site="mla.qk", count=b * s.n_heads)
@@ -151,8 +185,11 @@ def mla_train(p: dict, x: torch.Tensor, s: MLASpec, tuner=None
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=None, chunk=min(512, sq))
     del q, k, v
-    out = out.transpose(1, 2).reshape(b, sq, s.n_heads * s.v_head_dim)
-    return linear(out, p["wo"]), (c_kv, k_rope)
+    out = linear(out.transpose(1, 2).reshape(b, sq, h * s.v_head_dim),
+                 p["wo"])
+    if tp is not None:
+        out = C.reduce_from(out, tp.group)
+    return out, (c_kv, k_rope)
 
 
 @dataclasses.dataclass
@@ -187,70 +224,105 @@ def seed_mla_cache(c_kv: torch.Tensor, k_rope: torch.Tensor,
     return cache
 
 
-def _absorbed_scores(p: dict, s: MLASpec, q: torch.Tensor,
-                     c_kv32: torch.Tensor, k_rope: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
-    """fp32 scores (B, H, n) of q (B, 1, H, qk_head_dim) over the latent
-    slots c_kv32 (B, n, R_kv, fp32) and k_rope (B, n, R_rope), masked to
-    -1e30 where ``valid`` (1 or B, n) is false.
+def _absorb(p: dict, s: MLASpec, q: torch.Tensor) -> torch.Tensor:
+    """The absorbed query (B, H', R_kv + R_rope) fp32 of the H' heads of
+    q (B, 1, H', qk_head_dim): q_nope through those heads' columns of
+    wk_b (the absorbed-projection trick: the cache is never decompressed
+    to per-head K), then q_rope, in one tensor (one collective moves
+    both)."""
+    h = q.shape[2]
+    wk_b = p["wk_b"].reshape(s.kv_lora_rank, h, s.qk_nope_dim)
+    q_lat = torch.einsum("bohd,rhd->bhr", q[..., : s.qk_nope_dim].float(),
+                         wk_b.float())
+    return torch.cat([q_lat, q[:, 0, :, s.qk_nope_dim:].float()], dim=-1)
 
-    Absorbed-projection trick: q_nope is absorbed through wk_b, so the
-    cache is never decompressed to per-head K."""
-    q_nope = q[..., : s.qk_nope_dim]       # (B, 1, H, nope)
-    q_rope = q[..., s.qk_nope_dim:]        # (B, 1, H, rope)
-    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
-    q_lat = torch.einsum("bohd,rhd->bhr", q_nope.float(), wk_b.float())
-    s_lat = torch.einsum("bhr,bkr->bhk", q_lat, c_kv32)
-    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
+
+def _absorbed_scores(s: MLASpec, qa: torch.Tensor, c_kv32: torch.Tensor,
+                     k_rope: torch.Tensor, valid: torch.Tensor
+                     ) -> torch.Tensor:
+    """fp32 scores (B, H', n) of the absorbed query ``qa``
+    (:func:`_absorb`) over the latent slots c_kv32 (B, n, R_kv, fp32) and
+    k_rope (B, n, R_rope), masked to -1e30 where ``valid`` (1 or B, n) is
+    false."""
+    r = s.kv_lora_rank
+    s_lat = torch.einsum("bhr,bkr->bhk", qa[..., :r], c_kv32)
+    s_rope = torch.einsum("bhd,bkd->bhk", qa[..., r:], k_rope.float())
     scores = (s_lat + s_rope) * (s.qk_head_dim ** -0.5)
     return torch.where(valid[:, None, :], scores, _NEG_INF)
 
 
+def _every_head(qa: torch.Tensor, tp) -> torch.Tensor:
+    """The absorbed query of every head from each rank's heads, gathered
+    over ``tp``'s group (unchanged without ``tp``): a split-KV read
+    scores every head over the rank's own slots."""
+    return qa if tp is None else C.all_gather(qa, tp.group, dim=1)
+
+
+def _own_heads(o_lat: torch.Tensor, tp) -> torch.Tensor:
+    """This rank's heads of o_lat (B, H, R_kv) (all of them without
+    ``tp``)."""
+    if tp is None:
+        return o_lat
+    n = o_lat.shape[1] // tp.size
+    return o_lat[:, tp.rank * n:(tp.rank + 1) * n]
+
+
 def _absorbed_out(p: dict, x: torch.Tensor, s: MLASpec,
-                  o_lat: torch.Tensor) -> torch.Tensor:
-    """The attention output in latent space o_lat (B, H, R_kv) out
-    through wv_b per head, then the output projection."""
-    b = x.shape[0]
-    wv_b = p["wv_b"].reshape(s.kv_lora_rank, s.n_heads, s.v_head_dim)
+                  o_lat: torch.Tensor, tp=None) -> torch.Tensor:
+    """The attention output in latent space o_lat (B, H', R_kv) of the
+    heads the rank computes out through their columns of wv_b, then
+    their rows of the output projection (with ``tp`` summed over the
+    group)."""
+    b, h = x.shape[0], o_lat.shape[1]
+    wv_b = p["wv_b"].reshape(s.kv_lora_rank, h, s.v_head_dim)
     out = torch.einsum("bhr,rhd->bhd", o_lat, wv_b.float())
-    out = out.reshape(b, 1, s.n_heads * s.v_head_dim).to(x.dtype)
-    return linear(out, p["wo"])
+    out = linear(out.reshape(b, 1, h * s.v_head_dim).to(x.dtype), p["wo"])
+    return out if tp is None else C.reduce_from(out, tp.group)
 
 
 def _absorbed_attend(p: dict, x: torch.Tensor, s: MLASpec,
                      q: torch.Tensor, c_kv: torch.Tensor,
-                     k_rope: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
-    """The one-token attention both decode paths share, in latent space:
-    q (B, 1, H, qk_head_dim) over c_kv (B, cap, R_kv) and k_rope (B, cap,
+                     k_rope: torch.Tensor, valid: torch.Tensor,
+                     tp=None) -> torch.Tensor:
+    """The one-token attention both decode paths share over a whole
+    (uncut) cache, in latent space: q (B, 1, H', qk_head_dim) of the
+    heads the rank computes over c_kv (B, cap, R_kv) and k_rope (B, cap,
     R_rope) with ``valid`` (1 or B, cap) masking the slots it may read,
     then the output projection (:func:`_absorbed_out`)."""
     c_kv32 = c_kv.float()
-    probs = torch.softmax(_absorbed_scores(p, s, q, c_kv32, k_rope, valid),
-                          dim=-1)
+    probs = torch.softmax(_absorbed_scores(s, _absorb(p, s, q), c_kv32,
+                                           k_rope, valid), dim=-1)
     o_lat = torch.einsum("bhk,bkr->bhr", probs, c_kv32)
-    return _absorbed_out(p, x, s, o_lat)
+    return _absorbed_out(p, x, s, o_lat, tp)
 
 
 def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache,
-               pos: int, tuner=None):
+               pos: int, tuner=None, tp=None):
     """One-token decode against the latent cache: x (B, 1, D); ``pos`` =
     tokens so far.  The new latent row is written into ``cache`` in
     place (slot ``min(pos, cap - 1)``, where the reference's
     ``dynamic_update_slice`` clamps), and the same cache is returned.
 
+    With ``tp`` the rank computes the latents whole and its whole query
+    heads (as :func:`mla_train`): it absorbs their q_nope through its
+    columns of wk_b, decompresses their o_lat through its columns of
+    wv_b and leaves through its rows of wo, summed over the group.
+
     A :class:`~repro_torch.models.layers.SplitKV` cache (the latent
     cache cut on its sequence over 'model') is read split-KV: the rank
-    that holds the slot writes the row, each rank's absorbed scores and
-    latent output over its own slots are a partial softmax, merged by
-    :func:`~repro_torch.dist.collectives.softmax_combine` before wv_b
-    decompresses.  The weights are whole on every rank."""
+    that holds the slot writes the row; the absorbed query of every head
+    is gathered over the group (small: B x H x R_kv); each rank's
+    absorbed scores and latent output over its own slots are a partial
+    softmax, merged by
+    :func:`~repro_torch.dist.collectives.softmax_combine`; the rank
+    keeps its heads.  An uncut cache is read whole on the rank's heads,
+    with no gather."""
     from repro_torch.dist.collectives import softmax_combine
     from repro_torch.models.layers import SplitKV, cache_slots
 
     b = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
-    q, c_kv_new, k_rope_new = _latents(p, x, s, positions, tuner)
+    q, c_kv_new, k_rope_new = _latents(p, x, s, positions, tuner, tp)
     lat, slots = cache_slots(cache)
     # latent cache update: sequential append + triangular-prefix read,
     # TRSM-adjacent exactly like the GQA KV cache update
@@ -263,28 +335,31 @@ def mla_decode(p: dict, x: torch.Tensor, s: MLASpec, cache,
     valid = (slots.ids(x.device) <= pos)[None, :]
     if not isinstance(cache, SplitKV):
         return _absorbed_attend(p, x, s, q, lat.c_kv, lat.k_rope,
-                                valid), cache
+                                valid, tp), cache
     c_kv32 = lat.c_kv.float()
-    e, m, l = softmax_parts(_absorbed_scores(p, s, q, c_kv32, lat.k_rope,
-                                              valid))
+    qa = _every_head(_absorb(p, s, q), tp)
+    e, m, l = softmax_parts(_absorbed_scores(s, qa, c_kv32, lat.k_rope,
+                                             valid))
     o_lat = softmax_combine(torch.einsum("bhk,bkr->bhr", e, c_kv32), m, l,
                             cache.tp.group)
-    return _absorbed_out(p, x, s, o_lat), cache
+    return _absorbed_out(p, x, s, _own_heads(o_lat, tp), tp), cache
 
 
 def _absorbed_pages(p: dict, s: MLASpec, view, plan, q: torch.Tensor,
-                    c_kv_new: torch.Tensor, k_rope_new: torch.Tensor
-                    ) -> torch.Tensor:
+                    c_kv_new: torch.Tensor, k_rope_new: torch.Tensor,
+                    tp=None) -> torch.Tensor:
     """The paged latent decode's attention on a mesh, over a
     :class:`~repro_torch.serve.kv_cache.PagedSplit` latent pool: q
-    (B_loc, 1, H, qk_head_dim) and the new latent rows of this rank's
-    rows.  The rows of every slot are gathered; the rank writes its
-    columns of the new rows of the slots whose pages it stores, and
-    attends every slot over its pages on its columns of ``kv_lora_rank``
-    and ``qk_rope_dim`` (partial absorbed scores, summed over 'model'
-    for a cut field); the partial softmaxes are merged over the page
-    axes, the rank keeps its rows and its columns of o_lat are joined
-    over 'model'.  Returns o_lat (B_loc, H, R_kv) fp32, normalised."""
+    (B_loc, 1, H', qk_head_dim) of the heads the rank computes (with
+    ``tp`` its own; their absorbed query is gathered over the group to
+    every head) and the new latent rows of this rank's rows.  The rows
+    of every slot are gathered; the rank writes its columns of the new
+    rows of the slots whose pages it stores, and attends every slot over
+    its pages on its columns of ``kv_lora_rank`` and ``qk_rope_dim``
+    (partial absorbed scores, summed over 'model' for a cut field); the
+    partial softmaxes are merged over the page axes, the rank keeps its
+    rows, its columns of o_lat are joined over 'model' and it keeps its
+    heads.  Returns o_lat (B_loc, H', R_kv) fp32, normalised."""
     from repro_torch.dist.collectives import softmax_combine
     from repro_torch.models.layers import page_mask, page_parts
     from repro_torch.serve.kv_cache import append_token, gather_pages
@@ -294,8 +369,10 @@ def _absorbed_pages(p: dict, s: MLASpec, view, plan, q: torch.Tensor,
             f"paged decode of a latent pool cut on dims {view.cuts} over "
             "'model'")
     pool = view.pool
-    q, c_kv_new, k_rope_new = (view.gather(t)
-                               for t in (q, c_kv_new, k_rope_new))
+    r = s.kv_lora_rank
+    qa = view.gather(_every_head(_absorb(p, s, q), tp))
+    new = view.gather(torch.cat([c_kv_new, k_rope_new], dim=-1))
+    c_kv_new, k_rope_new = new[..., :r], new[..., r:]
     active = plan.pos >= 0
     append_token(pool.c_kv, plan.table, plan.pos,
                  view.piece(c_kv_new[:, 0], "c_kv"), active, plan)
@@ -303,12 +380,10 @@ def _absorbed_pages(p: dict, s: MLASpec, view, plan, q: torch.Tensor,
                  view.piece(k_rope_new[:, 0], "k_rope"), active, plan)
     c_kv32 = gather_pages(pool.c_kv, plan.table, plan).float()
     k_rope = gather_pages(pool.k_rope, plan.table, plan)
-    wk_b = p["wk_b"].reshape(s.kv_lora_rank, s.n_heads, s.qk_nope_dim)
-    q_lat = torch.einsum("bohd,rhd->bhr", q[..., : s.qk_nope_dim].float(),
-                         wk_b.float())
-    s_lat = torch.einsum("bhr,bkr->bhk", view.piece(q_lat, "c_kv"), c_kv32)
-    q_rope = view.piece(q[..., s.qk_nope_dim:], "k_rope")
-    s_rope = torch.einsum("bohd,bkd->bhk", q_rope.float(), k_rope.float())
+    s_lat = torch.einsum("bhr,bkr->bhk", view.piece(qa[..., :r], "c_kv"),
+                         c_kv32)
+    s_rope = torch.einsum("bhd,bkd->bhk", view.piece(qa[..., r:], "k_rope"),
+                          k_rope.float())
     scores = view.scores([(s_lat, "c_kv"), (s_rope, "k_rope")]) \
         * (s.qk_head_dim ** -0.5)
     e, m, l = page_parts(scores, *page_mask(plan, plan.pos,
@@ -316,12 +391,12 @@ def _absorbed_pages(p: dict, s: MLASpec, view, plan, q: torch.Tensor,
                                             pool.page_size))
     o_lat = softmax_combine(torch.einsum("bhk,bkr->bhr", e, c_kv32), m, l,
                             view.pages)
-    return view.join(view.keep(o_lat), "c_kv")
+    return _own_heads(view.join(view.keep(o_lat), "c_kv"), tp)
 
 
 def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
                      page_table: torch.Tensor, pos: torch.Tensor,
-                     tuner=None, plan=None):
+                     tuner=None, plan=None, tp=None):
     """One-token decode against a paged latent pool (continuous batching).
 
     The paged twin of :func:`mla_decode`: ``pos`` is (B,) int per-
@@ -336,22 +411,23 @@ def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
     :func:`~repro_torch.serve.kv_cache.plan_step` for this table and
     these positions, computed once for all layers (else here).  A
     :class:`~repro_torch.serve.kv_cache.PagedSplit` pool (on a mesh) is
-    read split-KV over its pages (:func:`_absorbed_pages`), the weights
-    whole on every rank.
+    read split-KV over its pages (:func:`_absorbed_pages`).  With ``tp``
+    the rank computes its whole query heads, as :func:`mla_decode`.
     """
     from repro_torch.serve.kv_cache import (PagedSplit, append_token,
                                             gather_pages, plan_step)
 
     b = x.shape[0]
-    q, c_kv_new, k_rope_new = _latents(p, x, s, pos[:, None], tuner)
+    q, c_kv_new, k_rope_new = _latents(p, x, s, pos[:, None], tuner, tp)
     cap = page_table.shape[1] * pool.page_size
     ops.observe(cap, s.kv_lora_rank, b * s.n_heads,
                 tuner, routine="trsm", site="mla.cache_update")
     if plan is None:
         plan = plan_step(pool, page_table, pos)
     if isinstance(pool, PagedSplit):
-        o_lat = _absorbed_pages(p, s, pool, plan, q, c_kv_new, k_rope_new)
-        return _absorbed_out(p, x, s, o_lat), pool
+        o_lat = _absorbed_pages(p, s, pool, plan, q, c_kv_new, k_rope_new,
+                                tp)
+        return _absorbed_out(p, x, s, o_lat, tp), pool
     active = pos >= 0
     append_token(pool.c_kv, page_table, pos, c_kv_new[:, 0], active, plan)
     append_token(pool.k_rope, page_table, pos, k_rope_new[:, 0], active,
@@ -360,4 +436,4 @@ def mla_decode_paged(p: dict, x: torch.Tensor, s: MLASpec, pool,
     k_rope = gather_pages(pool.k_rope, page_table, plan)   # (B, cap, R_rope)
     valid = (torch.arange(cap, device=x.device)[None, :]
              <= pos[:, None])
-    return _absorbed_attend(p, x, s, q, c_kv, k_rope, valid), pool
+    return _absorbed_attend(p, x, s, q, c_kv, k_rope, valid, tp), pool

@@ -34,11 +34,16 @@ from repro_torch.models.layers import linear
 from repro_torch.models.params import ParamDef
 
 __all__ = ["MoESpec", "moe_defs", "apply_moe", "apply_moe_ep",
-           "apply_moe_tp", "apply_moe_decode", "is_expert_weight"]
+           "apply_moe_tp", "apply_moe_decode", "is_expert_weight",
+           "is_shared_weight"]
 
 #: the expert weights, which a mesh path lays out by expert (EP) or by
-#: FF slice (TP); the router and the shared experts are replicated
+#: FF slice (TP); the router and, in train and prefill, the shared
+#: experts are replicated
 EXPERT_WEIGHTS = ("wi", "wg", "wo")
+#: the shared experts' weights, which a decode step on a mesh computes
+#: where they are stored (their FF width over 'model')
+SHARED_WEIGHTS = ("shared_wi", "shared_wg", "shared_wo")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +85,13 @@ def is_expert_weight(path: tuple) -> bool:
         and path[-1] in EXPERT_WEIGHTS
 
 
+def is_shared_weight(path: tuple) -> bool:
+    """Is the parameter at ``path`` an MoE layer's shared-expert
+    weight?"""
+    return len(path) > 1 and path[-2] == "moe" \
+        and path[-1] in SHARED_WEIGHTS
+
+
 def _route(p: dict, xf: torch.Tensor, s: MoESpec
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(gate_vals, gate_idx, aux_loss) for flat tokens xf (T, D)."""
@@ -93,14 +105,46 @@ def _route(p: dict, xf: torch.Tensor, s: MoESpec
     return gate_vals, gate_idx, aux
 
 
-def _shared_ffn(p: dict, xf: torch.Tensor, tuner=None) -> torch.Tensor:
-    ops.observe(xf.shape[0], xf.shape[1],
-                2 * p["shared_wi"].shape[-1], tuner,
+def _shared_ffn(p: dict, xf: torch.Tensor, tuner=None,
+                tp=None) -> torch.Tensor:
+    """The shared experts on flat tokens xf (T, D); with ``tp`` the
+    weights are this rank's FF slice (``shared_wi`` / ``shared_wg``
+    columns, ``shared_wo`` rows) and the partial output is summed over
+    the group, as :func:`~repro_torch.models.layers.apply_mlp` does.
+    The recorder sees the whole width."""
+    from repro_torch.dist import collectives as C
+
+    f = p["shared_wi"].shape[-1] * (1 if tp is None else tp.size)
+    ops.observe(xf.shape[0], xf.shape[1], 2 * f, tuner,
                 site="moe.shared_in")
-    ops.observe(xf.shape[0], p["shared_wo"].shape[-2],
-                p["shared_wo"].shape[-1], tuner, site="moe.shared_out")
+    ops.observe(xf.shape[0], f, p["shared_wo"].shape[-1], tuner,
+                site="moe.shared_out")
+    if tp is not None:
+        xf = C.copy_to(xf, tp.group)
     sh = F.silu(linear(xf, p["shared_wg"])) * linear(xf, p["shared_wi"])
-    return linear(sh, p["shared_wo"])
+    out = linear(sh, p["shared_wo"])
+    return out if tp is None else C.reduce_from(out, tp.group)
+
+
+def _shared_at(p: dict, mesh) -> tuple[dict, object]:
+    """(the shared experts' weights a decode rank computes with, the
+    :class:`~repro_torch.dist.collectives.TPGroup` that sums them or
+    None): each rank's FF slice over 'model' where they are stored cut
+    so (the reference's 'ff' rule), with no copy; else whole."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import TP_AXIS, to_placements
+
+    wi = p["shared_wi"]
+    m = list(mesh.mesh_dim_names).index(TP_AXIS)
+    if isinstance(wi, DTensor) and wi.placements[m] == Shard(1):
+        at = {"shared_wi": (None, TP_AXIS), "shared_wg": (None, TP_AXIS),
+              "shared_wo": (TP_AXIS, None)}
+        return ({k: C.local_at(p[k], mesh, to_placements(spec, mesh))
+                 for k, spec in at.items()}, C.TPGroup.of(mesh, TP_AXIS))
+    return {k: C.local_at(p[k], mesh, C.replicated(mesh))
+            for k in SHARED_WEIGHTS}, None
 
 
 def _dispatch(xf: torch.Tensor, gate_idx: torch.Tensor, s: MoESpec,
@@ -268,9 +312,10 @@ def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The MoE of a decode step on ``mesh``: ``x`` is this rank's rows
     (B_loc, S, D) of a batch cut over ``row_axes`` (whole over the
-    others), the expert weights are as stored (DTensors: the experts cut
-    over the data axes, their FF width over 'model'; a plain tensor is
-    whole), the router and the shared experts whole.
+    others), the expert and shared-expert weights are as stored
+    (DTensors: the experts cut over the data axes, their FF width and
+    the shared experts' over 'model'; a plain tensor is whole), the
+    router whole.
 
     The reference runs its one-hot ``apply_moe`` on the global batch
     under GSPMD, so its capacity and each expert's (token, choice) order
@@ -279,7 +324,8 @@ def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
     runs the grouped GEMMs on its own experts and FF slice, combines
     what they give every token, the partial outputs are summed over the
     mesh axes that cut the experts or FF, and the rank keeps its rows.
-    No weight moves.
+    The shared experts run on the rank's rows and its FF slice, summed
+    over 'model' (:func:`_shared_at`).  No weight moves.
     """
     from torch.distributed.tensor import DTensor
 
@@ -322,6 +368,7 @@ def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
     i = C.row_index(mesh, row_axes)
     out = out.reshape(-1, sl, d)[i * b_loc:(i + 1) * b_loc]
     if s.n_shared:
-        out = out + _shared_ffn(p, x.reshape(-1, d), tuner).reshape(
-            b_loc, sl, d)
+        shared, tp = _shared_at(p, mesh)
+        out = out + _shared_ffn(shared, x.reshape(-1, d), tuner,
+                                tp).reshape(b_loc, sl, d)
     return out, aux

@@ -23,14 +23,14 @@ single-device one without a mesh, the whole batch routed onto each
 rank's stored experts in a decode step, else expert or tensor
 parallelism on the ctx's torch ``DeviceMesh``.  On a mesh the dense
 blocks also run tensor-parallel over 'model' (:func:`dense_mesh_layout`:
-the embedding and the loss or logits cut on the vocab, GQA attention on
-whole heads, the MLP on its FF width), each rank on its shards, with
-the residual stream whole on every rank of the axis, as GSPMD
-partitions the reference's; a decode step reads the attention caches
-cut on their sequence split-KV.  A recurrent layer's
-prefill by-product is its final state, which is already the decode
-cache; its decode step returns a new state, where attention layers
-write their caches in place.
+the embedding and the loss or logits cut on the vocab, GQA and MLA
+attention on whole heads, the MLP on its FF width), each rank on its
+shards, with the residual stream whole on every rank of the axis, as
+GSPMD partitions the reference's; a decode step reads the attention
+caches cut on their sequence split-KV.  A recurrent layer's prefill
+by-product is its final state, which is already the decode cache; its
+decode step returns a new state, where attention layers write their
+caches in place.
 """
 
 from __future__ import annotations
@@ -322,18 +322,20 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     """Which dense widths a ``size``-way 'model' axis cuts for compute:
     ``vocab`` (the embedding, logits and loss), ``heads`` (GQA
     attention on whole query heads), ``kv_heads`` (and whole KV heads;
-    else each rank picks the KV heads its query heads read), ``ff`` (the
-    dense MLPs).  The encoder-decoder and the MLA, RG-LRU and xLSTM
-    mixers are not cut."""
+    else each rank picks the KV heads its query heads read), ``mla``
+    (MLA on whole query heads, the latents whole), ``ff`` (the dense
+    MLPs).  The encoder-decoder and the RG-LRU and xLSTM mixers are not
+    cut."""
     if cfg.family == "audio":
         return {"vocab": False, "heads": False, "kv_heads": False,
-                "ff": False}
+                "mla": False, "ff": False}
     plan = _layer_plan(cfg)
-    heads = (cfg.attn_kind != "mla" and any(_is_attn(s) for s in plan)
-             and cfg.n_heads % size == 0)
+    attn = any(_is_attn(s) for s in plan) and cfg.n_heads % size == 0
+    heads = attn and cfg.attn_kind != "mla"
     ffs = [s.d_ff for s in plan if s.mlp == "mlp"]
     return {"vocab": cfg.vocab % size == 0, "heads": heads,
             "kv_heads": heads and cfg.n_kv_heads % size == 0,
+            "mla": attn and cfg.attn_kind == "mla",
             "ff": bool(ffs) and all(f % size == 0 for f in ffs)}
 
 
@@ -350,8 +352,10 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
     with: ``{weight: (compute spec, partial)}``, the weight by the key
     :func:`dense_weight_key` gives a parameter's path; a weight not in
     the table is computed whole on every rank (gathered where stored
-    cut), as are the MoE's router and shared experts
-    (:func:`moe_mesh_layout` places the experts).
+    cut), as are the MoE's router and, in train and prefill, its shared
+    experts (:func:`moe_mesh_layout` places the experts; a decode step
+    computes the routed and shared experts where they are stored,
+    :func:`~repro_torch.models.moe.apply_moe_decode`).
 
     * ``embed`` (V, D) and ``unembed`` (D, V): cut on V when V % tp
       == 0 (the vocab-parallel lookup, logits and CE); else the vocab
@@ -363,6 +367,11 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
       heads its query heads read;
     * ``attn.q_norm`` / ``attn.k_norm``: whole, applied to the rank's
       heads;
+    * ``mla.wq_b`` / ``mla.wk_b`` / ``mla.wv_b`` / ``mla.wo``: columns /
+      rows cut at whole heads when H % tp == 0 (each is head-major, so a
+      rank's heads are one contiguous range); MLA's latent weights
+      (``wq_a``, ``q_norm``, ``wkv_a``, ``kv_norm``, ``wk_rope``) are
+      not in the table: whole, as the reference stores them;
     * ``mlp.wi`` / ``mlp.wg`` / ``mlp.wo``: columns / rows cut when
       every dense MLP's F % tp == 0.
 
@@ -389,6 +398,11 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
                     "attn.wo": ((m, None), False),
                     "attn.wk": kv, "attn.wv": kv,
                     "attn.q_norm": ((), True), "attn.k_norm": ((), True)})
+    if cuts["mla"]:
+        out.update({"mla.wq_b": ((None, m), False),
+                    "mla.wk_b": ((None, m), False),
+                    "mla.wv_b": ((None, m), False),
+                    "mla.wo": ((m, None), False)})
     if cuts["ff"]:
         out.update({"mlp.wi": ((None, m), False),
                     "mlp.wg": ((None, m), False),
@@ -398,17 +412,17 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
 
 def dense_weight_key(model, path: tuple) -> str | None:
     """The :func:`dense_mesh_layout` key of the parameter at ``path``
-    (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer, ``mlp.<name>``
-    of a dense MLP), or None."""
+    (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer, ``mla.<name>``
+    of an MLA mixer, ``mlp.<name>`` of a dense MLP), or None."""
     if path in (("embed",), ("unembed",)):
         return path[0]
     plan = getattr(model, "plan", None)
     if plan is None or len(path) != 4 or path[0] != "layers":
         return None
     _, i, block, name = path
-    if block == "mixer" and _is_attn(plan[i]) \
-            and model.cfg.attn_kind != "mla":
-        return f"attn.{name}"
+    if block == "mixer" and _is_attn(plan[i]):
+        kind = "mla" if model.cfg.attn_kind == "mla" else "attn"
+        return f"{kind}.{name}"
     if block == "mlp":
         return f"mlp.{name}"
     return None
@@ -506,7 +520,7 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
         mix, raw = XL.slstm_train(p["mixer"], h, _xlstm_spec(cfg))
     elif cfg.attn_kind == "mla":
         mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
-                                 tuner=ctx.tuner)
+                                 tuner=ctx.tuner, tp=_cut(cfg, ctx, "mla"))
     else:
         a, tp = _attn_spec(cfg, spec.kind), _cut(cfg, ctx, "heads")
         mix, raw = L.attention_train(p["mixer"], h, a, tuner=ctx.tuner,
@@ -538,13 +552,14 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     elif spec.kind == "slstm":
         mix, cache = XL.slstm_decode(p["mixer"], h, _xlstm_spec(cfg), cache)
     elif cfg.attn_kind == "mla":
+        tp = _cut(cfg, ctx, "mla")
         if page_table is not None:
             mix, cache = MLA.mla_decode_paged(
                 p["mixer"], h, _mla_spec(cfg), cache, page_table, pos,
-                tuner=ctx.tuner, plan=plan)
+                tuner=ctx.tuner, plan=plan, tp=tp)
         else:
             mix, cache = MLA.mla_decode(p["mixer"], h, _mla_spec(cfg),
-                                        cache, pos, tuner=ctx.tuner)
+                                        cache, pos, tuner=ctx.tuner, tp=tp)
     elif page_table is not None:
         mix, cache = L.attention_decode_paged(
             p["mixer"], h, _attn_spec(cfg, spec.kind), cache, page_table,

@@ -41,7 +41,7 @@ from repro_torch.dist.sharding import (
     partition_params,
 )
 from repro_torch.models.config import ArchConfig, ShapeSpec
-from repro_torch.models.moe import is_expert_weight
+from repro_torch.models.moe import is_expert_weight, is_shared_weight
 from repro_torch.models.params import tree_map, tree_paths
 from repro_torch.train.step import make_ctx
 
@@ -154,10 +154,12 @@ def decode_inputs_sds(model, cfg: ArchConfig, shape: ShapeSpec,
 def forward_specs(paths: Any, mesh, *, keep_experts: bool,
                   model=None) -> list:
     """The spec a rank computes each parameter with, by its path in
-    ``paths``: None for a MoE expert with ``keep_experts`` (left where it
-    is stored, for the MoE's mesh path, which moves it in a prefill and
-    computes where it is stored in a decode); with ``model``, a dense
-    block's weight at its
+    ``paths``: None for a MoE routed or shared expert with
+    ``keep_experts`` (left where it is stored, for the MoE's mesh path:
+    a prefill moves the routed experts to their EP or TP layout and
+    gathers the shared experts whole, as the reference's ``shard_map``
+    takes them; a decode computes both where they are stored); with
+    ``model``, a dense block's weight at its
     :func:`~repro_torch.models.transformer.dense_mesh_layout` spec; every
     other weight ``()``, whole.  The rule :func:`forward_params` applies;
     ``mesh`` may be a :class:`~repro_torch.dist.sharding.MeshShape`."""
@@ -165,7 +167,8 @@ def forward_specs(paths: Any, mesh, *, keep_experts: bool,
         dense_weight_key
 
     dense = {} if model is None else dense_mesh_layout(model.cfg, mesh)
-    return [None if keep_experts and is_expert_weight(path) else
+    return [None if keep_experts and (is_expert_weight(path)
+                                      or is_shared_weight(path)) else
             dense.get(dense_weight_key(model, path), ((), False))[0]
             for path in paths]
 

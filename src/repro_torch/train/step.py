@@ -169,7 +169,9 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
       parameter's stored layout; a gradient the layout marks partial
       (each rank's term from its own heads: picked KV columns, the qk
       norms) is summed over 'model' on the way (a reduce-scatter where
-      the stored layout cuts it);
+      the stored layout cuts it); MLA's weights need no such sum (its
+      heads' columns and rows are computed and stored alike, and its
+      latents' gradients are summed where they fork into the heads);
     * AdamW runs on the local shards, with the clipping norm and the
       int8 scales taken over whole tensors.
 

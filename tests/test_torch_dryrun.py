@@ -437,6 +437,95 @@ def test_full_width_train_flops_a_rank_on_a_16x16_world():
     assert 0.95 <= got["flops"] / got["share"] <= 1.1, got
 
 
+_MLA_WIDTH_TRACE = """
+import dataclasses, json
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import mla as MLA
+from repro_torch.models.config import SHAPES
+D.fake_world(256)
+mesh = make_mesh((16, 16), ("data", "model"), device_type="cpu")
+cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2)
+shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=%d,
+                            global_batch=16)
+modes, mixer, gathered = [], [], []
+
+class Probe(D.TraceMode):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        modes.append(self)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        packet = getattr(func, "_overloadpacket", None)
+        kind = packet and D._COLL_OPS.get((func.namespace, packet.__name__))
+        if kind == "all-gather" and out is not NotImplemented:
+            written = D._tensors(args[0] if func.namespace == "c10d" else out)
+            gathered.append(sum(t.numel() for t in written))
+        return out
+
+def counted(p, *args, **kwargs):
+    f0 = modes[-1].flops
+    out = train(p, *args, **kwargs)
+    mixer.append({"flops": modes[-1].flops - f0,
+                  "shapes": {k: list(p[k].shape) for k in p}})
+    return out
+
+train, MLA.mla_train, D.TraceMode = MLA.mla_train, counted, Probe
+rec = D.run_cell("deepseek-v2-236b", "prefill_32k", False, device="cpu",
+                 cfg=cfg, shape=shape, mesh=mesh)
+print(json.dumps({"status": rec["status"], "mixer": mixer,
+                  "gathered": gathered}))
+"""
+#: the full-width MLA trace's prompt: one query chunk of the chunked core
+MLA_TRACE_SEQ = 256
+
+
+def test_full_width_mla_flops_a_rank_on_a_16x16_world():
+    """deepseek-v2-236b at full width (128 heads, kv_lora 512, q_lora
+    1536), cut to 2 layers and a 256-token prefill (16 rows: one a data
+    rank), traced on rank 0 of a fake (16, 16) world in its own process:
+    each MLA mixer's FLOPs a rank are its heads-cut terms over 16 (wq_b,
+    wk_b, wv_b, the attention core on its 8 heads, wo) plus the latent
+    projections whole (wq_a, wkv_a, wk_rope), exactly; the mixer is given
+    its 1 / 16 of the heads' weights, and no all-gather of the step is
+    the size of a whole ``wq_b``, ``wk_b``, ``wv_b`` or ``wo``."""
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run(
+        [sys.executable, "-c", _MLA_WIDTH_TRACE % MLA_TRACE_SEQ], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"] == "ok"
+    cfg = get_config("deepseek-v2-236b")
+    tp, b, s = 16, 1, MLA_TRACE_SEQ
+    t, d, h = b * s, cfg.d_model, cfg.n_heads // tp
+    qk, nope, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim, \
+        cfg.v_head_dim
+    latents = 2 * t * d * (cfg.q_lora_rank + cfg.kv_lora_rank
+                           + cfg.qk_rope_dim)
+    # the chunked core scores every key of its one chunk: 2 b h S^2 (qk + v)
+    heads = (2 * t * cfg.q_lora_rank * h * qk
+             + 2 * t * cfg.kv_lora_rank * h * (nope + v)
+             + 2 * b * h * s * s * (qk + v)
+             + 2 * t * h * v * d)
+    assert len(got["mixer"]) == 2
+    for call in got["mixer"]:
+        assert call["flops"] == pytest.approx(latents + heads, rel=EXACT)
+        assert call["shapes"]["wq_b"] == [cfg.q_lora_rank, h * qk]
+        assert call["shapes"]["wk_b"] == [cfg.kv_lora_rank, h * nope]
+        assert call["shapes"]["wv_b"] == [cfg.kv_lora_rank, h * v]
+        assert call["shapes"]["wo"] == [h * v, d]
+        assert call["shapes"]["wq_a"] == [d, cfg.q_lora_rank]
+    whole = {cfg.q_lora_rank * cfg.n_heads * qk,
+             cfg.kv_lora_rank * cfg.n_heads * nope,
+             cfg.kv_lora_rank * cfg.n_heads * v, cfg.n_heads * v * d}
+    assert got["gathered"] and not whole & set(got["gathered"]), got
+
+
 #: xlstm's smoke cells at two lengths: one mLSTM chunk of 256, and 16
 XLSTM_LENGTHS = (256, 4096)
 XLSTM_KINDS = ("train_4k", "prefill_32k")

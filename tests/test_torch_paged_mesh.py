@@ -24,7 +24,10 @@ one device), one is inactive (pos -1).  Smoke stablelm-1.6b (MHA: the pool cut o
 its head dim over 'model'), granite-8b (2 KV heads), deepseek-v2-236b
 (MLA's latent pool, cut on kv_lora_rank and qk_rope_dim; routed and
 shared experts) and stablelm with 8 heads of 8 (the pool cut on its KV
-heads).  Each rank: STEPS greedy steps of the built paged decode, held
+heads).  Each rank: STEPS greedy steps of the built paged decode (for
+deepseek the first one watched: the local shapes of the MLA and
+shared-expert weights the rank computes with, and the step's
+collectives by ``CommDebugMode``), held
 against the JAX reference's single-device paged ``decode_step`` over the
 whole batch on the same pool and table: logits within LOGIT_TOL (1e-5,
 fp32) at every step, the same greedy tokens, the pools returned in
@@ -65,6 +68,12 @@ OVERFLOW = ("overflow", "deepseek-v2-236b", {})
 OVERFLOW_SLOTS = 16
 OVERFLOW_SAME = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
 WORLDS = {(1, 2): CASES, (2, 1): CASES + [OVERFLOW], (2, 2): CASES}
+
+
+#: the weights a deepseek rank's paged step logs: MLA's four on 'heads',
+#: two of its latent projections, the shared experts
+MLA_LOGGED = ("wq_b", "wk_b", "wv_b", "wo", "wq_a", "wkv_a")
+SHARED_LOGGED = ("shared_wi", "shared_wg", "shared_wo")
 
 
 def _slots(case) -> int:
@@ -142,8 +151,34 @@ def _other_rank_reads(case, n_dp: int) -> int:
 # the ranks' work (runs in spawned processes: imports no jax)
 # ---------------------------------------------------------------------------
 
+def _spy(log: dict):
+    """Patch MLA's paged decode and the MoE's shared experts to log the
+    local shapes of the weights they are given; returns the undo."""
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import moe as MOE
+
+    orig = (MLA.mla_decode_paged, MOE._shared_ffn)
+
+    def mla_decode_paged(p, *a, **k):
+        for n in MLA_LOGGED:
+            log.setdefault(f"mla.{n}", set()).add(tuple(p[n].shape))
+        return orig[0](p, *a, **k)
+
+    def shared_ffn(p, *a, **k):
+        for n in SHARED_LOGGED:
+            log.setdefault(n, set()).add(tuple(p[n].shape))
+        return orig[1](p, *a, **k)
+
+    MLA.mla_decode_paged, MOE._shared_ffn = mla_decode_paged, shared_ffn
+
+    def undo():
+        MLA.mla_decode_paged, MOE._shared_ffn = orig
+    return undo
+
+
 def _case(mesh, tmp: str, case) -> dict:
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import build_model, get_smoke_config
     from repro_torch.dist.collectives import distribute, row_index
@@ -178,6 +213,7 @@ def _case(mesh, tmp: str, case) -> dict:
     rows = slice(i * b_loc, (i + 1) * b_loc)
     tok = tok[rows]
     out_logits, out_tokens, own_rows = [], [], None
+    log, comm = {}, None
     with torch.no_grad():
         for s in range(STEPS):
             if cid == "overflow" and s == 0:
@@ -187,9 +223,19 @@ def _case(mesh, tmp: str, case) -> dict:
                 own_rows = model.decode_step(
                     params, tok, own, pos[rows],
                     make_ctx("decode", cache_len=CAP), table[rows])[0]
-            step_logits, out = decode(
-                sharded, tok, pools, distribute(pos, mesh, pos_spec),
-                distribute(table, mesh, table_spec))
+            args = (distribute(pos, mesh, pos_spec),
+                    distribute(table, mesh, table_spec))
+            if cfg.attn_kind == "mla" and s == 0:
+                undo = _spy(log)
+                try:
+                    with CommDebugMode() as mode:
+                        step_logits, out = decode(sharded, tok, pools,
+                                                  *args)
+                finally:
+                    undo()
+                comm = {str(k): v for k, v in mode.get_comm_counts().items()}
+            else:
+                step_logits, out = decode(sharded, tok, pools, *args)
             assert out is pools
             out_logits.append(step_logits.numpy())
             tok = step_logits.argmax(-1, keepdim=True)
@@ -215,7 +261,9 @@ def _case(mesh, tmp: str, case) -> dict:
             "specs": [list(t_spec), list(pos_spec), list(table_spec)],
             "layout": layout,
             "in_place": [id(t) for t in leaves] == taken,
-            "all_dtensors": all(isinstance(t, DTensor) for t in leaves)}
+            "all_dtensors": all(isinstance(t, DTensor) for t in leaves),
+            "weights": {k: sorted(v) for k, v in log.items()},
+            "comm": comm}
 
 
 def _world(rank, world, shape, tmp):
@@ -470,6 +518,41 @@ def test_paged_mesh_decode_keeps_the_pool_layout(worlds, item):
             else:
                 kv = 2 if arch == "granite-8b" else 4
                 assert local[2:] == [kv, 16 // tp], leaf
+
+
+DEEPSEEK_ITEMS = [i for i in ITEMS if i[1][1] == "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("item", DEEPSEEK_ITEMS, ids=_ids)
+def test_deepseek_paged_decode_computes_on_its_heads_and_ff(worlds, item):
+    """A deepseek rank's paged mesh step computes MLA on its whole heads
+    (its columns of ``wq_b``, ``wk_b``, ``wv_b`` and rows of ``wo``; the
+    latent projections whole) and the shared experts on its FF slice,
+    and gathers no weight: ``CommDebugMode`` sees no DTensor
+    redistribution (a functional all-gather) in the step; its
+    all-gathers are the model's own, among them each MLA layer's
+    absorbed query (and rope) over 'model'."""
+    from repro_torch.configs import get_smoke_config
+
+    shape, case = item
+    tp = shape[1]
+    cfg = dataclasses.replace(get_smoke_config(case[1]), **case[2])
+    h, d = cfg.n_heads // tp, cfg.d_model
+    ff = cfg.n_shared_experts * cfg.d_ff_expert // tp
+    want = {"mla.wq_b": (cfg.q_lora_rank, h * cfg.resolved_head_dim),
+            "mla.wk_b": (cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+            "mla.wv_b": (cfg.kv_lora_rank, h * cfg.v_head_dim),
+            "mla.wo": (h * cfg.v_head_dim, d),
+            "mla.wq_a": (d, cfg.q_lora_rank),
+            "mla.wkv_a": (d, cfg.kv_lora_rank),
+            "shared_wi": (d, ff), "shared_wg": (d, ff),
+            "shared_wo": (ff, d)}
+    for r in worlds[shape]["ranks"]:
+        got = r[case[0]]
+        assert got["weights"] == {k: [list(v)] for k, v in want.items()}
+        comm = got["comm"]
+        assert not any("functional" in k for k in comm), comm
+        assert comm.get("c10d._allgather_base_", 0) >= cfg.n_layers, comm
 
 
 @pytest.mark.parametrize("n_dp", [2])

@@ -10,11 +10,13 @@ plain versions run (CPU tensors).
   norms applied to each rank's heads: their gradient is a partial sum);
 * (1, 4): granite-8b's (2 KV heads on 4 ranks: each rank picks the KV
   head its query head reads, and that gradient is a partial sum),
-  starcoder2-3b's cut to 6 heads (6 % 4: attention whole on every rank)
-  and mixtral-8x22b's with 6 experts (picked KV heads beside the MoE's
+  starcoder2-3b's cut to 6 heads (6 % 4: attention whole on every rank),
+  mixtral-8x22b's with 6 experts (picked KV heads beside the MoE's
   expert-TP path; with 4 experts the MoE would take its expert-parallel
   path, whose per-shard capacity drops other tokens than one device
-  does, as the reference's).
+  does, as the reference's) and deepseek-v2-236b's with 6 experts (MLA
+  on one whole head a rank, its latents whole; the routed experts on
+  the expert-TP path for the same reason, the shared experts whole).
 
 For each case: the reference's ``model.loss`` and its gradients by
 ``jax.value_and_grad`` on the reference's weights, carried across by
@@ -44,7 +46,8 @@ WORLDS = {
     (1, 2): [("stablelm-1.6b", {}), ("granite-8b", {}),
              ("chameleon-34b", {})],
     (1, 4): [("granite-8b", {}), ("starcoder2-3b", {"n_heads": 6}),
-             ("mixtral-8x22b", {"n_experts": 6})],
+             ("mixtral-8x22b", {"n_experts": 6}),
+             ("deepseek-v2-236b", {"n_experts": 6})],
 }
 CASES = [(shape, arch, over) for shape, cases in WORLDS.items()
          for arch, over in cases]
@@ -52,6 +55,11 @@ CASES = [(shape, arch, over) for shape, cases in WORLDS.items()
 
 def _case_id(arch: str, over: dict) -> str:
     return arch + "".join(f"-{k}{v}" for k, v in sorted(over.items()))
+
+
+#: the MLA weights whose local shapes a rank logs: the four on 'heads'
+#: and two latent projections
+MLA_LOGGED = ("wq_b", "wk_b", "wv_b", "wo", "wq_a", "wkv_a")
 
 
 def _normwise(got, want) -> float:
@@ -71,13 +79,19 @@ def _spy(log: dict):
     given; returns the undo."""
     from repro_torch.dist import collectives as C
     from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
 
-    orig = (L.attention_train, L.apply_mlp, C.vocab_embed)
+    orig = (L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train)
 
     def attention_train(p, *a, **k):
         for n in ("wq", "wk", "wv", "wo"):
             log.setdefault(f"attn.{n}", set()).add(tuple(p[n].shape))
         return orig[0](p, *a, **k)
+
+    def mla_train(p, *a, **k):
+        for n in MLA_LOGGED:
+            log.setdefault(f"mla.{n}", set()).add(tuple(p[n].shape))
+        return orig[3](p, *a, **k)
 
     def apply_mlp(p, *a, **k):
         for n in ("wi", "wo"):
@@ -88,11 +102,11 @@ def _spy(log: dict):
         log.setdefault("embed", set()).add(tuple(w.shape))
         return orig[2](w, *a, **k)
 
-    L.attention_train, L.apply_mlp, C.vocab_embed = \
-        attention_train, apply_mlp, vocab_embed
+    L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train = \
+        attention_train, apply_mlp, vocab_embed, mla_train
 
     def undo():
-        L.attention_train, L.apply_mlp, C.vocab_embed = orig
+        L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train = orig
     return undo
 
 
@@ -361,21 +375,34 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
     """The weights each dense block is given have the local widths of
     the layout, and a step all-gathers only the weights computed whole
     and stored cut: never ``wq``, ``wo``, ``wi`` or ``embed`` where the
-    'model' axis cuts their heads, FF width or vocab."""
+    'model' axis cuts their heads, FF width or vocab, nor MLA's
+    ``wq_b``, ``wk_b``, ``wv_b`` or ``wo`` (MLA's latent projections
+    stay whole)."""
+    from repro_torch.configs import build_model
+
     shape, arch, over = case
     tp = shape[1]
     cfg = _cfg(arch, over)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hk, v = cfg.n_heads, cfg.n_kv_heads, cfg.vocab
     heads_cut = h % tp == 0
-    kv = hk * hd // tp if heads_cut and hk % tp == 0 else hk * hd
-    want = {"attn.wq": (d, h * hd // tp if heads_cut else h * hd),
-            "attn.wk": (d, kv), "attn.wv": (d, kv),
-            "attn.wo": (h * hd // tp if heads_cut else h * hd, d),
-            "embed": (v // tp, d)}
-    if cfg.n_experts == 0:
-        want.update({"mlp.wi": (d, cfg.d_ff // tp),
-                     "mlp.wo": (cfg.d_ff // tp, d)})
+    want = {"embed": (v // tp, d)}
+    if cfg.attn_kind == "mla":
+        want.update({
+            "mla.wq_b": (cfg.q_lora_rank, h // tp * hd),
+            "mla.wk_b": (cfg.kv_lora_rank, h // tp * cfg.qk_nope_dim),
+            "mla.wv_b": (cfg.kv_lora_rank, h // tp * cfg.v_head_dim),
+            "mla.wo": (h // tp * cfg.v_head_dim, d),
+            "mla.wq_a": (d, cfg.q_lora_rank),
+            "mla.wkv_a": (d, cfg.kv_lora_rank)})
+    else:
+        kv = hk * hd // tp if heads_cut and hk % tp == 0 else hk * hd
+        want.update({"attn.wq": (d, h * hd // tp if heads_cut else h * hd),
+                     "attn.wk": (d, kv), "attn.wv": (d, kv),
+                     "attn.wo": (h * hd // tp if heads_cut else h * hd, d)})
+    ffs = {s.d_ff for s in build_model(cfg).plan if s.mlp == "mlp"}
+    for ff in ffs:
+        want.update({"mlp.wi": (d, ff // tp), "mlp.wo": (ff // tp, d)})
     for r in worlds[shape]:
         c = r[_case_id(arch, over)]
         assert set(c["shapes"]) == set(want)
@@ -387,8 +414,15 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
             # the vocab and the FF width are cut in every case here
             assert leaf not in ("embed", "unembed", "wi", "wg"), name
             if heads_cut:
-                assert leaf not in ("wq", "wo"), name
+                assert leaf not in ("wq", "wo", "wq_b", "wk_b",
+                                    "wv_b"), name
                 assert leaf not in ("wk", "wv") or hk % tp, name
+    if arch == "deepseek-v2-236b":
+        # the shared experts, whole in a train step as the reference's
+        # shard_map takes them; no MLA weight
+        assert worlds[shape][0][_case_id(arch, over)]["gathered"] == [
+            f"layers/{i}/moe/{n}" for i in range(1, cfg.n_layers)
+            for n in ("shared_wg", "shared_wi", "shared_wo")]
     if (arch, tp) == ("granite-8b", 4):
         # the picked KV heads: each layer's wk and wv, nothing else
         assert worlds[shape][0][_case_id(arch, over)]["gathered"] == [
@@ -433,7 +467,14 @@ def test_dense_mesh_layout_of_the_production_archs():
     # recurrentgemma's 10 heads stay whole; its MLP and vocab are cut
     assert "attn.wq" not in lay["recurrentgemma-2b"]
     assert "mlp.wg" in lay["recurrentgemma-2b"]
-    # deepseek's MLA mixer is not cut, its dense MLP is
+    # deepseek's mixer is MLA, not GQA; its dense MLP is cut
     assert "attn.wq" not in lay["deepseek-v2-236b"]
     assert "mlp.wi" in lay["deepseek-v2-236b"]
+    # its MLA on whole heads (128 on 16: 8 a rank), the latents whole
+    assert {k: v for k, v in lay["deepseek-v2-236b"].items()
+            if k.startswith("mla.")} == {
+        "mla.wq_b": ((None, m), False), "mla.wk_b": ((None, m), False),
+        "mla.wv_b": ((None, m), False), "mla.wo": ((m, None), False)}
+    assert not any(k.startswith("mla.") for a, t in lay.items()
+                   if a != "deepseek-v2-236b" for k in t)
     assert set(lay["xlstm-125m"]) == {"embed", "unembed"}

@@ -33,10 +33,13 @@ versions run (CPU tensors).
 Each rank: the port's single-device prefill of the whole batch on the
 reference's weights (carried across by ``convert.params_from_jax``),
 its rows of the caches through ``shard_cache``, then ``STEPS`` greedy
-steps of the built mesh decode.  Held against the JAX reference's
-``prefill`` and ``decode_step`` on the whole batch: logits within
-``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy tokens equal, and
-each rank holding ``cap / tp`` slots of every split cache.
+steps of the built mesh decode (for deepseek the first one watched: the
+local shapes of the MLA and shared-expert weights the rank computes
+with, and the step's collectives by ``CommDebugMode``).  Held against
+the JAX reference's ``prefill`` and ``decode_step`` on the whole batch:
+logits within ``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy
+tokens equal, and each rank holding ``cap / tp`` slots of every split
+cache.
 
 Without a world: ``softmax_combine_local`` over 1 to 8 chunks of a
 cache, some with no valid slot, against one softmax (``COMBINE_TOL``);
@@ -74,6 +77,12 @@ OVERFLOW_BATCH = 16
 OVERFLOW_SAME = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
 WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES,
           (2, 1): [OVERFLOW]}
+
+
+#: the weights a deepseek rank's decode step logs: MLA's four on 'heads',
+#: two of its latent projections, the shared experts
+MLA_LOGGED = ("wq_b", "wk_b", "wv_b", "wo", "wq_a", "wkv_a")
+SHARED_LOGGED = ("shared_wi", "shared_wg", "shared_wo")
 
 
 def _batch(case) -> int:
@@ -124,8 +133,34 @@ def _local_slots(cache) -> list:
     return out
 
 
+def _spy(log: dict):
+    """Patch MLA's decode and the MoE's shared experts to log the local
+    shapes of the weights they are given; returns the undo."""
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import moe as MOE
+
+    orig = (MLA.mla_decode, MOE._shared_ffn)
+
+    def mla_decode(p, *a, **k):
+        for n in MLA_LOGGED:
+            log.setdefault(f"mla.{n}", set()).add(tuple(p[n].shape))
+        return orig[0](p, *a, **k)
+
+    def shared_ffn(p, *a, **k):
+        for n in SHARED_LOGGED:
+            log.setdefault(n, set()).add(tuple(p[n].shape))
+        return orig[1](p, *a, **k)
+
+    MLA.mla_decode, MOE._shared_ffn = mla_decode, shared_ffn
+
+    def undo():
+        MLA.mla_decode, MOE._shared_ffn = orig
+    return undo
+
+
 def _case(mesh, tmp: str, case) -> dict:
     from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import build_model, get_smoke_config
     from repro_torch.dist.collectives import distribute, row_index
@@ -160,6 +195,7 @@ def _case(mesh, tmp: str, case) -> dict:
         tok = logits[rows].argmax(-1, keepdim=True)
         first = tok[:, 0].tolist()
         out_logits, out_tokens, own_rows = [], [], None
+        log, comm = {}, None
         for s in range(STEPS):
             if cid == "overflow" and s == 0:
                 # a decode whose MoE counts the rank's rows only: the
@@ -167,7 +203,18 @@ def _case(mesh, tmp: str, case) -> dict:
                 own = _map_arrays(lambda t: t.clone(), mine)
                 own_rows = model.decode_step(params, tok, own, prompt,
                                            dctx)[0].numpy()
-            step_logits, cache = decode(sharded, tok, cache, prompt + s)
+            if cfg.attn_kind == "mla" and s == 0:
+                undo = _spy(log)
+                try:
+                    with CommDebugMode() as mode:
+                        step_logits, cache = decode(sharded, tok, cache,
+                                                    prompt)
+                finally:
+                    undo()
+                comm = {str(k): v for k, v in mode.get_comm_counts().items()}
+            else:
+                step_logits, cache = decode(sharded, tok, cache,
+                                            prompt + s)
             out_logits.append(step_logits.numpy())
             tok = step_logits.argmax(-1, keepdim=True)
             out_tokens.append(tok[:, 0].tolist())
@@ -180,7 +227,9 @@ def _case(mesh, tmp: str, case) -> dict:
     return {"rows": [rows.start, rows.stop], "first": first,
             "tokens": out_tokens, "t_spec": list(t_spec),
             "slots_before": before, "slots_after": _local_slots(cache),
-            "all_dtensors": all(isinstance(t, DTensor) for t in leaves)}
+            "all_dtensors": all(isinstance(t, DTensor) for t in leaves),
+            "weights": {k: sorted(v) for k, v in log.items()},
+            "comm": comm}
 
 
 def _world(rank, world, shape, tmp):
@@ -384,6 +433,41 @@ def test_mesh_decode_keeps_the_cache_layout(worlds, item):
                 else:
                     assert local[1] == cache_len, (name, local)
                     assert local[3] == 16 // tp, (name, local)
+
+
+DEEPSEEK_ITEMS = [i for i in ITEMS if i[1][1] == "deepseek-v2-236b"]
+
+
+@pytest.mark.parametrize("item", DEEPSEEK_ITEMS, ids=_ids)
+def test_deepseek_decode_computes_on_its_heads_and_ff(worlds, item):
+    """A deepseek rank's mesh decode step computes MLA on its whole
+    heads (its columns of ``wq_b``, ``wk_b``, ``wv_b`` and rows of
+    ``wo``; the latent projections whole) and the shared experts on its
+    FF slice, and gathers no weight: ``CommDebugMode`` sees no DTensor
+    redistribution (a functional all-gather) in the step; its all-gathers
+    are the model's own, among them each MLA layer's absorbed query
+    (and rope) over 'model'."""
+    from repro_torch.configs import get_smoke_config
+
+    shape, case = item
+    tp = shape[1]
+    cfg = get_smoke_config(case[1])
+    h, d = cfg.n_heads // tp, cfg.d_model
+    ff = cfg.n_shared_experts * cfg.d_ff_expert // tp
+    want = {"mla.wq_b": (cfg.q_lora_rank, h * cfg.resolved_head_dim),
+            "mla.wk_b": (cfg.kv_lora_rank, h * cfg.qk_nope_dim),
+            "mla.wv_b": (cfg.kv_lora_rank, h * cfg.v_head_dim),
+            "mla.wo": (h * cfg.v_head_dim, d),
+            "mla.wq_a": (d, cfg.q_lora_rank),
+            "mla.wkv_a": (d, cfg.kv_lora_rank),
+            "shared_wi": (d, ff), "shared_wg": (d, ff),
+            "shared_wo": (ff, d)}
+    for r in worlds[shape]:
+        got = r[case[0]]
+        assert got["weights"] == {k: [list(v)] for k, v in want.items()}
+        comm = got["comm"]
+        assert not any("functional" in k for k in comm), comm
+        assert comm.get("c10d._allgather_base_", 0) >= cfg.n_layers, comm
 
 
 def test_decode_capacity_counts_the_global_batch(worlds):
