@@ -191,13 +191,26 @@ Phases (any failure exits non-zero):
    holes): the same tokens, the logits within MESH_DECODE_TOL, the pools
    alike after the steps, deepseek's grouped launches by body (9 thin a
    step), warm steps in turns, each path's device time a step and the
-   collectives a mesh step dispatches (phase 12 (d), the int8 cache,
+   collectives a mesh step dispatches; (h) after (f): the recurrent
+   mixers on their width (MESH_REC: recurrentgemma-2b's first unit of 3
+   layers, xlstm-125m whole; random fp32 weights from a seed) — the
+   layout (``dense_mesh_layout``'s ``rglru.*``, ``mlstm.*``, ``slstm.*``
+   and a decode step's ``state_slices``), the TP prefill against the
+   single device (bitwise expected, MESH_TOL required; recurrentgemma's
+   local layer on the flash kernel, its launches in the kernels line),
+   MESH_TRAIN_STEPS sharded train steps, the losses within MESH_TOL and
+   the state bitwise (xlstm's params, m and v normwise within
+   MESH_REC_STATE_TOL), MESH_DECODE_STEPS greedy mesh decode steps
+   with the same tokens and the logits within MESH_DECODE_TOL, warm
+   steps in turns, device time a step and the collectives a mesh step
+   dispatches (phase 12 (d), the int8 cache,
    runs after the mesh is gone); phase 16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
-   mixtral-8x22b on decode_32k, xlstm-125m's train_4k and prefill_32k
-   and deepseek-v2-236b's prefill_32k and decode_32k, one process each;
+   mixtral-8x22b on decode_32k, xlstm-125m's train_4k, prefill_32k and
+   decode_32k, deepseek-v2-236b's prefill_32k and decode_32k, one
+   process each, and recurrentgemma-2b on every shape in one process;
    each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices`` (stablelm's
    train_4k and prefill_32k must be within x0.85–1.25 of it, its
@@ -205,7 +218,9 @@ Phases (any failure exits non-zero):
    the 16-way 'model' axis, the cache read split-KV), peak bytes a rank
    (stablelm's and mixtral's decode_32k under the card's 80 GiB,
    deepseek's under DS_DECODE_PEAK_GIB; deepseek's prefill_32k FLOPs at
-   most DS_PREFILL_RATIO_MAX of its share: MLA on its heads),
+   most DS_PREFILL_RATIO_MAX of its share: MLA on its heads;
+   recurrentgemma's and xlstm's cells at most REC_RATIO_MAX of theirs:
+   the recurrent mixers on their width),
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -227,7 +242,10 @@ Phases (any failure exits non-zero):
    prefill shapes, recurrentgemma's long request, the queue trace's
    longest prefill and three padded head dims (their launches: those
    the counted main paths made at that head dim, tallied from the
-   wrapper's ``launches_by_head_dim``), each with its launch plan; the GEMM at 2048^3 and the largest cube; the grouped
+   wrapper's ``launches_by_head_dim``), each with its launch plan, the
+   main entry with its launches on the TP mesh prefills (stablelm's in
+   phase 15 (e), recurrentgemma's in (h)); the GEMM at 2048^3 and the
+   largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
    four buckets, with its launches on the mesh paths (the paged one of
    phase 15 (g) too), and at a rank's
@@ -451,11 +469,40 @@ SLSTM_CMP = (4, 1024)
 SLSTM_TURNS, SLSTM_ITERS = ("loop", "op", "op", "loop"), 2
 #: xlstm-125m's train step (4 x 1024) through the loop, runs 21a/21b
 XL_STEP_S_LOOP = "18-19.6 s"
+#: phase 15 (h): the recurrent mixers on their width over the one-rank
+#: mesh, full width: (arch, layers or None for the whole model, prompt
+#: length of the REQUESTS-row prefill and decode, train batch, train
+#: length): recurrentgemma-2b's first unit (rglru, rglru, local: its
+#: local layer on the flash kernel at head dim 256), xlstm-125m whole
+#: (its sLSTM steps one token at a time: shorter prompts and batches)
+MESH_REC = [("recurrentgemma-2b", 3, PROMPT_LEN, 1, 512),
+            ("xlstm-125m", None, 128, 1, 128)]
+#: phase 15 (h): the sharded train state after MESH_TRAIN_STEPS steps
+#: against the single device's, as (c) holds it: every leaf bitwise,
+#: but for the archs here, whose params, m and v are each held as one
+#: vector, normwise, within these bounds: xlstm's packed q/k/v product
+#: sums its gradient in another order than three separate products.
+#: Read at 1.285e-08, 8.317e-06 and 8.507e-06, the 2 steps moving the
+#: params 8.481e-04 (H100 80GB HBM3, 700 W)
+MESH_REC_STATE_TOL = {"xlstm-125m": {"params": 1e-6, "m": 1e-4,
+                                    "v": 1e-4}}
 #: phase 16 (a): (arch, shape or every shape) of each dry-run process
 DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
                 ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
+                ("xlstm-125m", "decode_32k"),
                 ("deepseek-v2-236b", "prefill_32k"),
-                ("deepseek-v2-236b", "decode_32k")]
+                ("deepseek-v2-236b", "decode_32k"),
+                ("recurrentgemma-2b", None)]
+#: phase 16 (a): the recurrent mixers on their width: the most FLOPs a
+#: rank of each cell may do, as a multiple of step_flops / 256 (G25, all
+#: whole on every rank: recurrentgemma x5.33 / x4.74 / x4.55, xlstm
+#: x11.87 / x11.97 / x11.36)
+REC_RATIO_MAX = {("recurrentgemma-2b", "train_4k"): 3.0,
+                 ("recurrentgemma-2b", "prefill_32k"): 3.0,
+                 ("recurrentgemma-2b", "decode_32k"): 3.0,
+                 ("xlstm-125m", "train_4k"): 7.0,
+                 ("xlstm-125m", "prefill_32k"): 7.0,
+                 ("xlstm-125m", "decode_32k"): 2.5}
 DRYRUN_TIMEOUT = 300
 #: phase 16 (a): stablelm's train_4k and prefill_32k FLOPs a rank
 #: against step_flops / 256 (the dense blocks cut over 'model')
@@ -2921,14 +2968,27 @@ def mesh_train(res, ckpt_dir, mesh, M, fa, G, torch) -> dict:
             "train_step_s": step_s, "tp_prefill": tp_prefill}
 
 
-def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
-    """Phase 15 (e), at the end of phase 11: stablelm-1.6b whole (fp32,
-    phase 11's trained weights laid out on the mesh without a copy)
-    through ``serve.step.build_prefill`` on the mesh, tensor-parallel
-    over 'model' (on one rank its shards are the whole weights and its
-    collectives run on a one-rank group), against the single-device
-    prefill on the same prompts: the flash kernel's launches (one a
-    layer), logits and caches bitwise, warm times in turns."""
+def leaves_of(caches) -> list:
+    """Every tensor of a list of per-layer caches, in order."""
+    import dataclasses
+
+    return [getattr(c, f.name) for c in caches
+            for f in dataclasses.fields(c)
+            if hasattr(getattr(c, f.name), "element_size")]
+
+
+def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
+                    prompt_len: int = PROMPT_LEN,
+                    bitwise: bool = True) -> dict:
+    """Phase 15 (e), at the end of phase 11 (and (h) for the recurrent
+    mixers): ``cfg`` (fp32, its weights laid out on the mesh without a
+    copy) through ``serve.step.build_prefill`` on the mesh,
+    tensor-parallel over 'model' (on one rank its shards are the whole
+    weights and its collectives run on a one-rank group), against the
+    single-device prefill on the same REQUESTS x ``prompt_len`` prompts:
+    the flash kernel's launches (one an attention layer), logits and
+    caches bitwise (``bitwise``; else within MESH_TOL, max |diff| / max
+    |value|, bitwise reported), warm times in turns."""
     from repro_torch.dist.collectives import distribute
     from repro_torch.dist.sharding import partition_params
     from repro_torch.models.config import ShapeSpec
@@ -2936,7 +2996,7 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
     from repro_torch.serve.step import build_prefill
     from repro_torch.train.step import make_ctx
 
-    cache_len = PROMPT_LEN + GEN_TOKENS
+    cache_len = prompt_len + GEN_TOKENS
     it = iter(tree_leaves(partition_params(model, cfg, mesh),
                           is_leaf=is_spec))
     sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
@@ -2946,10 +3006,11 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
         model, cfg, ShapeSpec("prefill", cache_len, REQUESTS, "prefill"),
         mesh)
     gen = torch.Generator(device="cuda").manual_seed(15)
-    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, prompt_len),
                             generator=gen, device="cuda")
     batch = {"tokens": distribute(prompts, mesh, b_specs["tokens"])}
     ctx = make_ctx("prefill", cache_len=cache_len)
+    want_flash = sum(s.kind in ("attn", "local") for s in model.plan)
     with torch.inference_mode():
         reset_counts(M, fa, G)
         logits, cache = prefill(sharded, batch)
@@ -2958,34 +3019,186 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch) -> dict:
         tally_flash(fa)
         reset_counts(M, fa, G)
         want, cache1 = model.prefill(params, prompts, ctx)
+        pairs = list(zip(leaves_of(cache), leaves_of(cache1)))
         same_logits = torch.equal(logits, want)
-        same_cache = all(torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
-                         for a, b in zip(cache, cache1))
+        same_cache = len(pairs) == len(leaves_of(cache1)) and all(
+            torch.equal(a, b) for a, b in pairs)
         err = (logits - want).abs().max().item()
-        del cache, cache1
+        rel = err / want.abs().max().item()
+        cache_rel = max((a - b).abs().max().item()
+                        / max(b.abs().max().item(), 1e-30) for a, b in pairs)
+        del cache, cache1, pairs
         ms = in_turns({
             "single": lambda: model.prefill(params, prompts, ctx)[0],
             "mesh": lambda: prefill(sharded, batch)[0]}, torch, iters=2)
-    print(f"[chip_smoke] mesh (e): {cfg.name} whole ({cfg.n_layers} layers, "
-          f"{cfg.n_heads} heads) through build_prefill on the (1, 1) mesh, "
-          f"tensor-parallel over 'model' (weights laid out without a copy: "
-          f"{no_copy}): flash launches {n['flash']} (expected "
-          f"{cfg.n_layers}), matmul {n['matmul']}, grouped {n['grouped']}; "
-          f"logits bitwise the single-device prefill's: {same_logits} (max "
-          f"|diff| {err:.3e}), caches bitwise: {same_cache}; warm in turns "
-          f"single {ms['single']:.1f} ms, mesh {ms['mesh']:.1f} ms")
-    if n["flash"] != cfg.n_layers or n["matmul"] or n["grouped"]:
-        raise SystemExit("[chip_smoke] FAIL: the tensor-parallel prefill did "
-                         "not run the flash kernel once a layer")
-    if not (no_copy and same_logits and same_cache):
-        raise SystemExit("[chip_smoke] FAIL: the tensor-parallel prefill "
-                         "differs from the single-device prefill")
+    print(f"[chip_smoke] mesh: {cfg.name} ({cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, {REQUESTS}x{prompt_len}) through "
+          f"build_prefill on the (1, 1) mesh, tensor-parallel over 'model' "
+          f"(weights laid out without a copy: {no_copy}): flash launches "
+          f"{n['flash']} (expected {want_flash}), matmul {n['matmul']}, "
+          f"grouped {n['grouped']}; logits bitwise the single-device "
+          f"prefill's: {same_logits} (max |diff| {err:.3e}, rel {rel:.3e}),"
+          f" caches bitwise: {same_cache} (max rel {cache_rel:.3e}; "
+          f"{'bitwise' if bitwise else f'tol {MESH_TOL:g}'} required); "
+          f"warm in turns single {ms['single']:.1f} ms, mesh "
+          f"{ms['mesh']:.1f} ms")
+    if n["flash"] != want_flash or n["matmul"] or n["grouped"]:
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s tensor-parallel "
+                         "prefill did not run the flash kernel once an "
+                         "attention layer")
+    agree = (same_logits and same_cache) if bitwise else (
+        rel <= MESH_TOL and cache_rel <= MESH_TOL)
+    if not (no_copy and agree):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s tensor-parallel "
+                         "prefill differs from the single-device prefill")
     del sharded, batch
     torch.cuda.empty_cache()
-    return {"arch": cfg.name, "batch": [REQUESTS, PROMPT_LEN],
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "batch": [REQUESTS, prompt_len],
             "flash_launches": n["flash"], "logits_bitwise": same_logits,
             "caches_bitwise": same_cache, "logits_max_abs_err": err,
+            "logits_rel_err": rel, "caches_rel_err": cache_rel,
             "prefill_ms": ms}
+
+
+def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
+                  G, torch) -> dict:
+    """Phase 15 (h): MESH_TRAIN_STEPS sharded train steps of ``model``
+    on the mesh (its state laid out by the state specs: a copy of the
+    single device's) against the single-device step from the same
+    state, in turns on the same ``batch`` x ``seq`` batches: the losses
+    within MESH_TOL; after the steps every state leaf bitwise, or for an
+    arch of MESH_REC_STATE_TOL its params, m and v normwise within their
+    bounds (beside how far the steps moved the params); each step's
+    seconds reported; no kernel may launch."""
+    from repro_torch.data.pipeline import SyntheticLM, make_global_batch
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.train.optim import AdamWConfig, init_state
+    from repro_torch.train.step import build_train_step
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=100)
+    shape = ShapeSpec("train", seq, batch, "train")
+    step_m, s_specs, b_specs = build_train_step(model, cfg, opt,
+                                                shape=shape, mesh=mesh)
+    step_1, _, _ = build_train_step(model, cfg, opt)
+    live = init_state(tree_map(lambda t: t.clone(), params), opt)
+    on_mesh = {}
+    for k, v in live.items():
+        it = iter(tree_leaves(s_specs[k], is_leaf=is_spec)) if k != "step" \
+            else iter([()])
+        # a one-rank mesh lays a tensor out without a copy: clone first
+        on_mesh[k] = tree_map(lambda t: distribute(t.clone(), mesh,
+                                                   next(it)), v)
+    data = SyntheticLM(cfg.vocab, seq, batch)
+    reset_counts(M, fa, G)
+    losses = {"single": [], "mesh": []}
+    step_s = {"single": [], "mesh": []}
+    for i in range(MESH_TRAIN_STEPS):
+        b = data.batch_at(i)
+        for kind in ("single", "mesh") if i % 2 == 0 else ("mesh",
+                                                            "single"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "single":
+                live, m = step_1(live, make_global_batch(b, None,
+                                                         device="cuda"))
+            else:
+                on_mesh, m = step_m(on_mesh, make_global_batch(b, mesh,
+                                                               b_specs))
+            losses[kind].append(float(m["loss"]))
+            step_s[kind].append(time.perf_counter() - t0)
+    no_launches(f"{cfg.name}'s mesh train steps", M, fa, G)
+    err = max(abs(a - b) for a, b in zip(losses["single"], losses["mesh"]))
+    pairs = list(zip(tree_leaves(live), tree_leaves(on_mesh)))
+    state_diff = sum(not torch.equal(b.to_local(), a) for a, b in pairs)
+    n_leaves = len(pairs)
+    del pairs
+
+    def normwise(got, want) -> float:
+        num = sum(float((g - w).double().square().sum())
+                  for g, w in zip(got, want))
+        den = sum(float(w.double().square().sum()) for w in want)
+        return (num / den) ** 0.5
+
+    state_err = {k: normwise([t.to_local() for t in tree_leaves(on_mesh[k])],
+                             tree_leaves(live[k]))
+                 for k in live if k != "step"}
+    moved = normwise(tree_leaves(live["params"]), tree_leaves(params))
+    tol = MESH_REC_STATE_TOL.get(cfg.name)
+    del live, on_mesh
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] mesh (h): {MESH_TRAIN_STEPS} sharded steps of "
+          f"{cfg.name} ({batch}x{seq}) against the single-device step: "
+          f"losses mesh {losses['mesh']} single {losses['single']}, max "
+          f"|diff| {err:.3e} (tol {MESH_TOL:g}); state leaves that differ "
+          f"after the steps: {state_diff} of {n_leaves}; normwise "
+          + ", ".join(f"{k} {e:.3e}" for k, e in state_err.items())
+          + (" (bitwise required" if tol is None else f" (tol {tol}")
+          + f"; the steps moved the params {moved:.3e} normwise); step s "
+          "mesh " + " ".join(f"{t:.3f}" for t in step_s["mesh"])
+          + ", single " + " ".join(f"{t:.3f}" for t in step_s["single"]))
+    agree = not state_diff if tol is None else all(
+        e <= tol[k] for k, e in state_err.items())
+    if not (err <= MESH_TOL and agree):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s sharded train "
+                         "step disagrees with the single-device step")
+    return {"batch": [batch, seq], "losses": losses,
+            "loss_max_abs_err": err, "state_leaves_differ": state_diff,
+            "state_leaves": n_leaves, "state_normwise": state_err,
+            "state_tol": tol, "params_moved_normwise": moved,
+            "step_s": step_s}
+
+
+def mesh_recurrent(mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (h): the recurrent mixers on their width over the
+    one-rank mesh's 'model' axis — for each MESH_REC entry (fp32, random
+    weights from a seed, full width, depth as given): the TP prefill
+    against the single device (:func:`mesh_prefill_tp`: recurrentgemma's
+    local layer on the flash kernel, its launches counted), the sharded
+    train steps (:func:`mesh_train_tp`) and MESH_DECODE_STEPS greedy
+    steps of the mesh decode (:func:`mesh_decode_model`: the RG-LRU's
+    state and the mLSTM's matrix memory read in place, the sLSTM on its
+    stored columns), each against the single device; and the layout the
+    mesh computes the mixers in (``dense_mesh_layout``'s ``rglru.*``,
+    ``mlstm.*``, ``slstm.*``; a decode step's ``state_slices``)."""
+    import dataclasses
+
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        state_slices
+
+    out = {}
+    for arch, layers, prompt_len, train_batch, train_seq in MESH_REC:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = build_model(cfg)
+        cut = sorted(k for k in dense_mesh_layout(cfg, mesh, decode=True)
+                     if k.split(".")[0] in ("rglru", "mlstm", "slstm"))
+        slices = {s.kind: state_slices(cfg, s.kind, 1) for s in model.plan}
+        print(f"[chip_smoke] mesh (h): {cfg.name} ({cfg.n_layers} layers) "
+              f"computes on 'model': {cut}; a decode step reads in place "
+              f"{ {k: v for k, v in slices.items() if v} }")
+        if not cut or not any(slices.values()):
+            raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mixers are "
+                             "not cut over 'model'")
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        params = model.init(gen)
+        row = {"cut": cut, "prefill": mesh_prefill_tp(
+            model, cfg, params, mesh, M, fa, G, torch,
+            prompt_len=prompt_len, bitwise=False)}
+        row["train"] = mesh_train_tp(model, cfg, params, mesh, train_batch,
+                                     train_seq, M, fa, G, torch)
+        del params
+        torch.cuda.empty_cache()
+        row["decode"] = mesh_decode_model(arch, layers, mesh, M, fa, G,
+                                          torch, prompt_len=prompt_len)
+        row["phase_s"] = time.perf_counter() - t0
+        out[arch] = row
+    return out
 
 
 def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
@@ -3249,10 +3462,12 @@ def mesh_mixtral_tp(mesh, M, fa, G, torch) -> dict:
 
 
 def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
-                      paged: bool = False) -> dict:
+                      paged: bool = False,
+                      prompt_len: int = PROMPT_LEN) -> dict:
     """Phase 15 (f), one model: ``arch`` at full width (cut to
     ``n_layers``, or whole), random fp32 weights from a seed, prefilled
-    on the single device (4 x 1024), then MESH_DECODE_STEPS greedy steps
+    on the single device (REQUESTS x ``prompt_len``), then
+    MESH_DECODE_STEPS greedy steps
     of the single-device decode and of ``serve.step.build_decode`` on
     the mesh from the same caches (laid out by ``shard_cache``): the
     mesh decode reads every attention cache split-KV, the dense blocks
@@ -3280,10 +3495,10 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
     steps = MESH_DECODE_STEPS
-    cache_len = PROMPT_LEN + steps
+    cache_len = prompt_len + steps
     gen = torch.Generator(device="cuda").manual_seed(16)
     params = model.init(gen)
-    prompts = torch.randint(0, cfg.vocab, (REQUESTS, PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, prompt_len),
                             generator=gen, device="cuda")
     decode, p_specs, (_, c_specs, _) = build_decode(
         model, cfg, ShapeSpec("decode", cache_len, REQUESTS, "decode"),
@@ -3301,7 +3516,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
         got1, gotm, want = [tok1], [tokm], []
         for i in range(steps):
             l1, cache1 = model.decode_step(params, tok1, cache1,
-                                           PROMPT_LEN + i, dctx)
+                                           prompt_len + i, dctx)
             tok1 = l1.argmax(-1, keepdim=True)
             got1.append(tok1)
             want.append(l1)
@@ -3309,7 +3524,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
         reset_counts(M, fa, G)
         errs = []
         for i in range(steps):
-            lm, cache_m = decode(sharded, tokm, cache_m, PROMPT_LEN + i)
+            lm, cache_m = decode(sharded, tokm, cache_m, prompt_len + i)
             tokm = lm.argmax(-1, keepdim=True)
             gotm.append(tokm)
             errs.append(lm - want[i])
@@ -3325,9 +3540,9 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
         del errs, want
         tok = got1[1]
         fns = {"single": lambda: model.decode_step(params, tok, cache1,
-                                                   PROMPT_LEN, dctx)[0],
+                                                   prompt_len, dctx)[0],
                "mesh": lambda: decode(sharded, tok, cache_m,
-                                      PROMPT_LEN)[0]}
+                                      prompt_len)[0]}
         ms = in_turns(fns, torch, iters=5)
         # device time a step, and the collectives a mesh step dispatches
         traced = {k: trace_steps(f, torch) for k, f in fns.items()}
@@ -3336,7 +3551,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
         colls = {str(k).split(".")[-1]: v
                  for k, v in comm.get_comm_counts().items()}
     want = {"thin": 3 * moe_layers * steps, "tiled": 0}
-    print(f"[chip_smoke] mesh (f): {cfg.name} ({cfg.n_layers} layers) "
+    print(f"[chip_smoke] mesh: {cfg.name} ({cfg.n_layers} layers) "
           f"{steps} greedy steps of the mesh decode (split-KV caches, "
           f"tensor-parallel blocks, apply_moe_decode) against the single "
           f"device: the same tokens {same}; logits max |diff| "
@@ -3357,6 +3572,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
     del sharded, cache1, cache_m, fns
     torch.cuda.empty_cache()
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
+           "prompt": [REQUESTS, prompt_len],
            "same_tokens": same, "logits_max_abs_err": err,
            "logits_max_abs": scale, "logits_over_rtol": over,
            "tol": MESH_DECODE_TOL, "launches": n["grouped_by_variant"],
@@ -3605,6 +3821,7 @@ def phase_dryrun(torch) -> dict:
     from repro_torch.configs import build_model, get_config
     from repro_torch.core.workload import WorkloadProfile
     from repro_torch.launch import profile
+    from repro_torch.launch.dryrun import cell_is_runnable
     from repro_torch.models.config import SHAPES
     from repro_torch.roofline import roofline_for_cell, step_flops
 
@@ -3677,13 +3894,14 @@ def phase_dryrun(torch) -> dict:
               f"{terms.memory_s:.4e} s, collective {terms.collective_s:.4e}"
               f" s: {terms.dominant}-bound")
     by_cell = {(c["arch"], c["shape"]): c for c in cells}
-    want = {("stablelm-1.6b", s) for s in SHAPES} | {
-        (arch, shape) for arch, shape in DRYRUN_CELLS if shape}
+    want = {(arch, s) for arch, shape in DRYRUN_CELLS
+            for s in ((shape,) if shape else SHAPES)}
     if set(by_cell) != want:
         raise SystemExit(f"[chip_smoke] FAIL: dry-run cells "
                          f"{sorted(by_cell)}, expected {sorted(want)}")
     for key, c in by_cell.items():
-        if c["status"] != ("skipped" if key[1] == "long_500k" else "ok"):
+        if c["status"] != ("ok" if cell_is_runnable(*key)[0]
+                           else "skipped"):
             raise SystemExit(f"[chip_smoke] FAIL: dry-run cell {key} "
                              f"{c['status']}")
     n_flash = by_cell["stablelm-1.6b", "prefill_32k"]["kernel_ops"].get(
@@ -3747,6 +3965,22 @@ def phase_dryrun(torch) -> dict:
         raise SystemExit("[chip_smoke] FAIL: a rank of deepseek's dry run "
                          "does not compute MLA on its heads or still holds "
                          "gathered weights")
+    # the recurrent mixers on their width
+    rec = {f"{a} {k}": by_cell[a, k]["flops_ratio"]
+           for a, k in REC_RATIO_MAX}
+    rec_gb = {f"{a} {k}": sum(by_cell[a, k]["collective_bytes"].values())
+              / 1e9 for a, k in REC_RATIO_MAX}
+    rec_peak = {f"{a} {k}": by_cell[a, k]["peak_gib"]
+                for a, k in REC_RATIO_MAX}
+    print(f"[chip_smoke] dry run (a): the recurrent mixers' FLOPs a rank "
+          f"against step_flops / 256: {rec} (at most "
+          f"{ {f'{a} {k}': v for (a, k), v in REC_RATIO_MAX.items()} }); "
+          f"peaks a rank GiB {rec_peak}; collective GB {rec_gb}")
+    if not all(by_cell[key]["flops_ratio"] <= most
+               for key, most in REC_RATIO_MAX.items()):
+        raise SystemExit("[chip_smoke] FAIL: a rank of recurrentgemma's or "
+                         "xlstm's dry run does not compute its mixers on "
+                         "their width")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))
@@ -3939,13 +4173,18 @@ def main() -> int:
         mesh_out["paged"] = {
             "stablelm": mesh_out["decode"]["stablelm"].pop("paged"),
             "deepseek": mesh_out["deepseek"].pop("paged")}
+        t1 = time.perf_counter()
+        mesh_out["recurrent"] = mesh_recurrent(mesh, mm, fa, gm, torch)
+        mesh_out["recurrent_s"] = time.perf_counter() - t1
         print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s"
               f", (g) " + ", ".join(
                   f"{k} {v['phase_s']:.1f}s"
-                  for k, v in mesh_out["paged"].items()))
+                  for k, v in mesh_out["paged"].items())
+              + f", (h) {mesh_out['recurrent_s']:.1f}s")
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
     deepseek["phase_s"] = (time.perf_counter() - t0
-                           - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"])
+                           - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"]
+                           - mesh_out["recurrent_s"])
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
@@ -3975,8 +4214,12 @@ def main() -> int:
     kernels = [flash_entry("flash_attention", flash_row, launches,
                            case_max_abs_err=errs,
                            path_launches_by_head_dim=FLASH_PATH_BY_D,
-                           mesh_launches={"stablelm_tp_prefill": mesh_out[
-                               "train"]["tp_prefill"]["flash_launches"]}),
+                           mesh_launches={
+                               "stablelm_tp_prefill": mesh_out["train"][
+                                   "tp_prefill"]["flash_launches"],
+                               "recurrentgemma_tp_prefill": mesh_out[
+                                   "recurrent"]["recurrentgemma-2b"][
+                                   "prefill"]["flash_launches"]}),
                flash_entry("flash_attention@mixtral_prefill",
                            mixtral["flash"], mixtral["flash_launches"]),
                flash_entry("flash_attention@queue_prefill",

@@ -38,7 +38,8 @@ def moves(arch: str, mesh) -> dict[str, tuple[int, int]]:
     cfg = get_config(arch)
     model = build_model(cfg)
     paths = tree_paths(model.defs)
-    computed = forward_specs(paths, mesh, keep_experts=True, model=model)
+    computed = forward_specs(paths, mesh, keep_experts=True, model=model,
+                             decode=True)
     stored = tree_leaves(partition_params(model, cfg, mesh), is_leaf=is_spec)
     out: dict[str, tuple[int, int]] = {}
     for path, d, spec, at in zip(paths, tree_leaves(model.defs), stored,

@@ -15,6 +15,16 @@ reference's and agrees with it to fp32 rounding (the CPU tests hold
 it to 1e-5).  Decode carries one (B, W) fp32 state.  The recurrent
 block is conv1d(4) -> RG-LRU in a gated (GeGLU-style) wrapper, as in
 Griffin.  No Pallas kernel: every op is a torch op.
+
+On a mesh (``tp``, the rank's :class:`~repro_torch.dist.collectives.
+TPGroup` of 'model') the block computes on the rank's W / tp channels,
+as GSPMD partitions the reference's: its columns of ``wx``, ``wy`` and
+the conv, its ``lam``, its rows of both gates' (W, W) products and of
+``wo``.  The gates' partial products are packed and summed over the
+group (one collective), each rank keeps its channels' gates, and the
+scan and the conv are local; the output's partial product is summed
+too.  A decode step carries the rank's slice of the state and gathers
+nothing.
 """
 
 from __future__ import annotations
@@ -25,11 +35,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as C
 from repro_torch.models.layers import _gelu, linear
 from repro_torch.models.params import ParamDef
 
 __all__ = ["RGLRUSpec", "rglru_block_defs", "rglru_block_train",
-           "rglru_block_decode", "RGLRUState", "init_rglru_state"]
+           "rglru_block_decode", "RGLRUState", "init_rglru_state",
+           "state_whole"]
 
 _C = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -57,13 +69,30 @@ def rglru_block_defs(s: RGLRUSpec) -> dict:
     }
 
 
-def _gates(p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """log(a_t) and input gate i_t, both (..., W) in fp32."""
+def _gates(p: dict, x: torch.Tensor, tp=None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """log(a_t) and input gate i_t, both (..., W) in fp32.
+
+    With ``tp``, ``x`` is the rank's (..., W / tp) channels and the
+    gates' weights its rows: both partial (..., W) products, packed, are
+    summed over the group with the whole biases, and the rank keeps its
+    channels of each (the sum's gradient is summed back by ``copy_to``,
+    so the biases' gradients are whole)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["w_rec_gate"].float()
-                      + p["b_rec_gate"].float())
-    i = torch.sigmoid(xf @ p["w_input_gate"].float()
-                      + p["b_input_gate"].float())
+    if tp is None:
+        r = torch.sigmoid(xf @ p["w_rec_gate"].float()
+                          + p["b_rec_gate"].float())
+        i = torch.sigmoid(xf @ p["w_input_gate"].float()
+                          + p["b_input_gate"].float())
+    else:
+        w, n = p["b_rec_gate"].shape[0], x.shape[-1]
+        both = torch.cat([xf @ p["w_rec_gate"].float(),
+                          xf @ p["w_input_gate"].float()], dim=-1)
+        both = C.copy_to(C.reduce_from(both, tp.group) + torch.cat(
+            [p["b_rec_gate"].float(), p["b_input_gate"].float()]), tp.group)
+        lo = tp.rank * n
+        r = torch.sigmoid(both[..., lo:lo + n])
+        i = torch.sigmoid(both[..., w + lo:w + lo + n])
     log_a = -_C * F.softplus(p["lam"].float()) * r
     return log_a, i
 
@@ -132,15 +161,21 @@ def _rglru_scan(log_a: torch.Tensor, gx: torch.Tensor,
     return h
 
 
-def rglru_block_train(p: dict, x: torch.Tensor
+def rglru_block_train(p: dict, x: torch.Tensor, tp=None
                       ) -> tuple[torch.Tensor, "RGLRUState"]:
-    """Full-sequence recurrent block: x (B, S, D) -> (out, final state)."""
+    """Full-sequence recurrent block: x (B, S, D) -> (out, final state).
+    With ``tp`` the weights are the rank's (see the module) and the
+    state is its W / tp channels (:func:`state_whole` gathers them)."""
+    if tp is not None:
+        x = C.copy_to(x, tp.group)
     gate = _gelu(linear(x, p["wy"]))
     u = linear(x, p["wx"])
     u, conv_state = _conv1d(p, u, None)
-    log_a, i_gate = _gates(p, u)
+    log_a, i_gate = _gates(p, u, tp)
     h = _rglru_scan(log_a, i_gate * u.float(), None)
     out = linear(h.to(x.dtype) * gate, p["wo"])
+    if tp is not None:
+        out = C.reduce_from(out, tp.group)
     return out, RGLRUState(h[:, -1].clone(), conv_state)
 
 
@@ -158,17 +193,30 @@ def init_rglru_state(batch: int, s: RGLRUSpec, dtype: torch.dtype,
                     device=device))
 
 
-def rglru_block_decode(p: dict, x: torch.Tensor, state: RGLRUState
+def state_whole(state: "RGLRUState", tp) -> "RGLRUState":
+    """The whole state from each rank's W / tp channels of it, gathered
+    over ``tp``'s group (a prefill returns its caches whole)."""
+    return RGLRUState(
+        C.all_gather(state.h, tp.group, dim=-1).contiguous(),
+        C.all_gather(state.conv, tp.group, dim=-1).contiguous())
+
+
+def rglru_block_decode(p: dict, x: torch.Tensor, state: RGLRUState, tp=None
                        ) -> tuple[torch.Tensor, RGLRUState]:
     """One-token step: x (B, 1, D).  Returns a new state (``state`` is
-    not written)."""
+    not written).  With ``tp`` the weights are the rank's and ``state``
+    its (B, W / tp) and (B, cw - 1, W / tp) slices; the new state is its
+    slice too: the step's collectives are the gates' sum and the
+    output's."""
     gate = _gelu(linear(x, p["wy"]))
     u = linear(x, p["wx"])
     u, conv_state = _conv1d(p, u, state.conv)
-    log_a, i_gate = _gates(p, u[:, 0])
+    log_a, i_gate = _gates(p, u[:, 0], tp)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
         * (i_gate * u[:, 0].float())
     h = a * state.h + b
     out = linear(h[:, None].to(x.dtype) * gate, p["wo"])
+    if tp is not None:
+        out = C.reduce_from(out, tp.group)
     return out, RGLRUState(h, conv_state)

@@ -27,10 +27,14 @@ the embedding and the loss or logits cut on the vocab, GQA and MLA
 attention on whole heads, the MLP on its FF width), each rank on its
 shards, with the residual stream whole on every rank of the axis, as
 GSPMD partitions the reference's; a decode step reads the attention
-caches cut on their sequence split-KV.  A recurrent layer's prefill
-by-product is its final state, which is already the decode cache; its
-decode step returns a new state, where attention layers write their
-caches in place.
+caches cut on their sequence split-KV.  The RG-LRU computes on its W /
+tp channels and the xLSTM blocks' projections on their widths (the
+mLSTM core and the sLSTM recurrence whole in train and prefill); a
+decode step reads the RG-LRU's state and the mLSTM's matrix memory cut
+as the layer computes (:func:`state_slices`).  A recurrent layer's
+prefill by-product is its final state, which is already the decode
+cache; its decode step returns a new state, where attention layers
+write their caches in place.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params, param_specs
 
 __all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy",
-           "dense_mesh_layout", "dense_weight_key"]
+           "dense_mesh_layout", "dense_weight_key", "state_slices"]
 
 
 # ---------------------------------------------------------------------------
@@ -324,19 +328,28 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     attention on whole query heads), ``kv_heads`` (and whole KV heads;
     else each rank picks the KV heads its query heads read), ``mla``
     (MLA on whole query heads, the latents whole), ``ff`` (the dense
-    MLPs).  The encoder-decoder and the RG-LRU and xLSTM mixers are not
-    cut."""
+    MLPs), ``rglru`` (the RG-LRU on its W channels: every RG-LRU layer's
+    W divisible), ``xlstm`` (the mLSTM's and sLSTM's projections: D,
+    the mLSTM's inner width and its head dim divisible).  Nothing of
+    the encoder-decoder is cut."""
     if cfg.family == "audio":
         return {"vocab": False, "heads": False, "kv_heads": False,
-                "mla": False, "ff": False}
+                "mla": False, "ff": False, "rglru": False, "xlstm": False}
     plan = _layer_plan(cfg)
+    kinds = {s.kind for s in plan}
     attn = any(_is_attn(s) for s in plan) and cfg.n_heads % size == 0
     heads = attn and cfg.attn_kind != "mla"
     ffs = [s.d_ff for s in plan if s.mlp == "mlp"]
+    xl = _xlstm_spec(cfg)
     return {"vocab": cfg.vocab % size == 0, "heads": heads,
             "kv_heads": heads and cfg.n_kv_heads % size == 0,
             "mla": attn and cfg.attn_kind == "mla",
-            "ff": bool(ffs) and all(f % size == 0 for f in ffs)}
+            "ff": bool(ffs) and all(f % size == 0 for f in ffs),
+            "rglru": "rglru" in kinds
+            and _rglru_spec(cfg).width % size == 0,
+            "xlstm": bool(kinds & {"mlstm", "slstm"}) and all(
+                n % size == 0 for n in (xl.d_model, xl.d_inner,
+                                        xl.head_dim))}
 
 
 def _cut(cfg: ArchConfig, ctx: Ctx, what: str):
@@ -347,7 +360,29 @@ def _cut(cfg: ArchConfig, ctx: Ctx, what: str):
     return ctx.tp
 
 
-def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
+def _mixer_cut(cfg: ArchConfig, ctx: Ctx, kind: str):
+    """ctx.tp where the 'model' axis cuts a recurrent mixer of ``kind``,
+    else None."""
+    return _cut(cfg, ctx, "rglru" if kind == "rglru" else "xlstm")
+
+
+def state_slices(cfg: ArchConfig, kind: str, size: int) -> dict[str, int]:
+    """The fields of a ``kind`` layer's decode state that a rank of a
+    ``size``-way 'model' axis computes on its slice of, by the dim the
+    slice cuts: the RG-LRU's ``h`` (B, W) and ``conv`` (B, cw - 1, W) on
+    W, the mLSTM's ``c`` (B, H, Dh, Dh) and ``n`` (B, H, Dh) on the key
+    dim (dim 2), where the axis cuts the mixer; {} for any other state.
+    Rank r's slice is the r-th of ``size`` equal blocks of that dim,
+    the block ``cache_specs`` lays out on it."""
+    if kind == "rglru" and _dense_cuts(cfg, size)["rglru"]:
+        return {"h": 1, "conv": 2}
+    if kind == "mlstm" and _dense_cuts(cfg, size)["xlstm"]:
+        return {"c": 2, "n": 2}
+    return {}
+
+
+def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
+                      ) -> dict[str, tuple]:
     """What a rank of ``mesh``'s 'model' axis computes the dense blocks
     with: ``{weight: (compute spec, partial)}``, the weight by the key
     :func:`dense_weight_key` gives a parameter's path; a weight not in
@@ -373,7 +408,20 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
       (``wq_a``, ``q_norm``, ``wkv_a``, ``kv_norm``, ``wk_rope``) are
       not in the table: whole, as the reference stores them;
     * ``mlp.wi`` / ``mlp.wg`` / ``mlp.wo``: columns / rows cut when
-      every dense MLP's F % tp == 0.
+      every dense MLP's F % tp == 0;
+    * ``rglru.*`` when every RG-LRU's W % tp == 0: ``wx``, ``wy``,
+      ``conv_w`` columns and ``conv_b``, ``lam`` on the rank's W / tp
+      channels; ``w_input_gate``, ``w_rec_gate`` and ``wo`` rows (the
+      gates' partial products summed over 'model'); the gates' biases
+      whole, added after the sum;
+    * ``mlstm.*`` / ``slstm.*`` when D, the mLSTM's inner width Di and
+      its head dim divide: ``mlstm.w_up`` and ``slstm.w_up`` columns
+      (the product gathered over 'model'), ``mlstm.wq`` / ``wk`` / ``wv`` /
+      ``w_igate`` / ``w_fgate`` / ``w_down`` and ``slstm.w_down`` rows;
+      the biases and norms whole; the sLSTM's ``w_in``, ``w_rec`` and
+      ``b`` whole in train and prefill (its recurrence runs whole), and
+      with ``decode`` on their 4D columns: a decode step computes the
+      rank's columns of the pre-activations and gathers them.
 
     ``partial`` marks a gradient that is a partial sum over 'model'
     (each rank's term from its own heads): the picked KV columns and the
@@ -388,32 +436,43 @@ def dense_mesh_layout(cfg: ArchConfig, mesh) -> dict[str, tuple]:
 
     m = TP_AXIS
     cuts = _dense_cuts(cfg, axis_size(mesh, m))
+    cols, rows, chans = ((None, m), False), ((m, None), False), ((m,), False)
     out: dict[str, tuple] = {}
     if cuts["vocab"]:
-        out["embed"] = ((m, None), False)
-        out["unembed"] = ((None, m), False)
+        out["embed"] = rows
+        out["unembed"] = cols
     if cuts["heads"]:
-        kv = ((None, m), False) if cuts["kv_heads"] else ((), True)
-        out.update({"attn.wq": ((None, m), False),
-                    "attn.wo": ((m, None), False),
+        kv = cols if cuts["kv_heads"] else ((), True)
+        out.update({"attn.wq": cols, "attn.wo": rows,
                     "attn.wk": kv, "attn.wv": kv,
                     "attn.q_norm": ((), True), "attn.k_norm": ((), True)})
     if cuts["mla"]:
-        out.update({"mla.wq_b": ((None, m), False),
-                    "mla.wk_b": ((None, m), False),
-                    "mla.wv_b": ((None, m), False),
-                    "mla.wo": ((m, None), False)})
+        out.update({"mla.wq_b": cols, "mla.wk_b": cols, "mla.wv_b": cols,
+                    "mla.wo": rows})
     if cuts["ff"]:
-        out.update({"mlp.wi": ((None, m), False),
-                    "mlp.wg": ((None, m), False),
-                    "mlp.wo": ((m, None), False)})
+        out.update({"mlp.wi": cols, "mlp.wg": cols, "mlp.wo": rows})
+    if cuts["rglru"]:
+        out.update({"rglru.wx": cols, "rglru.wy": cols,
+                    "rglru.conv_w": cols, "rglru.conv_b": chans,
+                    "rglru.lam": chans, "rglru.w_input_gate": rows,
+                    "rglru.w_rec_gate": rows, "rglru.wo": rows})
+    if cuts["xlstm"]:
+        out.update({f"mlstm.{n}": rows for n in (
+            "wq", "wk", "wv", "w_igate", "w_fgate", "w_down")})
+        out.update({"mlstm.w_up": cols, "slstm.w_up": cols,
+                    "slstm.w_down": rows})
+        if decode:
+            out.update({"slstm.w_in": cols, "slstm.w_rec": cols,
+                        "slstm.b": chans})
     return out
 
 
 def dense_weight_key(model, path: tuple) -> str | None:
     """The :func:`dense_mesh_layout` key of the parameter at ``path``
     (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer, ``mla.<name>``
-    of an MLA mixer, ``mlp.<name>`` of a dense MLP), or None."""
+    of an MLA mixer, ``rglru.<name>`` / ``mlstm.<name>`` /
+    ``slstm.<name>`` of a recurrent mixer, ``mlp.<name>`` of a dense
+    MLP), or None."""
     if path in (("embed",), ("unembed",)):
         return path[0]
     plan = getattr(model, "plan", None)
@@ -423,6 +482,8 @@ def dense_weight_key(model, path: tuple) -> str | None:
     if block == "mixer" and _is_attn(plan[i]):
         kind = "mla" if model.cfg.attn_kind == "mla" else "attn"
         return f"{kind}.{name}"
+    if block == "mixer":
+        return f"{plan[i].kind}.{name}"
     if block == "mlp":
         return f"mlp.{name}"
     return None
@@ -513,11 +574,16 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
     ctx.mode == 'prefill', else None."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     if spec.kind == "rglru":
-        mix, raw = REC.rglru_block_train(p["mixer"], h)
+        tp = _mixer_cut(cfg, ctx, spec.kind)
+        mix, raw = REC.rglru_block_train(p["mixer"], h, tp=tp)
+        if tp is not None and ctx.mode == "prefill":
+            raw = REC.state_whole(raw, tp)
     elif spec.kind == "mlstm":
-        mix, raw = XL.mlstm_train(p["mixer"], h, _xlstm_spec(cfg))
+        mix, raw = XL.mlstm_train(p["mixer"], h, _xlstm_spec(cfg),
+                                  tp=_mixer_cut(cfg, ctx, spec.kind))
     elif spec.kind == "slstm":
-        mix, raw = XL.slstm_train(p["mixer"], h, _xlstm_spec(cfg))
+        mix, raw = XL.slstm_train(p["mixer"], h, _xlstm_spec(cfg),
+                                  tp=_mixer_cut(cfg, ctx, spec.kind))
     elif cfg.attn_kind == "mla":
         mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
                                  tuner=ctx.tuner, tp=_cut(cfg, ctx, "mla"))
@@ -546,11 +612,12 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
     PagedSplit` (read split-KV over its pages)."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
     if spec.kind == "rglru":
-        mix, cache = REC.rglru_block_decode(p["mixer"], h, cache)
-    elif spec.kind == "mlstm":
-        mix, cache = XL.mlstm_decode(p["mixer"], h, _xlstm_spec(cfg), cache)
-    elif spec.kind == "slstm":
-        mix, cache = XL.slstm_decode(p["mixer"], h, _xlstm_spec(cfg), cache)
+        mix, cache = REC.rglru_block_decode(
+            p["mixer"], h, cache, tp=_mixer_cut(cfg, ctx, spec.kind))
+    elif spec.kind in ("mlstm", "slstm"):
+        step = XL.mlstm_decode if spec.kind == "mlstm" else XL.slstm_decode
+        mix, cache = step(p["mixer"], h, _xlstm_spec(cfg), cache,
+                          tp=_mixer_cut(cfg, ctx, spec.kind))
     elif cfg.attn_kind == "mla":
         tp = _cut(cfg, ctx, "mla")
         if page_table is not None:

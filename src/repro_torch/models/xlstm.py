@@ -18,6 +18,18 @@
 Neither is a Pallas kernel in the reference, and neither is a kernel
 here: both run torch ops on whatever device their tensors are on.  Both
 carry exact recurrent state for decode.
+
+On a mesh (``tp``, the rank's :class:`~repro_torch.dist.collectives.
+TPGroup` of 'model') the projections compute on their widths, the
+weights cut as the reference stores them: an up-projection on the
+rank's columns, gathered over the group (one all-gather), each rank
+taking its slices of both halves; the row-cut products summed over the
+group (the mLSTM's q, k, v and gates packed in one all-reduce; each
+down-projection's output).  The mLSTM's chunked core and the sLSTM's
+recurrence run whole on every rank in train and prefill.  A decode
+step's mLSTM reads its matrix memory cut on the key dim and sums its
+(num, den) partials over the group; its sLSTM takes the rank's columns
+of the pre-activations and gathers them, so that no weight is gathered.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.dist import collectives as C
 from repro_torch.models.layers import _gelu, linear, rmsnorm
 from repro_torch.models.params import ParamDef
 
@@ -91,20 +104,68 @@ def init_mlstm_state(batch: int, s: XLSTMSpec,
                       torch.full((batch, h), -1e30, **f32))
 
 
-def _mlstm_qkv(p: dict, x: torch.Tensor, s: XLSTMSpec):
-    """x (B, S, D) -> q/k/v (B, S, H, Dh), gates (B, S, H), gate z."""
+def _halves(y: torch.Tensor, tp) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank's slices of both halves of a product cut on its columns
+    over ``tp`` (``y``: the rank's (..., 2n / tp) columns of (..., 2n)):
+    the columns gathered over the group, each rank taking its n / tp of
+    each half.  The gradient is summed over the group (``copy_to``)
+    before it returns to the rank's columns."""
+    whole = C.copy_to(C.all_gather(y, tp.group, dim=-1).contiguous(),
+                      tp.group)
+    half = whole.shape[-1] // 2
+    n = half // tp.size
+    lo = tp.rank * n
+    return whole[..., lo:lo + n], whole[..., half + lo:half + lo + n]
+
+
+def _mlstm_qkv(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None):
+    """x (B, S, D) -> q/k/v (B, S, H, Dh), gates (B, S, H), gate z.
+
+    With ``tp`` (the rank's columns of ``w_up``, rows of ``wq``, ``wk``,
+    ``wv``, ``w_igate`` and ``w_fgate``): the rank's Di / tp slices of u
+    and z (:func:`_halves`), and q, k, v and the gates whole, their
+    partial products packed and summed over the group; z is the rank's
+    (B, S, Di / tp)."""
     b, sl, _ = x.shape
-    up = linear(x, p["w_up"])
-    u, z = torch.chunk(up, 2, dim=-1)
-    q = linear(u, p["wq"]).reshape(b, sl, s.n_heads, s.head_dim)
-    k = linear(u, p["wk"]).reshape(b, sl, s.n_heads, s.head_dim) \
-        * (s.head_dim ** -0.5)
-    v = linear(u, p["wv"]).reshape(b, sl, s.n_heads, s.head_dim)
-    ig = (torch.einsum("bsd,dh->bsh", u, p["w_igate"])
-          + p["b_igate"]).float()
-    fg = (torch.einsum("bsd,dh->bsh", u, p["w_fgate"])
-          + p["b_fgate"]).float()
+    hd = (b, sl, s.n_heads, s.head_dim)
+    if tp is None:
+        up = linear(x, p["w_up"])
+        u, z = torch.chunk(up, 2, dim=-1)
+        q = linear(u, p["wq"])
+        k = linear(u, p["wk"])
+        v = linear(u, p["wv"])
+        ig = torch.einsum("bsd,dh->bsh", u, p["w_igate"])
+        fg = torch.einsum("bsd,dh->bsh", u, p["w_fgate"])
+    else:
+        u, z = _halves(linear(C.copy_to(x, tp.group), p["w_up"]), tp)
+        di, h = s.d_inner, s.n_heads
+        # contiguous, as one device's: the chunked core's products
+        # would otherwise copy strided views chunk by chunk
+        q, k, v, ig, fg = (t.contiguous() for t in C.reduce_from(torch.cat(
+            [linear(u, p["wq"]), linear(u, p["wk"]), linear(u, p["wv"]),
+             torch.einsum("bsd,dh->bsh", u, p["w_igate"]),
+             torch.einsum("bsd,dh->bsh", u, p["w_fgate"])], dim=-1),
+            tp.group).split([di, di, di, h, h], dim=-1))
+    q = q.reshape(hd)
+    k = k.reshape(hd) * (s.head_dim ** -0.5)
+    v = v.reshape(hd)
+    ig = (ig + p["b_igate"]).float()
+    fg = (fg + p["b_fgate"]).float()
     return q, k, v, ig, fg, z
+
+
+def _mlstm_out(p: dict, out: torch.Tensor, z: torch.Tensor, tp
+               ) -> torch.Tensor:
+    """The block's output from the core's (B, S, Di), normalised whole:
+    gated by z and projected down; with ``tp``, the rank's slice of it
+    by its z slice through its rows of ``w_down``, summed over the
+    group."""
+    out = rmsnorm(out, p["norm"])
+    if tp is None:
+        return linear(out * F.silu(z), p["w_down"])
+    n = z.shape[-1]
+    out = C.copy_to(out, tp.group)[..., tp.rank * n:(tp.rank + 1) * n]
+    return C.reduce_from(linear(out * F.silu(z), p["w_down"]), tp.group)
 
 
 def _mlstm_chunk(state: MLSTMState, qi, ki, vi, igi, fgi
@@ -150,15 +211,17 @@ def _mlstm_chunk(state: MLSTMState, qi, ki, vi, igi, fgi
     return MLSTMState(c_new, n_new, m_last), out
 
 
-def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec
+def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
                 ) -> tuple[torch.Tensor, MLSTMState]:
     """Chunked parallel mLSTM over the full sequence.
 
     Returns (out, final state) — the state seeds decode.  The sequence
     is zero-padded to whole chunks, as in the reference (a padded
-    position still moves the final state)."""
+    position still moves the final state).  With ``tp`` the
+    projections compute on the rank's widths and the core whole: the
+    state is whole."""
     b, sl, _ = x.shape
-    q, k, v, ig, fg, z = _mlstm_qkv(p, x, s)
+    q, k, v, ig, fg, z = _mlstm_qkv(p, x, s, tp)
     ch = min(s.chunk, sl)
     nc = -(-sl // ch)
     pad = nc * ch - sl
@@ -179,15 +242,21 @@ def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec
         outs.append(out)
     out = torch.cat(outs, dim=1).reshape(b, nc * ch, s.d_inner)
     out = out[:, :sl].to(x.dtype)
-    out = rmsnorm(out, p["norm"]) * F.silu(z)
-    return linear(out, p["w_down"]), state
+    return _mlstm_out(p, out, z, tp), state
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: MLSTMState
-                 ) -> tuple[torch.Tensor, MLSTMState]:
-    """One-token mLSTM step; x (B, 1, D).  Returns a new state."""
+def mlstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: MLSTMState,
+                 tp=None) -> tuple[torch.Tensor, MLSTMState]:
+    """One-token mLSTM step; x (B, 1, D).  Returns a new state.
+
+    With ``tp`` the projections compute on the rank's widths and
+    ``state.c`` (B, H, Dh / tp, Dh) and ``state.n`` (B, H, Dh / tp)
+    hold the rank's key dims (``m`` (B, H) whole): the rank updates them
+    with its slice of k, and the partial (num, den) of its slice of q,
+    packed, are summed over the group before the division.  The new
+    state is in the same layout."""
     b = x.shape[0]
-    q, k, v, ig, fg, z = _mlstm_qkv(p, x, s)
+    q, k, v, ig, fg, z = _mlstm_qkv(p, x, s, tp)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]      # (B, H, Dh)
     ig, fg = ig[:, 0], fg[:, 0]              # (B, H)
     logf = F.logsigmoid(fg)
@@ -195,15 +264,23 @@ def mlstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: MLSTMState
     decay = torch.exp(state.m + logf - m_new)
     inject = torch.exp(ig - m_new)
     kf, vf, qf = (t.float() for t in (k, v, q))
+    if tp is not None:
+        n = state.c.shape[2]
+        kf, qf = (t[..., tp.rank * n:(tp.rank + 1) * n] for t in (kf, qf))
     c_new = state.c * decay[..., None, None] \
         + inject[..., None, None] * kf[..., :, None] * vf[..., None, :]
     n_new = state.n * decay[..., None] + inject[..., None] * kf
     num = torch.einsum("bhd,bhde->bhe", qf, c_new)
-    den = torch.abs(torch.einsum("bhd,bhd->bh", qf, n_new))
+    den = torch.einsum("bhd,bhd->bh", qf, n_new)
+    if tp is not None:
+        both = C.reduce_from(torch.cat([num, den[..., None]], dim=-1),
+                             tp.group)
+        num, den = both[..., :-1], both[..., -1]
+    den = torch.abs(den)
     out = (num / torch.clamp(den, min=1.0)[..., None]).reshape(
         b, 1, s.d_inner)
-    out = rmsnorm(out.to(x.dtype), p["norm"]) * F.silu(z)
-    return linear(out, p["w_down"]), MLSTMState(c_new, n_new, m_new)
+    return _mlstm_out(p, out.to(x.dtype), z, tp), \
+        MLSTMState(c_new, n_new, m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +326,11 @@ def _slstm_step(xt: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
     """One sLSTM step on fp32 operands; xt (B, D).  Returns the new
     state and the pre-activations (B, 4D)."""
     pre = xt @ w_in + st.h @ w_rec + b
+    return _slstm_gates(pre, st), pre
+
+
+def _slstm_gates(pre: torch.Tensor, st: SLSTMState) -> SLSTMState:
+    """The state after a step from its pre-activations (B, 4D)."""
     z, i, f, o = torch.chunk(pre, 4, dim=-1)
     logf = F.logsigmoid(f)
     m_new = torch.maximum(logf + st.m, i)
@@ -257,7 +339,7 @@ def _slstm_step(xt: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
     c = f_s * st.c + i_s * torch.tanh(z)
     n = f_s * st.n + i_s
     h = torch.sigmoid(o) * c / torch.clamp(n, min=1.0)
-    return SLSTMState(c, n, h, m_new), pre
+    return SLSTMState(c, n, h, m_new)
 
 
 def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
@@ -268,22 +350,30 @@ def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
     return st, st.h
 
 
-def _slstm_out(p: dict, h: torch.Tensor) -> torch.Tensor:
+def _slstm_out(p: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
+    """The block's output from its hidden states: normalised, a GeGLU
+    up-projection, down; with ``tp`` on the rank's columns of ``w_up``
+    (:func:`_halves`) and rows of ``w_down``, summed over the group."""
     h = rmsnorm(h, p["norm"])
-    a, g = torch.chunk(linear(h, p["w_up"]), 2, dim=-1)
-    return linear(a * _gelu(g), p["w_down"])
+    if tp is None:
+        a, g = torch.chunk(linear(h, p["w_up"]), 2, dim=-1)
+        return linear(a * _gelu(g), p["w_down"])
+    a, g = _halves(linear(C.copy_to(h, tp.group), p["w_up"]), tp)
+    return C.reduce_from(linear(a * _gelu(g), p["w_down"]), tp.group)
 
 
-def slstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec
+def slstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
                 ) -> tuple[torch.Tensor, SLSTMState]:
     """The sLSTM over the whole sequence through one
-    ``repro_torch::slstm_scan`` op (:func:`slstm_scan`)."""
+    ``repro_torch::slstm_scan`` op (:func:`slstm_scan`); with ``tp`` the
+    recurrence runs whole (``w_in``, ``w_rec`` and ``b`` whole) and the
+    output projections on the rank's widths."""
     hs, st = slstm_scan(x.float(), p["w_in"].float(), p["w_rec"].float(),
                         p["b"].float())
-    return _slstm_out(p, hs.to(x.dtype)), st
+    return _slstm_out(p, hs.to(x.dtype), tp), st
 
 
-def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec
+def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
                      ) -> tuple[torch.Tensor, SLSTMState]:
     """The plain version of :func:`slstm_train`: a Python loop over time
     (the recurrence is non-associative), differentiated by autograd.
@@ -295,7 +385,7 @@ def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec
     for t in range(sl):
         st, h = _slstm_cell(p, xf[:, t], st)
         hs.append(h)
-    return _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype)), st
+    return _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype), tp), st
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +602,20 @@ _slstm_scan_op.register_autograd(_slstm_scan_grad,
                                  setup_context=_slstm_scan_setup)
 
 
-def slstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: SLSTMState
-                 ) -> tuple[torch.Tensor, SLSTMState]:
-    st2, h = _slstm_cell(p, x[:, 0].float(), state)
-    return _slstm_out(p, h[:, None].to(x.dtype)), st2
+def slstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: SLSTMState,
+                 tp=None) -> tuple[torch.Tensor, SLSTMState]:
+    """One-token sLSTM step; x (B, 1, D), ``state`` whole.  With ``tp``,
+    ``w_in``, ``w_rec`` and ``b`` are the rank's 4D / tp columns: the
+    rank's columns of the pre-activations are gathered over the group
+    and the cell runs whole; the output projections on the rank's
+    widths."""
+    if tp is None:
+        st2, h = _slstm_cell(p, x[:, 0].float(), state)
+        return _slstm_out(p, h[:, None].to(x.dtype)), st2
+    pre = x[:, 0].float() @ p["w_in"].float() \
+        + state.h @ p["w_rec"].float() + p["b"].float()
+    # contiguous, as one device's: the CPU's vectorised exp and tanh
+    # round apart from their strided loops
+    st2 = _slstm_gates(C.all_gather(pre, tp.group, dim=-1).contiguous(),
+                       state)
+    return _slstm_out(p, st2.h[:, None].to(x.dtype), tp), st2

@@ -17,9 +17,11 @@ _moe_apply`), the K/V of the local heads and the logits of the local
 vocab are gathered over 'model'.  A decode step takes the caches as
 DTensors in the layout of :func:`cache_specs` (:func:`shard_cache` lays
 a prefill's out so) and returns them in it: an attention cache cut on
-its sequence is read split-KV in place, every other cache with its rows
-whole; the MoE routes the whole batch onto each rank's experts where
-they are stored (:func:`repro_torch.models.moe.apply_moe_decode`).  A
+its sequence is read split-KV in place, the RG-LRU's state and the
+mLSTM's matrix memory cut as the layer computes are read in place,
+every other cache with its rows whole; the MoE routes the whole batch
+onto each rank's experts where they are stored
+(:func:`repro_torch.models.moe.apply_moe_decode`).  A
 paged decode step takes its page pools in :func:`cache_specs`' layout
 and reads each split-KV over its pages, in place
 (:func:`build_decode_paged`).
@@ -152,7 +154,7 @@ def decode_inputs_sds(model, cfg: ArchConfig, shape: ShapeSpec,
 
 
 def forward_specs(paths: Any, mesh, *, keep_experts: bool,
-                  model=None) -> list:
+                  model=None, decode: bool = False) -> list:
     """The spec a rank computes each parameter with, by its path in
     ``paths``: None for a MoE routed or shared expert with
     ``keep_experts`` (left where it is stored, for the MoE's mesh path:
@@ -160,13 +162,15 @@ def forward_specs(paths: Any, mesh, *, keep_experts: bool,
     gathers the shared experts whole, as the reference's ``shard_map``
     takes them; a decode computes both where they are stored); with
     ``model``, a dense block's weight at its
-    :func:`~repro_torch.models.transformer.dense_mesh_layout` spec; every
-    other weight ``()``, whole.  The rule :func:`forward_params` applies;
-    ``mesh`` may be a :class:`~repro_torch.dist.sharding.MeshShape`."""
+    :func:`~repro_torch.models.transformer.dense_mesh_layout` spec (a
+    decode step's with ``decode``); every other weight ``()``, whole.
+    The rule :func:`forward_params` applies; ``mesh`` may be a
+    :class:`~repro_torch.dist.sharding.MeshShape`."""
     from repro_torch.models.transformer import dense_mesh_layout, \
         dense_weight_key
 
-    dense = {} if model is None else dense_mesh_layout(model.cfg, mesh)
+    dense = {} if model is None else dense_mesh_layout(model.cfg, mesh,
+                                                       decode=decode)
     return [None if keep_experts and (is_expert_weight(path)
                                       or is_shared_weight(path)) else
             dense.get(dense_weight_key(model, path), ((), False))[0]
@@ -174,7 +178,7 @@ def forward_specs(paths: Any, mesh, *, keep_experts: bool,
 
 
 def forward_params(params: Any, mesh, *, keep_experts: bool,
-                   model=None) -> Any:
+                   model=None, decode: bool = False) -> Any:
     """The parameters a rank computes with: each DTensor moved to its
     :func:`forward_specs` spec, the local piece (no copy where the mesh
     does not cut it), or left as it is where that is None.  Plain
@@ -187,7 +191,8 @@ def forward_params(params: Any, mesh, *, keep_experts: bool,
     if mesh is None:
         return params
     specs = iter(forward_specs(tree_paths(params), mesh,
-                               keep_experts=keep_experts, model=model))
+                               keep_experts=keep_experts, model=model,
+                               decode=decode))
 
     def one(t):
         spec = next(specs)
@@ -247,20 +252,91 @@ def _split_view(cache: Any, tp) -> Any:
     return SplitKV(_map_arrays(lambda t: t.to_local(), cache), tp)
 
 
-def _laid_back(new: Any, old: Any) -> Any:
+def _state_view(state: Any, tp, cuts: dict[str, int]
+                ) -> tuple[Any, dict[str, str]]:
+    """A recurrent layer's state as its cut mixer's decode reads it
+    (``cuts``: field -> the dim the rank computes on its slice of,
+    :func:`~repro_torch.models.transformer.state_slices`), and how each
+    field was taken: ``local``, a field of ``cuts`` that 'model' cuts
+    on that dim (or cuts nothing on a one-rank axis), its local piece
+    read in place; ``slice``, such a field laid out otherwise, its rows
+    gathered whole and narrowed to the rank's slice; ``rows``, any
+    other field, its rows whole."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.dist.collectives import local_rows, rows_placements
+    from repro_torch.dist.sharding import TP_AXIS
+
+    out, how = {}, {}
+    for f in dataclasses.fields(state):
+        t = getattr(state, f.name)
+        dim = cuts.get(f.name)
+        if not isinstance(t, torch.Tensor):
+            continue
+        if dim is None:
+            out[f.name], how[f.name] = local_rows(t), "rows"
+            continue
+        if isinstance(t, DTensor):
+            i = list(t.device_mesh.mesh_dim_names).index(TP_AXIS)
+            want = list(rows_placements(t.placements))
+            want[i] = Shard(dim)
+            if list(t.placements) == want or (
+                    tp.size == 1 and list(rows_placements(t.placements))
+                    == list(t.placements)):
+                out[f.name], how[f.name] = t.to_local(), "local"
+                continue
+        n = t.shape[dim] // tp.size
+        out[f.name] = local_rows(t).narrow(dim, tp.rank * n, n)
+        how[f.name] = "slice"
+    return dataclasses.replace(state, **out), how
+
+
+def _layer_view(cache: Any, tp, cuts: dict[str, int]
+                ) -> tuple[Any, dict[str, str] | None]:
+    """(a layer's cache as its decode reads it, how a recurrent state's
+    fields were taken): a :class:`~repro_torch.models.layers.SplitKV`
+    (:func:`_split_view`), a cut mixer's state (:func:`_state_view`), or
+    the cache with its rows whole."""
+    split = _split_view(cache, tp)
+    if split is not None:
+        return split, None
+    if cuts:
+        return _state_view(cache, tp, cuts)
+    return _map_arrays(_rows, cache), None
+
+
+def _laid_back(new: Any, old: Any, how: dict[str, str] | None = None,
+               tp=None, cuts: dict[str, int] | None = None) -> Any:
     """A layer's cache after the step in ``old``'s layout: a split-KV
-    cache was updated in place; any other is this rank's rows, each
-    tensor laid out as ``old``'s (a plain tensor as it is)."""
+    cache was updated in place; a recurrent state's field read in place
+    (``how``: :func:`_state_view`'s) is the rank's new local piece, one
+    narrowed to the rank's slice is gathered back over ``tp`` on its dim
+    (``cuts``); any other is this rank's rows, each tensor laid out as
+    ``old``'s (a plain tensor as it is)."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.dist.collectives import relay_rows
+    from repro_torch.dist.collectives import all_gather, relay_rows
     from repro_torch.models.layers import SplitKV
 
     if isinstance(new, SplitKV):
         return old
-    return _map_arrays(lambda n, o: relay_rows(n, o.device_mesh,
-                                               o.placements)
-                       if isinstance(o, DTensor) else n, new, old)
+    if how is None:
+        return _map_arrays(lambda n, o: relay_rows(n, o.device_mesh,
+                                                   o.placements)
+                           if isinstance(o, DTensor) else n, new, old)
+    out = {}
+    for name, h in how.items():
+        n, o = getattr(new, name), getattr(old, name)
+        if h == "slice":
+            n = all_gather(n, tp.group, dim=cuts[name])
+        if not isinstance(o, DTensor):
+            out[name] = n
+        elif h == "local":
+            out[name] = DTensor.from_local(n.contiguous(), o.device_mesh,
+                                           o.placements, run_check=False)
+        else:
+            out[name] = relay_rows(n, o.device_mesh, o.placements)
+    return dataclasses.replace(new, **out)
 
 
 def build_prefill(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
@@ -310,9 +386,15 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     layout cuts on its sequence over 'model' (every tensor of it on dim
     1; on a one-rank axis the rank holds every slot) is read split-KV
     (:class:`~repro_torch.models.layers.SplitKV`) and written in place
-    by the rank that holds the slot; every other cache (another cut
-    dim, a recurrent state, the encoder-decoder's) is taken with its
-    rows whole (gathered over 'model') and its update laid back out.
+    by the rank that holds the slot.  Where the RG-LRU and the xLSTM
+    blocks compute on their widths, the sLSTM takes its stored columns
+    of ``w_in``, ``w_rec`` and ``b``, and the RG-LRU's ``h`` and
+    ``conv`` (cut on W) and the mLSTM's ``c`` and ``n`` (on their key
+    dim) are read and replaced in place where the layout cuts them so
+    (:func:`~repro_torch.models.transformer.state_slices`).  Every
+    other cache (another cut dim, the mLSTM's ``m``, the sLSTM's state,
+    the encoder-decoder's) is taken with its rows whole (gathered over
+    'model') and its update laid back out.
     """
     ctx = make_ctx("decode", mesh=mesh, cache_len=shape.seq_len,
                    tuner=tuner)
@@ -321,17 +403,23 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
             return model.decode_step(params, token, cache, pos, ctx)
         return decode, None, None
 
+    from repro_torch.models.transformer import state_slices
+
     t_entry = divisible_axes(shape.global_batch, data_axes(mesh), mesh)
     ctx = _rows_cut(ctx, t_entry)
+    plan = getattr(model, "plan", None)
+    cuts = [state_slices(cfg, s.kind, ctx.tp.size) for s in plan] \
+        if plan is not None and ctx.tp is not None else None
 
     def decode(params, token, cache, pos):
         params = forward_params(params, mesh, keep_experts=True,
-                                model=model)
-        views = [_split_view(c, ctx.tp) or _map_arrays(_rows, c)
-                 for c in cache]
-        logits, new = model.decode_step(params, _rows(token), views, pos,
-                                        ctx)
-        return logits, [_laid_back(n, c) for n, c in zip(new, cache)]
+                                model=model, decode=True)
+        at = cuts or [{}] * len(cache)
+        views = [_layer_view(c, ctx.tp, k) for c, k in zip(cache, at)]
+        logits, new = model.decode_step(params, _rows(token),
+                                        [v for v, _ in views], pos, ctx)
+        return logits, [_laid_back(n, c, how, ctx.tp, k)
+                        for n, c, (_, how), k in zip(new, cache, views, at)]
 
     p_specs = partition_params(model, cfg, mesh)
     c_specs = cache_specs(cache_sds(model, cfg, shape), mesh)
@@ -414,7 +502,7 @@ def build_decode_paged(model, cfg: ArchConfig, *, slots: int,
 
     def decode(params, token, pool, pos, table):
         params = forward_params(params, mesh, keep_experts=True,
-                                model=model)
+                                model=model, decode=True)
         views = [_page_view(c, mesh, ctx) for c in pool]
         logits, _ = model.decode_step(params, _rows(token), views,
                                       _rows(pos), ctx, _rows(table))

@@ -313,8 +313,10 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     the functions take their rows whole (``collectives.local_rows``).
     A train step gathers the weights computed whole and stored cut, and
     nothing else but for the MoE's expert-parallel exchange (DTensor's
-    all-to-all gathers on a CPU mesh) and whisper's frame embeddings; a
-    prefill gathers at least its logits, a decode step its logits."""
+    all-to-all gathers on a CPU mesh), whisper's frame embeddings and
+    the xLSTM blocks' up-projections (one gather a layer, in the forward
+    and in the remat's recompute); a prefill gathers at least its
+    logits, a decode step its logits."""
     cfg = get_smoke_config(arch)
     rec = D.run_cell(arch, kind, False, device="cpu", cfg=cfg,
                      shape=_smoke_shape(kind), mesh=fake_mesh)
@@ -322,11 +324,14 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     assert rec["cost"]["flops_per_device"] > 0
     gathers = rec["collectives"]["all-gather"]["count"]
     if kind == "train_4k":
-        whole = _whole_but_stored_cut(build_model(cfg), cfg, fake_mesh)
+        model = build_model(cfg)
+        whole = _whole_but_stored_cut(model, cfg, fake_mesh)
+        up = 2 * sum(s.kind in ("mlstm", "slstm")
+                     for s in getattr(model, "plan", []))
         if cfg.n_experts or cfg.family == "audio":
             assert gathers >= whole
         else:
-            assert gathers == whole
+            assert gathers == whole + up
     else:
         assert gathers > 0
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
@@ -608,6 +613,26 @@ def test_xlstm_trace_does_not_grow_with_the_sequence(xlstm_traces, kind):
     assert grown < chunks * 256 * 15 * n_slstm
 
 
+def _xlstm_other_half(cfg, n: int, kind: str) -> int:
+    """The FLOPs of the xLSTM blocks' products that a 2-way 'model' axis
+    leaves to the other rank, on rank 0's ``n`` tokens: half of every
+    projection (the mLSTM's w_up, wq, wk, wv, its gates' and w_down, the
+    sLSTM's w_up and w_down: each on its columns or rows); in training
+    the forward's, the remat's recompute but for w_down (the recompute
+    stops at its last saved tensor) and the backward's two products."""
+    d, h = cfg.d_model, cfg.n_heads
+    di = 2 * d
+    half = {"mlstm": (n * d * 2 * di + 3 * n * di * di + 2 * n * di * h,
+                      n * di * d),
+            "slstm": (n * d * 2 * d, n * d * d)}
+    total = 0
+    for s in build_model(cfg).plan:
+        body, down = half[s.kind]
+        total += 4 * (body + down) - down if kind == "train_4k" \
+            else body + down
+    return total
+
+
 @pytest.mark.parametrize("kind", XLSTM_KINDS)
 def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
     """At 256 tokens the trace's FLOPs on rank 0 (the op's formulas)
@@ -615,7 +640,9 @@ def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
     single-device function with the sLSTM's plain loop, less the half
     of the logits that the vocab cut over the 2-way 'model' axis leaves
     to the other rank (the forward's and, in training, the backward's
-    two products: three times the forward's)."""
+    two products: three times the forward's) and the half of the
+    blocks' projections that the axis leaves there
+    (:func:`_xlstm_other_half`)."""
     from torch.utils._pytree import tree_map as tmap
 
     from repro_torch.models import xlstm as X
@@ -645,7 +672,8 @@ def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
             fn(*args)
     rows = 2 * (s if kind == "train_4k" else 1)    # the logits' rows
     passes = 3 if kind == "train_4k" else 1
-    other_half = passes * 2 * rows * cfg.d_model * cfg.vocab // 2
+    other_half = passes * 2 * rows * cfg.d_model * cfg.vocab // 2 \
+        + _xlstm_other_half(cfg, 2 * s, kind)
     assert traces[kind, s]["flops"] == fc.get_total_flops() - other_half
 
 

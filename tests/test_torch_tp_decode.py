@@ -23,7 +23,12 @@ versions run (CPU tensors).
   cache, all with 48 cache slots and an 8-token prompt (positions below
   ``cap / tp``: ranks with no valid slot), and stablelm with 12 slots,
   where the cache specs cut the head dim (16 > 12) and the layer reads
-  its cache gathered whole;
+  its cache gathered whole; recurrentgemma-2b (the RG-LRU on its W / tp
+  channels, its state read in place where the specs cut it on W; local
+  attention over a ring of 32 slots) and xlstm-125m (the mLSTM's matrix
+  memory read in place on its key dim, (num, den) summed over 'model';
+  the sLSTM on its stored columns of ``w_in``, ``w_rec`` and ``b``, its
+  state gathered whole);
 * (2, 1): the MoE's decode capacity over the global batch: smoke
   deepseek at batch 16, ten rows with one prompt (five a rank), so that
   an expert takes ten (token, choice) pairs at the global capacity 8
@@ -33,9 +38,10 @@ versions run (CPU tensors).
 Each rank: the port's single-device prefill of the whole batch on the
 reference's weights (carried across by ``convert.params_from_jax``),
 its rows of the caches through ``shard_cache``, then ``STEPS`` greedy
-steps of the built mesh decode (for deepseek the first one watched: the
-local shapes of the MLA and shared-expert weights the rank computes
-with, and the step's collectives by ``CommDebugMode``).  Held against
+steps of the built mesh decode (for deepseek, recurrentgemma and xlstm
+the first one watched: the local shapes of the MLA and shared-expert
+weights, or of the recurrent mixers' weights and states, the rank
+computes with, and the step's collectives by ``CommDebugMode``).  Held against
 the JAX reference's ``prefill`` and ``decode_step`` on the whole batch:
 logits within ``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy
 tokens equal, and each rank holding ``cap / tp`` slots of every split
@@ -45,7 +51,8 @@ Without a world: ``softmax_combine_local`` over 1 to 8 chunks of a
 cache, some with no valid slot, against one softmax (``COMBINE_TOL``);
 and the production cache specs on the (16, 16) mesh: every decoder LM's
 decode_32k and long_500k GQA, ring and MLA latent caches cut their
-sequence over 'model', K, V and the int8 scales alike.
+sequence over 'model', K, V and the int8 scales alike, and the RG-LRU's
+state its W and the mLSTM's matrix memory its key dim.
 """
 
 import dataclasses
@@ -56,6 +63,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_tp import RECURRENT_LOGGED, recurrent_shapes
 
 pytestmark = pytest.mark.timeout(400)
 
@@ -70,6 +78,8 @@ CASES = [
     ("deepseek", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False),
     ("stablelm-int8", "stablelm-1.6b", {}, PROMPT, CACHE_LEN, True),
     ("stablelm-dh-cut", "stablelm-1.6b", {}, PROMPT, 12, False),
+    ("recurrentgemma", "recurrentgemma-2b", {}, PROMPT, CACHE_LEN, False),
+    ("xlstm", "xlstm-125m", {}, PROMPT, CACHE_LEN, False),
 ]
 #: the overflow case: batch 16, rows with one prompt
 OVERFLOW = ("overflow", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False)
@@ -83,6 +93,10 @@ WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES,
 #: two of its latent projections, the shared experts
 MLA_LOGGED = ("wq_b", "wk_b", "wv_b", "wo", "wq_a", "wkv_a")
 SHARED_LOGGED = ("shared_wi", "shared_wg", "shared_wo")
+#: the archs whose recurrent mixers a rank's first decode step logs: the
+#: weights of RECURRENT_LOGGED by the mixer's kind, and the state it is
+#: given
+RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 
 def _batch(case) -> int:
@@ -119,26 +133,86 @@ class _Int8:
             os.environ["ADSALA_KV_INT8"] = self.old
 
 
-def _local_slots(cache) -> list:
-    """Per attention layer: {field: local shape} of its DTensors."""
+def _local_slots(cache, states: bool = False) -> list:
+    """Per attention layer (with ``states``, per recurrent layer):
+    {field: local shape} of its DTensors."""
     from repro_torch.models.layers import KVCache
     from repro_torch.models.mla import MLACache
 
     out = []
     for c in cache:
-        if isinstance(c, (KVCache, MLACache)):
+        if isinstance(c, (KVCache, MLACache)) != states:
             out.append({f.name: list(getattr(c, f.name).to_local().shape)
                         for f in dataclasses.fields(c)
                         if isinstance(getattr(c, f.name), torch.Tensor)})
     return out
 
 
+def _spec_dim(spec: tuple, axis: str = "model") -> int | None:
+    """The dim a spec cuts over ``axis``, or None."""
+    for d, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return d
+    return None
+
+
+def _decode_gathers(model, cfg, mesh, p_specs, c_specs) -> list[str]:
+    """What a decode step all-gathers through DTensor: the weights
+    stored cut over 'model' and computed whole (``forward_specs``), and
+    the cache tensors cut over 'model' that it does not read in place
+    (an attention cache cut on its sequence, a cut mixer's state on the
+    dim the layer computes on: ``state_slices``)."""
+    from repro_torch.models.moe import is_expert_weight
+    from repro_torch.models.params import is_spec, tree_leaves, tree_paths
+    from repro_torch.models.transformer import state_slices
+    from repro_torch.serve.step import forward_specs
+
+    paths = tree_paths(model.defs)
+    out = ["/".join(map(str, path)) for path, stored, at in zip(
+        paths, tree_leaves(p_specs, is_leaf=is_spec),
+        forward_specs(paths, mesh, keep_experts=True, model=model,
+                      decode=True))
+        if at == () and _spec_dim(stored) is not None
+        and not is_expert_weight(path)]
+    tp = mesh.size(1)
+    for i, (spec, s) in enumerate(zip(c_specs, model.plan)):
+        cuts = state_slices(cfg, s.kind, tp)
+        dims = {f.name: _spec_dim(getattr(spec, f.name))
+                for f in dataclasses.fields(spec)
+                if isinstance(getattr(spec, f.name), tuple)}
+        split = s.kind in ("attn", "local") and set(dims.values()) == {1}
+        out += [f"cache/{i}/{name}" for name, d in dims.items()
+                if d is not None and not split and cuts.get(name) != d]
+    return out
+
+
 def _spy(log: dict):
-    """Patch MLA's decode and the MoE's shared experts to log the local
-    shapes of the weights they are given; returns the undo."""
+    """Patch MLA's decode, the MoE's shared experts and the recurrent
+    mixers' decode steps to log the local shapes of the weights (and a
+    mixer's state) they are given; returns the undo."""
     from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
+    from repro_torch.models import recurrent as REC
+    from repro_torch.models import xlstm as XL
 
+    mixers = {"rglru": (REC, "rglru_block_decode", 2),
+              "mlstm": (XL, "mlstm_decode", 3),
+              "slstm": (XL, "slstm_decode", 3)}
+    orig_mixers = {k: getattr(m, n) for k, (m, n, _) in mixers.items()}
+
+    def logged(kind):
+        def call(p, *a, **k):
+            for n in RECURRENT_LOGGED[kind]:
+                log.setdefault(f"{kind}.{n}", set()).add(tuple(p[n].shape))
+            state = a[mixers[kind][2] - 1]
+            for f in dataclasses.fields(state):
+                log.setdefault(f"{kind}.state.{f.name}", set()).add(
+                    tuple(getattr(state, f.name).shape))
+            return orig_mixers[kind](p, *a, **k)
+        return call
+
+    for kind, (module, name, _) in mixers.items():
+        setattr(module, name, logged(kind))
     orig = (MLA.mla_decode, MOE._shared_ffn)
 
     def mla_decode(p, *a, **k):
@@ -155,6 +229,8 @@ def _spy(log: dict):
 
     def undo():
         MLA.mla_decode, MOE._shared_ffn = orig
+        for kind, (module, name, _) in mixers.items():
+            setattr(module, name, orig_mixers[kind])
     return undo
 
 
@@ -192,8 +268,15 @@ def _case(mesh, tmp: str, case) -> dict:
         mine = _map_arrays(lambda t: t[rows].clone(), whole)
         cache = shard_cache(mine, mesh, c_specs)
         before = _local_slots(cache)
+        states_before = _local_slots(cache, states=True)
         tok = logits[rows].argmax(-1, keepdim=True)
         first = tok[:, 0].tolist()
+        plain = None
+        if arch in RECURRENT:
+            # the rows-whole caches as plain tensors: each cut state is
+            # narrowed to the rank's slice and its update gathered back
+            plain = decode(sharded, tok, _map_arrays(
+                lambda t: t.clone(), mine), prompt)[0]
         out_logits, out_tokens, own_rows = [], [], None
         log, comm = {}, None
         for s in range(STEPS):
@@ -203,7 +286,7 @@ def _case(mesh, tmp: str, case) -> dict:
                 own = _map_arrays(lambda t: t.clone(), mine)
                 own_rows = model.decode_step(params, tok, own, prompt,
                                            dctx)[0].numpy()
-            if cfg.attn_kind == "mla" and s == 0:
+            if (cfg.attn_kind == "mla" or arch in RECURRENT) and s == 0:
                 undo = _spy(log)
                 try:
                     with CommDebugMode() as mode:
@@ -227,9 +310,15 @@ def _case(mesh, tmp: str, case) -> dict:
     return {"rows": [rows.start, rows.stop], "first": first,
             "tokens": out_tokens, "t_spec": list(t_spec),
             "slots_before": before, "slots_after": _local_slots(cache),
+            "states_before": states_before,
+            "states_after": _local_slots(cache, states=True),
+            "expect_gathered": _decode_gathers(model, cfg, mesh, p_specs,
+                                               c_specs),
             "all_dtensors": all(isinstance(t, DTensor) for t in leaves),
             "weights": {k: sorted(v) for k, v in log.items()},
-            "comm": comm}
+            "comm": comm,
+            "plain_err": None if plain is None else
+            float((plain.numpy() - out_logits[0]).__abs__().max())}
 
 
 def _world(rank, world, shape, tmp):
@@ -377,6 +466,13 @@ ITEMS = [(shape, case) for shape, cases in WORLDS.items()
          for case in cases]
 
 
+def _cap(case) -> int:
+    """The slots of the case's attention caches: mixtral's and
+    recurrentgemma's rings hold their window of 32."""
+    return 32 if case[1] in ("mixtral-8x22b", "recurrentgemma-2b") \
+        else case[4]
+
+
 def _cut(case, tp: int) -> str:
     """Which dim the cache specs cut over a ``tp``-way 'model' axis."""
     return "head_dim" if case[0] == "stablelm-dh-cut" and tp > 1 \
@@ -411,28 +507,41 @@ def test_mesh_decode_keeps_the_cache_layout(worlds, item):
     """The decode takes and returns the caches as DTensors in the specs'
     layout: each rank holds ``cap / tp`` slots of every GQA and MLA
     cache cut on its sequence (K, V and the int8 scales alike) and its
-    rows of the batch; the head-dim cut keeps the sequence whole."""
+    rows of the batch; the head-dim cut keeps the sequence whole; the
+    recurrent states keep their local shapes, the RG-LRU's h and conv
+    cut on W and the mLSTM's c and n on their key dim."""
+    from repro_torch.configs import get_smoke_config
+
     shape, case = item
     n_dp, tp = shape
     cid, arch, over, prompt, cache_len, int8 = case
+    cfg = get_smoke_config(arch)
     b_loc = _batch(case) // n_dp
     for r in worlds[shape]:
         got = r[cid]
         assert got["all_dtensors"]
         assert got["slots_before"] == got["slots_after"]
+        assert got["states_before"] == got["states_after"]
         assert got["t_spec"] == ["data", None]         # the rows divide
-        assert got["slots_after"]
+        assert got["slots_after"] or got["states_after"]
         for layer in got["slots_after"]:
             if int8:
                 assert set(layer) == {"k", "v", "k_scale", "v_scale"}
             for name, local in layer.items():
                 assert local[0] == b_loc, name
                 if _cut(case, tp) == "sequence":
-                    cap = 32 if arch == "mixtral-8x22b" else cache_len
-                    assert local[1] == cap // tp, (name, local)
+                    assert local[1] == _cap(case) // tp, (name, local)
                 else:
                     assert local[1] == cache_len, (name, local)
                     assert local[3] == 16 // tp, (name, local)
+        dh = 2 * cfg.d_model // cfg.n_heads
+        for layer in got["states_after"]:
+            assert all(local[0] == b_loc for local in layer.values())
+            if "conv" in layer:
+                assert layer["h"][1] == cfg.lru_width // tp
+                assert layer["conv"][2] == cfg.lru_width // tp
+            elif "c" in layer and len(layer["c"]) == 4:
+                assert layer["c"][2] == layer["n"][2] == dh // tp
 
 
 DEEPSEEK_ITEMS = [i for i in ITEMS if i[1][1] == "deepseek-v2-236b"]
@@ -468,6 +577,54 @@ def test_deepseek_decode_computes_on_its_heads_and_ff(worlds, item):
         comm = got["comm"]
         assert not any("functional" in k for k in comm), comm
         assert comm.get("c10d._allgather_base_", 0) >= cfg.n_layers, comm
+
+
+RECURRENT_ITEMS = [i for i in ITEMS if i[1][1] in RECURRENT]
+
+
+@pytest.mark.parametrize("item", RECURRENT_ITEMS, ids=_ids)
+def test_recurrent_decode_computes_on_its_widths(worlds, item):
+    """A recurrentgemma or xlstm rank's mesh decode step computes the
+    RG-LRU on its W / tp channels (its columns of ``wx``, ``wy`` and the
+    conv, its ``lam``, its rows of the gates and ``wo``) on its slice of
+    the state, the mLSTM's projections on their widths on its key dims
+    of the matrix memory, the sLSTM on its stored columns of ``w_in``,
+    ``w_rec`` and ``b`` with its state whole; and ``CommDebugMode`` sees
+    DTensor gather only what the layout gathers (``_decode_gathers``):
+    no RG-LRU or xLSTM weight, no RG-LRU state, no mLSTM ``c`` or ``n``
+    (recurrentgemma's attention weights where its heads stay whole or
+    its KV heads are picked; the mLSTM's ``m`` where 'model' cuts its
+    heads; the sLSTM's state).  The same first step from the rows-whole
+    caches as plain tensors (each cut state narrowed to the rank's
+    slice, its update gathered back) gives the same logits."""
+    from repro_torch.configs import build_model, get_smoke_config
+
+    shape, case = item
+    n_dp, tp = shape
+    cfg = get_smoke_config(case[1])
+    table = recurrent_shapes(cfg, tp, rows=BATCH // n_dp)
+    plan = build_model(cfg).plan
+    want = {k: [list(v)] for k, v in table.items()}
+    recurrent = {str(i) for i, s in enumerate(plan)
+                 if s.kind in RECURRENT_LOGGED}
+    in_place = {f"cache/{i}/{n}" for i, s in enumerate(plan)
+                for n in {"rglru": ("h", "conv"),
+                          "mlstm": ("c", "n")}.get(s.kind, ())}
+    for r in worlds[shape]:
+        got = r[case[0]]
+        assert {k: v for k, v in got["weights"].items()
+                if k.split(".")[0] in RECURRENT_LOGGED} == want
+        expect = got["expect_gathered"]
+        assert in_place and not in_place & set(expect), expect
+        for name in expect:
+            parts = name.split("/")
+            assert parts[0] != "layers" or parts[1] not in recurrent, name
+        comm = got["comm"]
+        functional = sum(v for k, v in comm.items()
+                         if "functional" in k and "all_gather" in k)
+        assert functional == len(expect), (comm, expect)
+        # the same first step from plain rows-whole caches
+        assert got["plain_err"] <= LOGIT_TOL, got["plain_err"]
 
 
 def test_decode_capacity_counts_the_global_batch(worlds):
@@ -532,6 +689,37 @@ def test_softmax_combine_refuses_grad():
     with pytest.raises(RuntimeError, match="no backward"):
         softmax_combine_local([decode_partial(q, k, v,
                                               torch.ones(1, 3).bool())])
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_production_recurrent_states_cut_their_width(shape):
+    """On the (16, 16) production mesh recurrentgemma's RG-LRU states
+    cut W over 'model' (h on dim 1, conv on dim 2) and xlstm's mLSTM
+    states their key dim (c and n on dim 2), the batch over 'data'
+    where it divides: the dims ``state_slices`` says the layer computes
+    on, which the decode reads in place."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.transformer import state_slices
+    from repro_torch.serve.step import cache_sds, cache_specs
+
+    mesh = MeshShape({"data": 16, "model": 16})
+    batch = "data" if SHAPES[shape].global_batch % 16 == 0 else None
+    seen = {}
+    for arch in ("recurrentgemma-2b", "xlstm-125m"):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        specs = cache_specs(cache_sds(model, cfg, SHAPES[shape]), mesh)
+        for s, spec in zip(model.plan, specs):
+            cuts = state_slices(cfg, s.kind, 16)
+            for name, dim in cuts.items():
+                got = getattr(spec, name)
+                assert got[0] == batch and _spec_dim(got) == dim, \
+                    (arch, name, got)
+                seen[s.kind, name] = dim
+    assert seen == {("rglru", "h"): 1, ("rglru", "conv"): 2,
+                    ("mlstm", "c"): 2, ("mlstm", "n"): 2}
 
 
 @pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
