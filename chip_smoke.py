@@ -203,14 +203,27 @@ Phases (any failure exits non-zero):
    MESH_REC_STATE_TOL), MESH_DECODE_STEPS greedy mesh decode steps
    with the same tokens and the logits within MESH_DECODE_TOL, warm
    steps in turns, device time a step and the collectives a mesh step
-   dispatches (phase 12 (d), the int8 cache,
+   dispatches; (i) after (h): attention on the rank's heads where the
+   'model' axis does not divide them — starcoder2-3b whole (HEADS_ARCH,
+   random fp32 weights from a seed): its layout on the production
+   mesh's 16-way axis (a range of whole heads in train and prefill, the
+   stored columns in a decode step) and on this one, the TP prefill
+   bitwise the single one with the flash launches by head dim (one a
+   layer, head dim 128), MESH_DECODE_STEPS greedy mesh decode steps with
+   the same tokens and the logits within MESH_DECODE_TOL, the
+   collectives a step; (j) after (i): ``launch.train.train_config`` on
+   the mesh against the one-card launcher (stablelm-1.6b at full width
+   cut to LAUNCH_LAYERS layers, LAUNCH_STEPS steps): every loss and
+   every state leaf bitwise, then ``--resume`` restoring the mesh run's
+   checkpoint onto the mesh bitwise (phase 12 (d), the int8 cache,
    runs after the mesh is gone); phase 16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
    mixtral-8x22b on decode_32k, xlstm-125m's train_4k, prefill_32k and
    decode_32k, deepseek-v2-236b's prefill_32k and decode_32k, one
-   process each, and recurrentgemma-2b on every shape in one process;
+   process each, and recurrentgemma-2b and starcoder2-3b on every shape
+   in one process each;
    each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices`` (stablelm's
    train_4k and prefill_32k must be within x0.85–1.25 of it, its
@@ -220,7 +233,8 @@ Phases (any failure exits non-zero):
    deepseek's under DS_DECODE_PEAK_GIB; deepseek's prefill_32k FLOPs at
    most DS_PREFILL_RATIO_MAX of its share: MLA on its heads;
    recurrentgemma's and xlstm's cells at most REC_RATIO_MAX of theirs:
-   the recurrent mixers on their width),
+   the recurrent mixers on their width; starcoder2's at most
+   HEADS_RATIO_MAX: attention on the rank's 2 of 24 heads),
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -244,7 +258,8 @@ Phases (any failure exits non-zero):
    the counted main paths made at that head dim, tallied from the
    wrapper's ``launches_by_head_dim``), each with its launch plan, the
    main entry with its launches on the TP mesh prefills (stablelm's in
-   phase 15 (e), recurrentgemma's in (h)); the GEMM at 2048^3 and the
+   phase 15 (e), recurrentgemma's in (h), starcoder2's in (i)); the
+   GEMM at 2048^3 and the
    largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
    four buckets, with its launches on the mesh paths (the paged one of
@@ -486,23 +501,43 @@ MESH_REC = [("recurrentgemma-2b", 3, PROMPT_LEN, 1, 512),
 #: params 8.481e-04 (H100 80GB HBM3, 700 W)
 MESH_REC_STATE_TOL = {"xlstm-125m": {"params": 1e-6, "m": 1e-4,
                                     "v": 1e-4}}
+#: phase 15 (i): attention on the rank's heads where the 'model' axis
+#: does not divide them: starcoder2-3b whole (30 layers, 24 heads, 2 KV
+#: heads, head dim 128) on the one-rank mesh, whose one rank divides
+#: every head count (the uneven layout itself runs in the CPU worlds and
+#: the dry run's trace)
+HEADS_ARCH = "starcoder2-3b"
+#: phase 15 (j): the training launcher on the one-rank mesh against the
+#: one-card launcher: stablelm-1.6b at full width cut to LAUNCH_LAYERS
+#: layers, LAUNCH_BATCH x LAUNCH_SEQ, LAUNCH_STEPS steps
+LAUNCH_LAYERS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = 2, 1, 512, 3
 #: phase 16 (a): (arch, shape or every shape) of each dry-run process
 DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
                 ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
                 ("xlstm-125m", "decode_32k"),
                 ("deepseek-v2-236b", "prefill_32k"),
                 ("deepseek-v2-236b", "decode_32k"),
-                ("recurrentgemma-2b", None)]
+                ("recurrentgemma-2b", None), ("starcoder2-3b", None)]
 #: phase 16 (a): the recurrent mixers on their width: the most FLOPs a
 #: rank of each cell may do, as a multiple of step_flops / 256 (G25, all
 #: whole on every rank: recurrentgemma x5.33 / x4.74 / x4.55, xlstm
-#: x11.87 / x11.97 / x11.36)
-REC_RATIO_MAX = {("recurrentgemma-2b", "train_4k"): 3.0,
-                 ("recurrentgemma-2b", "prefill_32k"): 3.0,
-                 ("recurrentgemma-2b", "decode_32k"): 3.0,
+#: x11.87 / x11.97 / x11.36; recurrentgemma's, with its local
+#: attention on its heads too, read at x1.04 / x0.87 / x1.00 on the
+#: card's host, H100 80GB HBM3, 700 W)
+REC_RATIO_MAX = {("recurrentgemma-2b", "train_4k"): 1.5,
+                 ("recurrentgemma-2b", "prefill_32k"): 1.5,
+                 ("recurrentgemma-2b", "decode_32k"): 1.3,
                  ("xlstm-125m", "train_4k"): 7.0,
                  ("xlstm-125m", "prefill_32k"): 7.0,
                  ("xlstm-125m", "decode_32k"): 2.5}
+#: phase 16 (a): attention on the rank's heads where 16 does not divide
+#: them: starcoder2's FLOPs a rank at most these multiples of
+#: step_flops / 256 (x7.04 / x9.98 / x2.01 with its attention whole on
+#: every rank; read at x1.24 / x1.23 / x1.00 on its heads, H100 80GB
+#: HBM3, 700 W)
+HEADS_RATIO_MAX = {("starcoder2-3b", "train_4k"): 1.5,
+                   ("starcoder2-3b", "prefill_32k"): 1.5,
+                   ("starcoder2-3b", "decode_32k"): 1.3}
 DRYRUN_TIMEOUT = 300
 #: phase 16 (a): stablelm's train_4k and prefill_32k FLOPs a rank
 #: against step_flops / 256 (the dense blocks cut over 'model')
@@ -3016,6 +3051,7 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
         logits, cache = prefill(sharded, batch)
         torch.cuda.synchronize()
         n = kernel_counts(M, fa, G)
+        by_d = dict(fa.flash_attention_cuda.launches_by_head_dim)
         tally_flash(fa)
         reset_counts(M, fa, G)
         want, cache1 = model.prefill(params, prompts, ctx)
@@ -3035,7 +3071,8 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
           f"{cfg.n_heads} heads, {REQUESTS}x{prompt_len}) through "
           f"build_prefill on the (1, 1) mesh, tensor-parallel over 'model' "
           f"(weights laid out without a copy: {no_copy}): flash launches "
-          f"{n['flash']} (expected {want_flash}), matmul {n['matmul']}, "
+          f"{n['flash']} (expected {want_flash}; by head dim {by_d}), "
+          f"matmul {n['matmul']}, "
           f"grouped {n['grouped']}; logits bitwise the single-device "
           f"prefill's: {same_logits} (max |diff| {err:.3e}, rel {rel:.3e}),"
           f" caches bitwise: {same_cache} (max rel {cache_rel:.3e}; "
@@ -3055,7 +3092,8 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "batch": [REQUESTS, prompt_len],
-            "flash_launches": n["flash"], "logits_bitwise": same_logits,
+            "flash_launches": n["flash"], "flash_by_head_dim": by_d,
+            "logits_bitwise": same_logits,
             "caches_bitwise": same_cache, "logits_max_abs_err": err,
             "logits_rel_err": rel, "caches_rel_err": cache_rel,
             "prefill_ms": ms}
@@ -3198,6 +3236,132 @@ def mesh_recurrent(mesh, M, fa, G, torch) -> dict:
                                           torch, prompt_len=prompt_len)
         row["phase_s"] = time.perf_counter() - t0
         out[arch] = row
+    return out
+
+
+def mesh_heads(mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (i): attention on the rank's heads where the 'model'
+    axis does not divide them — HEADS_ARCH whole at full width (random
+    fp32 weights from a seed): the layout it computes attention in on
+    the production mesh's 16-way axis and on this one
+    (``dense_mesh_layout``), the TP prefill bitwise the single one with
+    its flash launches by head dim (:func:`mesh_prefill_tp`), and
+    MESH_DECODE_STEPS greedy steps of the mesh decode against the single
+    device with the collectives a step dispatches
+    (:func:`mesh_decode_model`)."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.sharding import MeshShape
+    from repro_torch.models.transformer import dense_mesh_layout
+
+    t0 = time.perf_counter()
+    cfg = get_config(HEADS_ARCH)
+    model = build_model(cfg)
+    prod = MeshShape({"data": 16, "model": 16})
+    lay = {k: v for k, v in dense_mesh_layout(cfg, prod).items()
+           if k.startswith("attn.")}
+    dec = {k: v for k, v in dense_mesh_layout(cfg, prod, decode=True
+                                              ).items()
+           if k.startswith("attn.")}
+    here = sorted(k for k in dense_mesh_layout(cfg, mesh)
+                  if k.startswith("attn."))
+    print(f"[chip_smoke] mesh (i): {cfg.name} ({cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads) on (16, 16): "
+          f"train and prefill {lay}; a decode step {dec}; on this mesh "
+          f"{here}")
+    if not (lay.get("attn.wq") == ((), True)
+            and dec.get("attn.wq") == ((None, "model"), False)
+            and "attn.wq" in here):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s attention is "
+                         "not laid out on its heads")
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    params = model.init(gen)
+    row = {"layout": {"train": {k: repr(v) for k, v in lay.items()},
+                      "decode": {k: repr(v) for k, v in dec.items()}},
+           "prefill": mesh_prefill_tp(model, cfg, params, mesh, M, fa, G,
+                                      torch)}
+    del params
+    torch.cuda.empty_cache()
+    row["decode"] = mesh_decode_model(HEADS_ARCH, None, mesh, M, fa, G,
+                                      torch)
+    row["phase_s"] = time.perf_counter() - t0
+    return row
+
+
+def mesh_launcher(mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (j): ``launch.train.train_config`` on the one-rank mesh
+    against the one-card launcher — stablelm-1.6b at full width cut to
+    LAUNCH_LAYERS layers, LAUNCH_STEPS steps of LAUNCH_BATCH x
+    LAUNCH_SEQ from the same seed on the same batches: every loss and
+    every state leaf bitwise (a one-rank mesh cuts nothing); then
+    ``--resume`` of the mesh run's checkpoint restores its state onto the
+    mesh, bitwise.  No kernel may launch (training runs on the
+    ``library`` backend)."""
+    import dataclasses
+    import shutil
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.params import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=LAUNCH_LAYERS)
+    root = WORK / "launch_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def args(name: str, *extra: str):
+        return train.parse_args(
+            ["--device", "cuda", "--steps", str(LAUNCH_STEPS), "--batch",
+             str(LAUNCH_BATCH), "--seq", str(LAUNCH_SEQ), "--ckpt-dir",
+             str(root / name), "--ckpt-every", str(10 * LAUNCH_STEPS),
+             *extra])
+
+    reset_counts(M, fa, G)
+    one = train.train_config(cfg, args("one"))
+    on = train.train_config(cfg, args("mesh"), mesh=mesh)
+    no_launches("the launcher's steps", M, fa, G)
+    pairs = list(zip(tree_leaves(one.driver.state),
+                     tree_leaves(on.driver.state)))
+    differ = sum(not (isinstance(b, DTensor) and torch.equal(
+        b.to_local(), a)) for a, b in pairs)
+    same_losses = one.losses == on.losses
+    wall = {"one": one.wall_s, "mesh": on.wall_s}
+    del one, pairs
+    shutil.rmtree(root / "one", ignore_errors=True)
+    back = train.train_config(cfg, args("mesh", "--resume"), mesh=mesh)
+    pairs = list(zip(tree_leaves(on.driver.state),
+                     tree_leaves(back.driver.state)))
+    restored = sum(not (isinstance(b, DTensor) and torch.equal(
+        b.to_local(), a.to_local())) for a, b in pairs)
+    n_leaves = len(pairs)
+    del pairs
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": [LAUNCH_BATCH, LAUNCH_SEQ], "steps": LAUNCH_STEPS,
+           "losses": on.losses, "same_losses": same_losses,
+           "state_leaves_differ": differ, "state_leaves": n_leaves,
+           "resumed_from": back.resumed_from,
+           "resumed_leaves_differ": restored,
+           "ckpt_gb": on.ckpt_bytes / 1e9, "ckpt_s": on.ckpt_s,
+           "wall_s": wall}
+    del on, back
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[chip_smoke] mesh (j): launch.train.train_config of "
+          f"{cfg.name} ({cfg.n_layers} layers, {LAUNCH_BATCH}x{LAUNCH_SEQ}, "
+          f"{LAUNCH_STEPS} steps) on the (1, 1) mesh against the one-card "
+          f"launcher: losses {out['losses']}, bitwise {same_losses}; "
+          f"state leaves that differ {differ} of {n_leaves}; --resume "
+          f"from step {out['resumed_from']} onto the mesh, leaves that "
+          f"differ from the state it saved {restored}; checkpoint "
+          f"{out['ckpt_gb']:.3f} GB in {out['ckpt_s']:.1f}s; "
+          f"{out['phase_s']:.1f}s")
+    if not (same_losses and not differ and not restored
+            and out["resumed_from"] == LAUNCH_STEPS):
+        raise SystemExit("[chip_smoke] FAIL: the launcher on the mesh "
+                         "differs from the one-card launcher or does not "
+                         "resume onto the mesh")
     return out
 
 
@@ -3981,6 +4145,19 @@ def phase_dryrun(torch) -> dict:
         raise SystemExit("[chip_smoke] FAIL: a rank of recurrentgemma's or "
                          "xlstm's dry run does not compute its mixers on "
                          "their width")
+    # attention on the rank's heads where 16 does not divide them
+    heads = {f"{a} {k}": {"flops_ratio": by_cell[a, k]["flops_ratio"],
+                          "peak_gib": by_cell[a, k]["peak_gib"],
+                          "collective_gb": sum(by_cell[a, k][
+                              "collective_bytes"].values()) / 1e9}
+             for a, k in HEADS_RATIO_MAX}
+    print(f"[chip_smoke] dry run (a): attention on the rank's heads: "
+          f"{heads} (FLOPs ratio at most "
+          f"{ {f'{a} {k}': v for (a, k), v in HEADS_RATIO_MAX.items()} })")
+    if not all(by_cell[key]["flops_ratio"] <= most
+               for key, most in HEADS_RATIO_MAX.items()):
+        raise SystemExit("[chip_smoke] FAIL: a rank of starcoder2's dry run "
+                         "does not compute attention on its heads")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))
@@ -4176,15 +4353,21 @@ def main() -> int:
         t1 = time.perf_counter()
         mesh_out["recurrent"] = mesh_recurrent(mesh, mm, fa, gm, torch)
         mesh_out["recurrent_s"] = time.perf_counter() - t1
+        mesh_out["heads"] = mesh_heads(mesh, mm, fa, gm, torch)
+        mesh_out["launcher"] = mesh_launcher(mesh, mm, fa, gm, torch)
         print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s"
               f", (g) " + ", ".join(
                   f"{k} {v['phase_s']:.1f}s"
                   for k, v in mesh_out["paged"].items())
-              + f", (h) {mesh_out['recurrent_s']:.1f}s")
+              + f", (h) {mesh_out['recurrent_s']:.1f}s, (i) "
+              f"{mesh_out['heads']['phase_s']:.1f}s, (j) "
+              f"{mesh_out['launcher']['phase_s']:.1f}s")
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
     deepseek["phase_s"] = (time.perf_counter() - t0
                            - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"]
-                           - mesh_out["recurrent_s"])
+                           - mesh_out["recurrent_s"]
+                           - mesh_out["heads"]["phase_s"]
+                           - mesh_out["launcher"]["phase_s"])
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
@@ -4219,6 +4402,8 @@ def main() -> int:
                                    "tp_prefill"]["flash_launches"],
                                "recurrentgemma_tp_prefill": mesh_out[
                                    "recurrent"]["recurrentgemma-2b"][
+                                   "prefill"]["flash_launches"],
+                               "starcoder2_tp_prefill": mesh_out["heads"][
                                    "prefill"]["flash_launches"]}),
                flash_entry("flash_attention@mixtral_prefill",
                            mixtral["flash"], mixtral["flash_launches"]),

@@ -13,12 +13,14 @@ them to XLA); the attention core of prefill is one
 Tensor parallelism (``tp``, a :class:`~repro_torch.dist.collectives.
 TPGroup` of the 'model' axis): :func:`attention_train` and
 :func:`apply_mlp` then run on this rank's shard of the weights, the
-whole heads of its range and its slice of the FF width, between
-``copy_to`` on the block's input and ``reduce_from`` on its output
-(Megatron's f and g), as GSPMD partitions the reference's;
-:func:`attention_decode` too, and it reads a cache cut on its sequence
-(:class:`SplitKV`) as a split softmax.  The recorder's events keep the
-global widths.
+whole heads of its range (:func:`head_range`: ⌈H / tp⌉ a rank, none
+past the last head) and its slice of the FF width, between ``copy_to``
+on the block's input and ``reduce_from`` on its output (Megatron's f
+and g), as GSPMD partitions the reference's; :func:`attention_decode`
+too, or, where the axis does not divide the heads, on the weights'
+stored columns (a cut that may end inside a head), and it reads a cache
+cut on its sequence (:class:`SplitKV`) as a split softmax.  The
+recorder's events keep the global widths.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ __all__ = [
     "linear", "mlp_defs", "apply_mlp",
     "rope_angles", "apply_rope",
     "attention_defs", "attention_train", "attention_decode",
-    "chunked_attention_xla", "kv_range", "tp_heads", "kv_heads_whole",
+    "chunked_attention_xla", "head_range", "kv_range", "tp_heads",
+    "kv_heads_whole",
     "attention_decode_paged", "decode_partial", "softmax_parts",
     "page_mask", "page_parts",
     "AttnSpec", "KVCache", "SplitKV", "CacheSlots", "cache_slots",
@@ -199,20 +202,29 @@ def attention_defs(s: AttnSpec) -> dict:
 
 def _project_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
                  positions: torch.Tensor, tuner=None,
-                 local: AttnSpec | None = None
+                 local: AttnSpec | None = None, gather=None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v (B, S, heads, Dh) of ``local``'s heads (default all of
-    ``s``'s); the recorder sees ``s``'s whole projection."""
+    ``s``'s); the recorder sees ``s``'s whole projection.  With
+    ``gather`` (a TPGroup) ``p`` holds the rank's stored columns of
+    ``wq``, ``wk`` and ``wv``: each projection is gathered over the
+    group to every head before the qk norms and RoPE, which a column
+    cut ending inside a head would split."""
     b, sq, d = x.shape
     # the q/k/v projections are plain GEMMs; tag them so the recorded
     # routine mix carries the dense dispatch volume
     ops.observe(b * sq, d,
                 (s.n_heads + 2 * s.n_kv_heads) * s.head_dim, tuner,
                 site="attn.qkv_proj")
+    q, k, v = (linear(x, p[w]) for w in ("wq", "wk", "wv"))
+    if gather is not None:
+        # contiguous: a gathered last dim is a strided view
+        q, k, v = (C.all_gather(t, gather.group, dim=-1).contiguous()
+                   for t in (q, k, v))
     s = local or s
-    q = linear(x, p["wq"]).reshape(b, sq, s.n_heads, s.head_dim)
-    k = linear(x, p["wk"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
-    v = linear(x, p["wv"]).reshape(b, sq, s.n_kv_heads, s.head_dim)
+    q = q.reshape(b, sq, s.n_heads, s.head_dim)
+    k = k.reshape(b, sq, s.n_kv_heads, s.head_dim)
+    v = v.reshape(b, sq, s.n_kv_heads, s.head_dim)
     if s.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -236,31 +248,62 @@ def _repeat_kv(k: torch.Tensor, n_heads: int,
     return torch.repeat_interleave(k, n_heads // hk, dim=2)
 
 
+def head_range(s: AttnSpec, size: int, rank: int) -> tuple[int, int]:
+    """[lo, hi) of the whole query heads rank ``rank`` of a ``size``-way
+    cut computes: ⌈H / size⌉ a rank in rank order, the rest on the last
+    rank that has any, none past it (H / size each where size divides
+    H)."""
+    per = -(-s.n_heads // size)
+    lo = min(rank * per, s.n_heads)
+    return lo, min(lo + per, s.n_heads)
+
+
 def kv_range(s: AttnSpec, size: int, rank: int) -> tuple[int, int]:
     """[lo, hi) of the KV heads that rank ``rank`` of a ``size``-way cut
     of the query heads reads (query head h reads KV head h // (H /
-    Hkv))."""
-    per = s.n_heads // size
+    Hkv)); empty where the rank has no query head."""
+    lo, hi = head_range(s, size, rank)
     group = s.n_heads // s.n_kv_heads
-    return rank * per // group, ((rank + 1) * per - 1) // group + 1
+    if lo == hi:
+        return lo // group, lo // group
+    return lo // group, (hi - 1) // group + 1
 
 
 def tp_heads(s: AttnSpec, tp) -> tuple[AttnSpec, int, int,
                                        list[int] | None]:
     """(local spec, KV lo, KV hi, KV index or None) of this rank's whole
-    query heads: the local spec counts its query heads and the KV heads
-    they read; the index maps each local query head to its local KV head
-    where that is not a plain repeat."""
-    per = s.n_heads // tp.size
+    query heads (:func:`head_range`; maybe none): the local spec counts
+    its query heads and the KV heads they read; the index maps each
+    local query head to its local KV head where that is not a plain
+    repeat."""
+    q_lo, q_hi = head_range(s, tp.size, tp.rank)
     lo, hi = kv_range(s, tp.size, tp.rank)
+    n, n_kv = q_hi - q_lo, hi - lo
     group = s.n_heads // s.n_kv_heads
-    index = [(tp.rank * per + j) // group - lo for j in range(per)]
-    n_kv = hi - lo
-    if per % n_kv == 0 and index == [j // (per // n_kv)
-                                     for j in range(per)]:
+    index = [(q_lo + j) // group - lo for j in range(n)]
+    if not n or (n % n_kv == 0 and index == [j // (n // n_kv)
+                                             for j in range(n)]):
         index = None
-    return dataclasses.replace(s, n_heads=per, n_kv_heads=n_kv), lo, hi, \
+    return dataclasses.replace(s, n_heads=n, n_kv_heads=n_kv), lo, hi, \
         index
+
+
+def _rank_weights(p: dict, s: AttnSpec, tp) -> dict:
+    """The weights of this rank's heads from those the layout gives it:
+    where the axis does not divide H (the weights whole) ``wq``'s
+    columns and ``wo``'s rows of its query heads, and where it does not
+    divide Hkv ``wk``'s and ``wv``'s columns of the KV heads they read;
+    cuts of whole heads pass as they are."""
+    hd = s.head_dim
+    if s.n_heads % tp.size:
+        lo, hi = head_range(s, tp.size, tp.rank)
+        p = {**p, "wq": p["wq"][:, lo * hd:hi * hd],
+             "wo": p["wo"][lo * hd:hi * hd]}
+    if s.n_kv_heads % tp.size:
+        lo, hi = kv_range(s, tp.size, tp.rank)
+        p = {**p, "wk": p["wk"][:, lo * hd:hi * hd],
+             "wv": p["wv"][:, lo * hd:hi * hd]}
+    return p
 
 
 def kv_heads_whole(k: torch.Tensor, s: AttnSpec, tp) -> torch.Tensor:
@@ -317,34 +360,42 @@ def attention_train(p: dict, x: torch.Tensor, s: AttnSpec, tuner=None,
     ``library`` backend, the one training takes — whether the SYRK
     score-materialisation path wins for this shape.
 
-    With ``tp`` (H divisible by its size) the rank computes its whole
-    query heads: ``wq`` its columns, ``wo`` its rows, and ``wk`` / ``wv``
-    its columns where Hkv is divisible too, else the whole weights, of
-    which it takes the columns of the KV heads its query heads read
-    (:func:`tp_heads`; their gradient is then a partial sum over the
-    group).  (k, v) are the local KV heads (:func:`kv_heads_whole`
-    joins them); the flash dispatch records the group's B x H heads.
+    With ``tp`` the rank computes its whole query heads
+    (:func:`head_range`): ``wq``'s columns and ``wo``'s rows of them,
+    which it is given where the axis divides H and takes from the whole
+    weights where it does not, and ``wk`` / ``wv`` its columns where Hkv
+    is divisible too, else the columns of the KV heads its query heads
+    read, taken from the whole weights (:func:`tp_heads`,
+    :func:`_rank_weights`; a gradient of a whole weight is then a
+    partial sum over the group).  A rank past the last head launches no
+    attention and adds zeros to the sum, through the same collectives.
+    (k, v) are the local KV heads (:func:`kv_heads_whole` joins them);
+    the flash dispatch records the group's B x H heads.
     """
     b, sq, _ = x.shape
     local, index = s, None
     if tp is not None:
-        local, lo, hi, index = tp_heads(s, tp)
-        if s.n_kv_heads % tp.size:
-            cols = slice(lo * s.head_dim, hi * s.head_dim)
-            p = {**p, "wk": p["wk"][:, cols], "wv": p["wv"][:, cols]}
+        local, _, _, index = tp_heads(s, tp)
+        p = _rank_weights(p, s, tp)
         x = C.copy_to(x, tp.group)
     positions = torch.arange(sq, device=x.device)
     q, k, v = _project_qkv(p, x, s, positions, tuner, local)
-    kr = _repeat_kv(k, local.n_heads, index)
-    vr = _repeat_kv(v, local.n_heads, index)
-    flat = (b * local.n_heads, sq, s.head_dim)
-    out = ops.flash_attention(
-        q.transpose(1, 2).reshape(flat).contiguous(),
-        kr.transpose(1, 2).reshape(flat).contiguous(),
-        vr.transpose(1, 2).reshape(flat).contiguous(),
-        causal=s.causal, window=s.window, tuner=tuner, site="attn.core",
-        backend=backend, count=b * s.n_heads)
-    out = out.reshape(b, local.n_heads, sq, s.head_dim).transpose(1, 2)
+    if local.n_heads:
+        kr = _repeat_kv(k, local.n_heads, index)
+        vr = _repeat_kv(v, local.n_heads, index)
+        flat = (b * local.n_heads, sq, s.head_dim)
+        out = ops.flash_attention(
+            q.transpose(1, 2).reshape(flat).contiguous(),
+            kr.transpose(1, 2).reshape(flat).contiguous(),
+            vr.transpose(1, 2).reshape(flat).contiguous(),
+            causal=s.causal, window=s.window, tuner=tuner, site="attn.core",
+            backend=backend, count=b * s.n_heads)
+        out = out.reshape(b, local.n_heads, sq, s.head_dim).transpose(1, 2)
+    else:
+        # no head here: the empty q, k and v stand for the attention's
+        # output, so that every weight's (zero) gradient and x's (through
+        # copy_to's sum) still pass
+        out = q + k + v
     ops.observe(b * sq, s.n_heads * s.head_dim, x.shape[-1], tuner,
                 site="attn.out_proj")
     out = linear(out.reshape(b, sq, local.n_heads * s.head_dim), p["wo"])
@@ -474,30 +525,33 @@ def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _decode_out(p: dict, x: torch.Tensor, s: AttnSpec, out: torch.Tensor,
-                tuner, tp=None) -> torch.Tensor:
+                tuner, tp=None, cols: bool = False) -> torch.Tensor:
     """The output projection of the attention ``out`` (B, H, Dh) of every
-    head; with ``tp`` the rank's heads through its rows of ``wo``,
+    head; with ``tp`` the rank's heads through its rows of ``wo`` (with
+    ``cols`` its stored rows: its block of the H x Dh columns of ``out``),
     summed over the group."""
     b = x.shape[0]
     ops.observe(b, s.n_heads * s.head_dim, x.shape[-1], tuner,
                 site="attn.out_proj")
-    if tp is not None:
-        per = s.n_heads // tp.size
-        out = out[:, tp.rank * per:(tp.rank + 1) * per]
+    if tp is not None and cols:
+        n = p["wo"].shape[0]
+        out = out.reshape(b, -1)[:, tp.rank * n:(tp.rank + 1) * n]
+    elif tp is not None:
+        out = out[:, slice(*head_range(s, tp.size, tp.rank))]
     y = linear(out.reshape(b, 1, -1).to(x.dtype), p["wo"])
     return y if tp is None else C.reduce_from(y, tp.group)
 
 
 def _decode_attend(p: dict, x: torch.Tensor, s: AttnSpec, q: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-                   tuner, tp=None) -> torch.Tensor:
+                   tuner, tp=None, cols: bool = False) -> torch.Tensor:
     """The one-token attention both decode paths share: q (B, 1, H, Dh)
     over k, v (B, cap, Hkv, Dh) with ``valid`` (1 or B, cap) masking the
     slots it may read, then the output projection."""
     probs = torch.softmax(_decode_scores(q, k, valid), dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs,
                        _repeat_kv(v, s.n_heads).float())
-    return _decode_out(p, x, s, out, tuner, tp)
+    return _decode_out(p, x, s, out, tuner, tp, cols)
 
 
 @dataclasses.dataclass
@@ -544,24 +598,24 @@ def cache_slots(cache) -> tuple[Any, CacheSlots]:
 
 
 def _decode_qkv(p: dict, x: torch.Tensor, s: AttnSpec,
-                positions: torch.Tensor, tuner, tp
+                positions: torch.Tensor, tuner, tp, cols: bool = False
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B, 1, H, Dh) and the new k, v (B, 1, Hkv, Dh) of every head;
     with ``tp`` projected on the rank's heads (as :func:`attention_train`
-    does) and gathered over the group."""
-    if tp is None:
-        return _project_qkv(p, x, s, positions, tuner)
-    local, lo, hi, _ = tp_heads(s, tp)
-    if s.n_kv_heads % tp.size:
-        cols = slice(lo * s.head_dim, hi * s.head_dim)
-        p = {**p, "wk": p["wk"][:, cols], "wv": p["wv"][:, cols]}
+    does, ``p`` being :func:`_rank_weights`') and gathered over the
+    group, or with ``cols`` projected on the rank's stored columns and
+    gathered before the qk norms and RoPE."""
+    if tp is None or cols:
+        return _project_qkv(p, x, s, positions, tuner,
+                            gather=tp if cols else None)
+    local, _, _, _ = tp_heads(s, tp)
     q, k, v = _project_qkv(p, x, s, positions, tuner, local)
     return (C.all_gather(q, tp.group, dim=2), kv_heads_whole(k, s, tp),
             kv_heads_whole(v, s, tp))
 
 
 def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
-                     pos: int, tuner=None, tp=None):
+                     pos: int, tuner=None, tp=None, cols: bool = False):
     """One-token decode: x (B, 1, D); ``pos`` = tokens so far.
 
     The cache update is tagged routine="trsm" as in the reference (a
@@ -572,17 +626,24 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
     cache is returned; an int8 cache takes the quantised row and its
     scales in place too, and attends over the dequantised cache.
 
-    On a mesh: with ``tp`` (H divisible by its size) q, k and v are
-    projected on the rank's heads and gathered, and the output leaves
-    through the rank's rows of ``wo`` (Megatron's g); a
-    :class:`SplitKV` cache is read split-KV: the rank that holds the
-    written slot writes it, each rank attends every head over its own
-    slots (the mask on global slot ids), and
+    On a mesh: with ``tp`` q, k and v are projected on the rank's heads
+    and gathered, and the output leaves through the rank's rows of
+    ``wo`` (Megatron's g); with ``cols`` too (where the axis does not
+    divide the heads) ``p`` holds the weights as stored, the rank's
+    columns of ``wq``, ``wk`` and ``wv`` and rows of ``wo``, which a
+    decode step takes with no move: the projections are gathered and
+    the qk norms and RoPE applied to every head after the gather, and
+    the output leaves through the stored rows.  A :class:`SplitKV` cache
+    is read split-KV: the rank that holds the written slot writes it,
+    each rank attends every head over its own slots (the mask on global
+    slot ids), and
     :func:`~repro_torch.dist.collectives.softmax_combine` merges them.
     """
     b = x.shape[0]
+    if tp is not None and not cols:
+        p = _rank_weights(p, s, tp)
     positions = torch.full((1,), pos, device=x.device)
-    q, k_new, v_new = _decode_qkv(p, x, s, positions, tuner, tp)
+    q, k_new, v_new = _decode_qkv(p, x, s, positions, tuner, tp, cols)
     kv, slots = cache_slots(cache)
     cap = slots.cap
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
@@ -613,10 +674,10 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
         valid = kv_ids <= pos
     if not isinstance(cache, SplitKV):
         return _decode_attend(p, x, s, q, k, v, valid[None, :], tuner,
-                              tp), cache
+                              tp, cols), cache
     out = C.softmax_combine(*decode_partial(q, k, v, valid[None, :]),
                             cache.tp.group)
-    return _decode_out(p, x, s, out, tuner, tp), cache
+    return _decode_out(p, x, s, out, tuner, tp, cols), cache
 
 
 def page_mask(plan, pos: torch.Tensor, cap: int, page: int
@@ -689,7 +750,8 @@ def _attend_pages(s: AttnSpec, view, plan, q: torch.Tensor,
 
 def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
                            page_table: torch.Tensor, pos: torch.Tensor,
-                           tuner=None, plan=None, tp=None):
+                           tuner=None, plan=None, tp=None,
+                           cols: bool = False):
     """One-token decode against a paged KV pool (continuous batching).
 
     x (B, 1, D); ``pos`` is (B,) int — every sequence in the batch sits
@@ -711,8 +773,8 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
     these positions, computed once for all layers (else here).
 
     On a mesh: with ``tp`` q, k and v are projected on the rank's heads
-    and gathered, the output leaves through the rank's rows of ``wo``
-    (as :func:`attention_decode`); a
+    (with ``cols`` on its stored columns) and gathered, the output leaves
+    through the rank's rows of ``wo`` (as :func:`attention_decode`); a
     :class:`~repro_torch.serve.kv_cache.PagedSplit` pool is read
     split-KV over its pages (:func:`_attend_pages`).
     """
@@ -723,7 +785,9 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
         raise NotImplementedError(
             "paged decode does not support sliding-window (ring) caches")
     b = x.shape[0]
-    q, k_new, v_new = _decode_qkv(p, x, s, pos[:, None], tuner, tp)
+    if tp is not None and not cols:
+        p = _rank_weights(p, s, tp)
+    q, k_new, v_new = _decode_qkv(p, x, s, pos[:, None], tuner, tp, cols)
     cap = page_table.shape[1] * pool.page_size
     ops.observe(cap, s.head_dim, b * s.n_heads, tuner,
                 routine="trsm", site="attn.cache_update")
@@ -731,7 +795,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, s: AttnSpec, pool,
         plan = plan_step(pool, page_table, pos)
     if isinstance(pool, PagedSplit):
         out = _attend_pages(s, pool, plan, q, k_new, v_new)
-        return _decode_out(p, x, s, out, tuner, tp), pool
+        return _decode_out(p, x, s, out, tuner, tp, cols), pool
     active = pos >= 0
     append_token(pool.k, page_table, pos, k_new[:, 0], active, plan)
     append_token(pool.v, page_table, pos, v_new[:, 0], active, plan)

@@ -24,10 +24,12 @@ rank's stored experts in a decode step, else expert or tensor
 parallelism on the ctx's torch ``DeviceMesh``.  On a mesh the dense
 blocks also run tensor-parallel over 'model' (:func:`dense_mesh_layout`:
 the embedding and the loss or logits cut on the vocab, GQA and MLA
-attention on whole heads, the MLP on its FF width), each rank on its
-shards, with the residual stream whole on every rank of the axis, as
-GSPMD partitions the reference's; a decode step reads the attention
-caches cut on their sequence split-KV.  The RG-LRU computes on its W /
+attention on whole heads, ⌈H / tp⌉ a rank where tp does not divide H,
+the MLP on its FF width), each rank on its shards, with the residual
+stream whole on every rank of the axis, as GSPMD partitions the
+reference's; a decode step reads the attention caches cut on their
+sequence split-KV, and where tp does not divide H it projects on the
+attention weights' stored columns.  The RG-LRU computes on its W /
 tp channels and the xLSTM blocks' projections on their widths (the
 mLSTM core and the sLSTM recurrence whole in train and prefill); a
 decode step reads the RG-LRU's state and the mLSTM's matrix memory cut
@@ -324,26 +326,36 @@ def moe_mesh_layout(cfg: ArchConfig, mesh, seq_len: int
 @functools.lru_cache(maxsize=None)
 def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     """Which dense widths a ``size``-way 'model' axis cuts for compute:
-    ``vocab`` (the embedding, logits and loss), ``heads`` (GQA
-    attention on whole query heads), ``kv_heads`` (and whole KV heads;
-    else each rank picks the KV heads its query heads read), ``mla``
-    (MLA on whole query heads, the latents whole), ``ff`` (the dense
-    MLPs), ``rglru`` (the RG-LRU on its W channels: every RG-LRU layer's
-    W divisible), ``xlstm`` (the mLSTM's and sLSTM's projections: D,
-    the mLSTM's inner width and its head dim divisible).  Nothing of
-    the encoder-decoder is cut."""
+    ``vocab`` (the embedding, logits and loss), ``heads`` (GQA attention
+    on the rank's range of whole query heads, ⌈H / size⌉ a rank:
+    :func:`~repro_torch.models.layers.head_range`), ``kv_heads`` (and
+    whole KV heads, H and Hkv divisible; else each rank picks the KV
+    heads its query heads read), ``qkv_cols`` (where size does not divide
+    H, a decode step's attention on the stored columns of ``wq``, ``wk``
+    and ``wv`` and rows of ``wo``: H x Dh and Hkv x Dh divisible; else
+    that decode computes attention whole), ``mla`` (MLA on whole query
+    heads, H divisible, the latents whole), ``ff`` (the dense MLPs),
+    ``rglru`` (the RG-LRU on its W channels: every RG-LRU layer's W
+    divisible), ``xlstm`` (the mLSTM's and sLSTM's projections: D, the
+    mLSTM's inner width and its head dim divisible).  Nothing of the
+    encoder-decoder is cut."""
     if cfg.family == "audio":
         return {"vocab": False, "heads": False, "kv_heads": False,
-                "mla": False, "ff": False, "rglru": False, "xlstm": False}
+                "qkv_cols": False, "mla": False, "ff": False,
+                "rglru": False, "xlstm": False}
     plan = _layer_plan(cfg)
     kinds = {s.kind for s in plan}
-    attn = any(_is_attn(s) for s in plan) and cfg.n_heads % size == 0
+    attn = any(_is_attn(s) for s in plan)
     heads = attn and cfg.attn_kind != "mla"
+    even = cfg.n_heads % size == 0
+    hd = cfg.resolved_head_dim
     ffs = [s.d_ff for s in plan if s.mlp == "mlp"]
     xl = _xlstm_spec(cfg)
     return {"vocab": cfg.vocab % size == 0, "heads": heads,
-            "kv_heads": heads and cfg.n_kv_heads % size == 0,
-            "mla": attn and cfg.attn_kind == "mla",
+            "kv_heads": heads and even and cfg.n_kv_heads % size == 0,
+            "qkv_cols": heads and not even and all(
+                n * hd % size == 0 for n in (cfg.n_heads, cfg.n_kv_heads)),
+            "mla": attn and cfg.attn_kind == "mla" and even,
             "ff": bool(ffs) and all(f % size == 0 for f in ffs),
             "rglru": "rglru" in kinds
             and _rglru_spec(cfg).width % size == 0,
@@ -358,6 +370,19 @@ def _cut(cfg: ArchConfig, ctx: Ctx, what: str):
     if ctx.tp is None or not _dense_cuts(cfg, ctx.tp.size)[what]:
         return None
     return ctx.tp
+
+
+def _attn_cut(cfg: ArchConfig, ctx: Ctx) -> tuple[Any, bool]:
+    """(tp, cols) of a GQA layer: ctx.tp where attention computes on its
+    heads; ``cols`` in a decode step where the axis does not divide the
+    heads and the layer takes its weights' stored columns.  A decode
+    step whose stored cut cannot be taken so computes attention
+    whole."""
+    tp = _cut(cfg, ctx, "heads")
+    if tp is None or ctx.mode != "decode" or cfg.n_heads % tp.size == 0:
+        return tp, False
+    cols = _dense_cuts(cfg, tp.size)["qkv_cols"]
+    return (tp if cols else None), cols
 
 
 def _mixer_cut(cfg: ArchConfig, ctx: Ctx, kind: str):
@@ -396,10 +421,15 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
       == 0 (the vocab-parallel lookup, logits and CE); else the vocab
       stays whole on every rank;
     * ``attn.wq`` / ``attn.wo``: columns / rows cut at whole heads when
-      H % tp == 0; else attention runs whole on every rank;
-    * ``attn.wk`` / ``attn.wv``: columns cut at whole KV heads when Hkv
-      % tp == 0 too; else whole, each rank taking the columns of the KV
-      heads its query heads read;
+      H % tp == 0; else whole, each rank taking the columns and rows of
+      its range of ⌈H / tp⌉ heads (none past the last head), and in a
+      decode step (``decode``) where they are stored: columns / rows cut
+      in tp equal blocks, which may end inside a head (where H x Dh and
+      Hkv x Dh divide; else that decode computes attention whole);
+    * ``attn.wk`` / ``attn.wv``: columns cut at whole KV heads when H %
+      tp == 0 and Hkv % tp == 0; else whole, each rank taking the columns
+      of the KV heads its query heads read (a decode step of uneven
+      heads: their stored columns, as ``wq``'s);
     * ``attn.q_norm`` / ``attn.k_norm``: whole, applied to the rank's
       heads;
     * ``mla.wq_b`` / ``mla.wk_b`` / ``mla.wv_b`` / ``mla.wo``: columns /
@@ -424,8 +454,9 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
       rank's columns of the pre-activations and gathers them.
 
     ``partial`` marks a gradient that is a partial sum over 'model'
-    (each rank's term from its own heads): the picked KV columns and the
-    qk norms; the train step sums it into the stored layout.  Every
+    (each rank's term from its own heads): the picked KV columns, the
+    qk norms and an uneven head range's ``wq`` and ``wo``; the train
+    step sums it into the stored layout.  Every
     other gradient of a cut or whole weight is the whole one already
     (the collectives' replicated-loss convention).  The stored layout
     (the reference's specs) is not this; where the two differ the
@@ -441,11 +472,18 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
     if cuts["vocab"]:
         out["embed"] = rows
         out["unembed"] = cols
-    if cuts["heads"]:
-        kv = cols if cuts["kv_heads"] else ((), True)
-        out.update({"attn.wq": cols, "attn.wo": rows,
+    even = cfg.n_heads % axis_size(mesh, m) == 0
+    picked = ((), True)
+    if cuts["heads"] and decode and not even:
+        if cuts["qkv_cols"]:
+            out.update({"attn.wq": cols, "attn.wk": cols, "attn.wv": cols,
+                        "attn.wo": rows})
+    elif cuts["heads"]:
+        kv = cols if cuts["kv_heads"] else picked
+        out.update({"attn.wq": cols if even else picked,
+                    "attn.wo": rows if even else picked,
                     "attn.wk": kv, "attn.wv": kv,
-                    "attn.q_norm": ((), True), "attn.k_norm": ((), True)})
+                    "attn.q_norm": picked, "attn.k_norm": picked})
     if cuts["mla"]:
         out.update({"mla.wq_b": cols, "mla.wk_b": cols, "mla.wv_b": cols,
                     "mla.wo": rows})
@@ -588,7 +626,7 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
         mix, raw = MLA.mla_train(p["mixer"], h, _mla_spec(cfg),
                                  tuner=ctx.tuner, tp=_cut(cfg, ctx, "mla"))
     else:
-        a, tp = _attn_spec(cfg, spec.kind), _cut(cfg, ctx, "heads")
+        a, (tp, _) = _attn_spec(cfg, spec.kind), _attn_cut(cfg, ctx)
         mix, raw = L.attention_train(p["mixer"], h, a, tuner=ctx.tuner,
                                      backend=ctx.backend, tp=tp)
         if tp is not None and ctx.mode == "prefill":
@@ -628,14 +666,16 @@ def _apply_layer_decode(p: dict, x: torch.Tensor, cache: Any,
             mix, cache = MLA.mla_decode(p["mixer"], h, _mla_spec(cfg),
                                         cache, pos, tuner=ctx.tuner, tp=tp)
     elif page_table is not None:
+        tp, cols = _attn_cut(cfg, ctx)
         mix, cache = L.attention_decode_paged(
             p["mixer"], h, _attn_spec(cfg, spec.kind), cache, page_table,
-            pos, tuner=ctx.tuner, plan=plan, tp=_cut(cfg, ctx, "heads"))
+            pos, tuner=ctx.tuner, plan=plan, tp=tp, cols=cols)
     else:
+        tp, cols = _attn_cut(cfg, ctx)
         mix, cache = L.attention_decode(p["mixer"], h,
                                         _attn_spec(cfg, spec.kind), cache,
-                                        pos, tuner=ctx.tuner,
-                                        tp=_cut(cfg, ctx, "heads"))
+                                        pos, tuner=ctx.tuner, tp=tp,
+                                        cols=cols)
     x, _ = _apply_ffn(p, x + mix, cfg, spec, ctx)
     return x, cache
 

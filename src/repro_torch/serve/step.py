@@ -381,8 +381,9 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     it took them in, so that step n + 1 takes step n's output.  The
     decoder LM computes tensor-parallel (``Ctx.tp``): the embedding,
     the MLP and the logits on the rank's vocab range and FF slice, GQA
-    attention on its heads; the MoE routes the whole batch onto the
-    experts where they are stored.  An attention layer's cache that the
+    attention on its heads (where 'model' does not divide them, on the
+    stored columns of its weights, no weight moved); the MoE routes the
+    whole batch onto the experts where they are stored.  An attention layer's cache that the
     layout cuts on its sequence over 'model' (every tensor of it on dim
     1; on a one-rank axis the rank holds every slot) is read split-KV
     (:class:`~repro_torch.models.layers.SplitKV`) and written in place

@@ -168,7 +168,8 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
       each gradient is averaged over the data axes and moved to its
       parameter's stored layout; a gradient the layout marks partial
       (each rank's term from its own heads: picked KV columns, the qk
-      norms) is summed over 'model' on the way (a reduce-scatter where
+      norms, the columns and rows of an uneven head range) is summed
+      over 'model' on the way (a reduce-scatter where
       the stored layout cuts it); MLA's weights need no such sum (its
       heads' columns and rows are computed and stored alike, and its
       latents' gradients are summed where they fork into the heads);

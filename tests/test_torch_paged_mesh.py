@@ -23,10 +23,14 @@ a hole past its prefix, one a hole inside it (read as page 0, as on
 one device), one is inactive (pos -1).  Smoke stablelm-1.6b (MHA: the pool cut on
 its head dim over 'model'), granite-8b (2 KV heads), deepseek-v2-236b
 (MLA's latent pool, cut on kv_lora_rank and qk_rope_dim; routed and
-shared experts) and stablelm with 8 heads of 8 (the pool cut on its KV
-heads).  Each rank: STEPS greedy steps of the built paged decode (for
-deepseek the first one watched: the local shapes of the MLA and
-shared-expert weights the rank computes with, and the step's
+shared experts), stablelm with 8 heads of 8 (the pool cut on its KV
+heads) and starcoder2-3b with 3 heads, 1 KV head and D 96 (on 2 ranks of
+'model' the decode projects on the stored columns of ``wq``, ``wk`` and
+``wv``, 1.5 query heads and half the KV head a rank, RoPE after the
+gather; the pool cut on its head dim).  Each rank: STEPS greedy steps
+of the built paged decode (for deepseek and starcoder2 the first one
+watched: the local shapes of the MLA and shared-expert weights or of
+the attention weights the rank computes with, and the step's
 collectives by ``CommDebugMode``), held
 against the JAX reference's single-device paged ``decode_step`` over the
 whole batch on the same pool and table: logits within LOGIT_TOL (1e-5,
@@ -62,6 +66,8 @@ CASES = [
     ("granite", "granite-8b", {}),
     ("deepseek", "deepseek-v2-236b", {}),
     ("stablelm-heads", "stablelm-1.6b", {"n_heads": 8, "n_kv_heads": 8}),
+    ("starcoder2-split", "starcoder2-3b",
+     {"n_heads": 3, "n_kv_heads": 1, "d_model": 96}),
 ]
 #: the overflow case: 16 slots, ten with one token, position and pages
 OVERFLOW = ("overflow", "deepseek-v2-236b", {})
@@ -152,12 +158,19 @@ def _other_rank_reads(case, n_dp: int) -> int:
 # ---------------------------------------------------------------------------
 
 def _spy(log: dict):
-    """Patch MLA's paged decode and the MoE's shared experts to log the
-    local shapes of the weights they are given; returns the undo."""
+    """Patch GQA's and MLA's paged decode and the MoE's shared experts to
+    log the local shapes of the weights they are given; returns the
+    undo."""
+    from repro_torch.models import layers as L
     from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
 
-    orig = (MLA.mla_decode_paged, MOE._shared_ffn)
+    orig = (MLA.mla_decode_paged, MOE._shared_ffn, L.attention_decode_paged)
+
+    def attention_decode_paged(p, *a, **k):
+        for n in ("wq", "wk", "wv", "wo"):
+            log.setdefault(f"attn.{n}", set()).add(tuple(p[n].shape))
+        return orig[2](p, *a, **k)
 
     def mla_decode_paged(p, *a, **k):
         for n in MLA_LOGGED:
@@ -169,10 +182,12 @@ def _spy(log: dict):
             log.setdefault(n, set()).add(tuple(p[n].shape))
         return orig[1](p, *a, **k)
 
-    MLA.mla_decode_paged, MOE._shared_ffn = mla_decode_paged, shared_ffn
+    MLA.mla_decode_paged, MOE._shared_ffn, L.attention_decode_paged = \
+        mla_decode_paged, shared_ffn, attention_decode_paged
 
     def undo():
-        MLA.mla_decode_paged, MOE._shared_ffn = orig
+        MLA.mla_decode_paged, MOE._shared_ffn, L.attention_decode_paged = \
+            orig
     return undo
 
 
@@ -225,7 +240,8 @@ def _case(mesh, tmp: str, case) -> dict:
                     make_ctx("decode", cache_len=CAP), table[rows])[0]
             args = (distribute(pos, mesh, pos_spec),
                     distribute(table, mesh, table_spec))
-            if cfg.attn_kind == "mla" and s == 0:
+            if (cfg.attn_kind == "mla" or cid == "starcoder2-split") \
+                    and s == 0:
                 undo = _spy(log)
                 try:
                     with CommDebugMode() as mode:
@@ -499,7 +515,8 @@ def test_paged_mesh_decode_keeps_the_pool_layout(worlds, item):
     layout, written in place: each rank holds 1 / n_dp of the pages of
     every pool and the 'model' axis' cut of its head dim (of its KV
     heads for stablelm-heads, of kv_lora_rank and qk_rope_dim for
-    deepseek); the slots, positions and table cut over 'data'."""
+    deepseek; starcoder2-split's one KV head of 32); the slots,
+    positions and table cut over 'data'."""
     shape, case = item
     n_dp, tp = shape
     cid, arch, over = case
@@ -515,6 +532,8 @@ def test_paged_mesh_decode_keeps_the_pool_layout(worlds, item):
                 assert local[2] in (32 // tp, 8 // tp), leaf
             elif cid == "stablelm-heads":
                 assert local[2:] == [8 // tp, 8], leaf
+            elif cid == "starcoder2-split":
+                assert local[2:] == [1, 32 // tp], leaf
             else:
                 kv = 2 if arch == "granite-8b" else 4
                 assert local[2:] == [kv, 16 // tp], leaf
@@ -553,6 +572,27 @@ def test_deepseek_paged_decode_computes_on_its_heads_and_ff(worlds, item):
         comm = got["comm"]
         assert not any("functional" in k for k in comm), comm
         assert comm.get("c10d._allgather_base_", 0) >= cfg.n_layers, comm
+
+
+SPLIT_ITEMS = [i for i in ITEMS if i[1][0] == "starcoder2-split"
+               and i[0][1] > 1]
+
+
+@pytest.mark.parametrize("item", SPLIT_ITEMS, ids=_ids)
+def test_uneven_heads_paged_decode_takes_the_stored_columns(worlds, item):
+    """starcoder2's 3 heads on 2 ranks of 'model': a rank's paged mesh
+    step projects on its stored columns of ``wq`` (48 of 96: 1.5 heads),
+    ``wk`` and ``wv`` (16 of 32: half the KV head) and leaves through its
+    stored rows of ``wo``, and gathers no weight (``CommDebugMode`` sees
+    no DTensor redistribution in the step)."""
+    shape, case = item
+    tp = shape[1]
+    want = {"attn.wq": [[96, 96 // tp]], "attn.wk": [[96, 32 // tp]],
+            "attn.wv": [[96, 32 // tp]], "attn.wo": [[96 // tp, 96]]}
+    for r in worlds[shape]["ranks"]:
+        got = r[case[0]]
+        assert got["weights"] == want
+        assert not any("functional" in k for k in got["comm"]), got["comm"]
 
 
 @pytest.mark.parametrize("n_dp", [2])

@@ -14,16 +14,18 @@ plain versions run (CPU tensors).
   recurrence whole);
 * (1, 4): granite-8b's (2 KV heads on 4 ranks: each rank picks the KV
   head its query head reads, and that gradient is a partial sum),
-  starcoder2-3b's cut to 6 heads (6 % 4: attention whole on every rank),
+  starcoder2-3b's cut to 6 heads (6 % 4: ranks 0-2 compute 2 whole
+  heads each, rank 3 none; each takes its heads' columns and rows of
+  the whole weights, whose gradients are partial sums),
   mixtral-8x22b's with 6 experts (picked KV heads beside the MoE's
   expert-TP path; with 4 experts the MoE would take its expert-parallel
   path, whose per-shard capacity drops other tokens than one device
   does, as the reference's) and deepseek-v2-236b's with 6 experts (MLA
   on one whole head a rank, its latents whole; the routed experts on
   the expert-TP path for the same reason, the shared experts whole),
-  recurrentgemma-2b's cut to 2 heads (2 % 4: its attention whole on
-  every rank beside the cut RG-LRU, as on the production mesh) and
-  xlstm-125m's.
+  recurrentgemma-2b's cut to 2 heads (2 % 4: one head on ranks 0 and
+  1, none on ranks 2 and 3, beside the cut RG-LRU, as its 10 heads on
+  the production mesh's 16) and xlstm-125m's.
 
 For each case: the reference's ``model.loss`` and its gradients by
 ``jax.value_and_grad`` on the reference's weights, carried across by
@@ -41,7 +43,8 @@ have gradient elements near 1e-9 whose sign the summation order of a
 cut product flips, 3.7e-6 to 4.6e-5 normwise after 3 steps, as
 tests/test_torch_train_families.py found for their single-device
 steps), the weights a rank computes with
-(their local shapes), the all-gathers of a step counted by
+(their local shapes; the heads a rank's attention core is given), the
+all-gathers of a step counted by
 ``CommDebugMode`` (DTensor's: only the weights computed whole and
 stored cut; the model's own: the xLSTM blocks' up-projections), and
 the built prefill's logits and caches against the single-device
@@ -122,7 +125,8 @@ def _spy(log: dict):
     from repro_torch.models import recurrent as REC
     from repro_torch.models import xlstm as XL
 
-    orig = (L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train)
+    orig = (L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train,
+            L.ops.flash_attention)
     mixers = {"rglru": (REC, "rglru_block_train"),
               "mlstm": (XL, "mlstm_train"), "slstm": (XL, "slstm_train")}
     orig_mixers = {k: getattr(m, n) for k, (m, n) in mixers.items()}
@@ -156,11 +160,18 @@ def _spy(log: dict):
         log.setdefault("embed", set()).add(tuple(w.shape))
         return orig[2](w, *a, **k)
 
-    L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train = \
-        attention_train, apply_mlp, vocab_embed, mla_train
+    def flash_attention(q, *a, **k):
+        # the heads the core is given: B x the rank's heads
+        log.setdefault("attn.core", set()).add((q.shape[0] // BATCH,))
+        return orig[4](q, *a, **k)
+
+    L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train, \
+        L.ops.flash_attention = attention_train, apply_mlp, vocab_embed, \
+        mla_train, flash_attention
 
     def undo():
-        L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train = orig
+        L.attention_train, L.apply_mlp, C.vocab_embed, MLA.mla_train, \
+            L.ops.flash_attention = orig
         for kind, (module, name) in mixers.items():
             setattr(module, name, orig_mixers[kind])
     return undo
@@ -528,7 +539,9 @@ def recurrent_shapes(cfg, tp: int, rows: int | None = None) -> dict:
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_tp_rank_computes_on_its_shards(worlds, case):
     """The weights each dense block is given have the local widths of
-    the layout, and a step all-gathers (DTensor's redistribution) only
+    the layout, the attention core of a rank is given its range of
+    ⌈H / tp⌉ heads (none past the last head: no call), and a step
+    all-gathers (DTensor's redistribution) only
     the weights computed whole and stored cut: never ``wq``, ``wo``,
     ``wi`` or ``embed`` where the 'model' axis cuts their heads, FF
     width or vocab, nor MLA's ``wq_b``, ``wk_b``, ``wv_b`` or ``wo``
@@ -569,10 +582,17 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
     slstm = {f"layers/{i}/mixer/{n}" for i, s in enumerate(plan)
              if s.kind == "slstm" for n in ("w_in", "w_rec", "b")}
     up = 2 * sum(s.kind in ("mlstm", "slstm") for s in plan)
+    attn = cfg.attn_kind != "mla" and any(s.kind in ("attn", "local")
+                                          for s in plan)
+    per = -(-h // tp)
     for r in worlds[shape]:
         c = r[_case_id(arch, over)]
-        assert set(c["shapes"]) == set(want)
-        for name, s in want.items():
+        mine = dict(want)
+        heads = min(h, per * (r["coord"][1] + 1)) - per * r["coord"][1]
+        if attn and heads > 0:
+            mine["attn.core"] = (heads,)
+        assert set(c["shapes"]) == set(mine)
+        for name, s in mine.items():
             assert c["shapes"][name] == [list(s)], name
         assert c["all_gathers"] == len(c["gathered"]), c["gathered"]
         assert c["model_gathers"] == up
@@ -612,10 +632,12 @@ def test_tp_ranks_hold_the_same_loss(worlds, case):
 def test_dense_mesh_layout_of_the_production_archs():
     """The layout on the (16, 16) production mesh's 'model' axis, read
     from the full configs: whole heads where H divides, picked KV heads
-    where Hkv does not, whole attention for starcoder2's 24 heads, the
-    vocab and FF cut, the RG-LRU on its W channels, the xLSTM blocks'
-    projections on their widths (the sLSTM's recurrence weights on
-    theirs in a decode step only), nothing of the encoder-decoder."""
+    where Hkv does not, a range of heads taken from the whole weights
+    for starcoder2's 24 and recurrentgemma's 10 (their decode on the
+    stored columns), the vocab and FF cut, the RG-LRU on its W
+    channels, the xLSTM blocks' projections on their widths (the
+    sLSTM's recurrence weights on theirs in a decode step only),
+    nothing of the encoder-decoder."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import dense_mesh_layout
 
@@ -638,12 +660,23 @@ def test_dense_mesh_layout_of_the_production_archs():
     assert lay["granite-8b"]["attn.wq"] == ((None, m), False)
     assert lay["granite-8b"]["attn.wk"] == ((), True)
     assert lay["granite-8b"]["mlp.wo"] == ((m, None), False)
-    assert "attn.wq" not in lay["starcoder2-3b"]
+    # starcoder2's 24 heads and recurrentgemma's 10: each rank takes its
+    # range of 2 or 1 whole heads from the whole weights (partial
+    # gradients); a decode step projects on the stored columns (192 of
+    # wq's 3072, 1.5 heads; 160 of 2560) and leaves through wo's rows
+    uneven = {f"attn.{n}": ((), True) for n in (
+        "wq", "wo", "wk", "wv", "q_norm", "k_norm")}
+    stored = {"attn.wq": cols, "attn.wk": cols, "attn.wv": cols,
+              "attn.wo": rows}
+    for a in ("starcoder2-3b", "recurrentgemma-2b"):
+        assert {k: v for k, v in lay[a].items()
+                if k.startswith("attn.")} == uneven
+        assert {k: v for k, v in dec[a].items()
+                if k.startswith("attn.")} == stored
     assert lay["starcoder2-3b"]["mlp.wi"] == ((None, m), False)
     assert lay["whisper-tiny"] == {}
-    # recurrentgemma's 10 heads stay whole; its MLP, vocab and RG-LRU
-    # (W 2560: 160 channels a rank) are cut
-    assert "attn.wq" not in lay["recurrentgemma-2b"]
+    # recurrentgemma's MLP, vocab and RG-LRU (W 2560: 160 channels a
+    # rank) are cut
     assert "mlp.wg" in lay["recurrentgemma-2b"]
     assert {k: v for k, v in lay["recurrentgemma-2b"].items()
             if k.startswith("rglru.")} == {
@@ -674,5 +707,11 @@ def test_dense_mesh_layout_of_the_production_archs():
                    for a, t in dec.items()
                    if a not in ("recurrentgemma-2b", "xlstm-125m")
                    for k in t)
-    # a decode step's layout differs only by the sLSTM's weights
-    assert all(dec[a] == lay[a] for a in lay if a != "xlstm-125m")
+    # a decode step's layout differs only by the sLSTM's weights and
+    # uneven heads' attention
+    assert all(dec[a] == lay[a] for a in lay if a not in (
+        "xlstm-125m", "starcoder2-3b", "recurrentgemma-2b"))
+    assert all({k: v for k, v in dec[a].items() if not k.startswith(
+        "attn.")} == {k: v for k, v in lay[a].items()
+                      if not k.startswith("attn.")}
+        for a in ("starcoder2-3b", "recurrentgemma-2b"))

@@ -28,7 +28,13 @@ versions run (CPU tensors).
   attention over a ring of 32 slots) and xlstm-125m (the mLSTM's matrix
   memory read in place on its key dim, (num, den) summed over 'model';
   the sLSTM on its stored columns of ``w_in``, ``w_rec`` and ``b``, its
-  state gathered whole);
+  state gathered whole) and starcoder2-3b with 3 heads, 1 KV head and
+  D 96 (heads the axis does not divide: the decode projects on the
+  stored columns of ``wq``, ``wk`` and ``wv``, 1.5 query heads and half
+  the KV head a rank on 2 ranks, gathers the projections and applies
+  RoPE after the gather, and leaves through ``wo``'s stored rows);
+  (1, 4) also recurrentgemma-2b with 2 heads (fewer than the ranks: its
+  local attention on the stored columns beside the RG-LRU);
 * (2, 1): the MoE's decode capacity over the global batch: smoke
   deepseek at batch 16, ten rows with one prompt (five a rank), so that
   an expert takes ten (token, choice) pairs at the global capacity 8
@@ -38,10 +44,11 @@ versions run (CPU tensors).
 Each rank: the port's single-device prefill of the whole batch on the
 reference's weights (carried across by ``convert.params_from_jax``),
 its rows of the caches through ``shard_cache``, then ``STEPS`` greedy
-steps of the built mesh decode (for deepseek, recurrentgemma and xlstm
-the first one watched: the local shapes of the MLA and shared-expert
-weights, or of the recurrent mixers' weights and states, the rank
-computes with, and the step's collectives by ``CommDebugMode``).  Held against
+steps of the built mesh decode (for deepseek, recurrentgemma, xlstm and
+starcoder2 the first one watched: the local shapes of the MLA and
+shared-expert weights, of the recurrent mixers' weights and states, or
+of the attention weights, the rank computes with, and the step's
+collectives by ``CommDebugMode``).  Held against
 the JAX reference's ``prefill`` and ``decode_step`` on the whole batch:
 logits within ``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy
 tokens equal, and each rank holding ``cap / tp`` slots of every split
@@ -80,13 +87,22 @@ CASES = [
     ("stablelm-dh-cut", "stablelm-1.6b", {}, PROMPT, 12, False),
     ("recurrentgemma", "recurrentgemma-2b", {}, PROMPT, CACHE_LEN, False),
     ("xlstm", "xlstm-125m", {}, PROMPT, CACHE_LEN, False),
+    ("starcoder2-split", "starcoder2-3b",
+     {"n_heads": 3, "n_kv_heads": 1, "d_model": 96}, PROMPT, CACHE_LEN,
+     False),
 ]
+#: recurrentgemma with fewer heads than the (1, 4) world's ranks
+FEW_HEADS = ("recurrentgemma-h2", "recurrentgemma-2b", {"n_heads": 2},
+             PROMPT, CACHE_LEN, False)
+#: the cases whose heads the 'model' axis does not divide
+UNEVEN = ("starcoder2-split", "recurrentgemma-h2")
 #: the overflow case: batch 16, rows with one prompt
 OVERFLOW = ("overflow", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False)
 OVERFLOW_BATCH = 16
 OVERFLOW_SAME = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
-WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES,
+WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES + [FEW_HEADS],
           (2, 1): [OVERFLOW]}
+ALL_CASES = CASES + [FEW_HEADS, OVERFLOW]
 
 
 #: the weights a deepseek rank's decode step logs: MLA's four on 'heads',
@@ -187,9 +203,10 @@ def _decode_gathers(model, cfg, mesh, p_specs, c_specs) -> list[str]:
 
 
 def _spy(log: dict):
-    """Patch MLA's decode, the MoE's shared experts and the recurrent
-    mixers' decode steps to log the local shapes of the weights (and a
-    mixer's state) they are given; returns the undo."""
+    """Patch GQA's and MLA's decode, the MoE's shared experts and the
+    recurrent mixers' decode steps to log the local shapes of the
+    weights (and a mixer's state) they are given; returns the undo."""
+    from repro_torch.models import layers as L
     from repro_torch.models import mla as MLA
     from repro_torch.models import moe as MOE
     from repro_torch.models import recurrent as REC
@@ -213,7 +230,12 @@ def _spy(log: dict):
 
     for kind, (module, name, _) in mixers.items():
         setattr(module, name, logged(kind))
-    orig = (MLA.mla_decode, MOE._shared_ffn)
+    orig = (MLA.mla_decode, MOE._shared_ffn, L.attention_decode)
+
+    def attention_decode(p, *a, **k):
+        for n in ("wq", "wk", "wv", "wo"):
+            log.setdefault(f"attn.{n}", set()).add(tuple(p[n].shape))
+        return orig[2](p, *a, **k)
 
     def mla_decode(p, *a, **k):
         for n in MLA_LOGGED:
@@ -225,10 +247,11 @@ def _spy(log: dict):
             log.setdefault(n, set()).add(tuple(p[n].shape))
         return orig[1](p, *a, **k)
 
-    MLA.mla_decode, MOE._shared_ffn = mla_decode, shared_ffn
+    MLA.mla_decode, MOE._shared_ffn, L.attention_decode = \
+        mla_decode, shared_ffn, attention_decode
 
     def undo():
-        MLA.mla_decode, MOE._shared_ffn = orig
+        MLA.mla_decode, MOE._shared_ffn, L.attention_decode = orig
         for kind, (module, name, _) in mixers.items():
             setattr(module, name, orig_mixers[kind])
     return undo
@@ -286,7 +309,8 @@ def _case(mesh, tmp: str, case) -> dict:
                 own = _map_arrays(lambda t: t.clone(), mine)
                 own_rows = model.decode_step(params, tok, own, prompt,
                                            dctx)[0].numpy()
-            if (cfg.attn_kind == "mla" or arch in RECURRENT) and s == 0:
+            if (cfg.attn_kind == "mla" or arch in RECURRENT
+                    or cid in UNEVEN) and s == 0:
                 undo = _spy(log)
                 try:
                     with CommDebugMode() as mode:
@@ -426,7 +450,7 @@ def worlds(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("tp_decode")
     models = {}
-    for case in CASES + [OVERFLOW]:
+    for case in ALL_CASES:
         jm, jp = models[case[0]] = _reference_model(case)
         torch.save({"params": params_from_jax(jax.tree.map(np.asarray, jp))},
                    root / f"ref_{case[0]}.pt")
@@ -435,7 +459,7 @@ def worlds(tmp_path_factory):
                               daemon=True)
     runner.start()
     out = {"ref": {case[0]: _reference(case, *models[case[0]])
-                   for case in CASES + [OVERFLOW]}}
+                   for case in ALL_CASES}}
     runner.join(timeout=4 * 300)
     assert not runner.is_alive(), "the worlds did not finish"
     if errors:
@@ -625,6 +649,45 @@ def test_recurrent_decode_computes_on_its_widths(worlds, item):
         assert functional == len(expect), (comm, expect)
         # the same first step from plain rows-whole caches
         assert got["plain_err"] <= LOGIT_TOL, got["plain_err"]
+
+
+UNEVEN_ITEMS = [i for i in ITEMS if i[1][0] in UNEVEN]
+
+
+@pytest.mark.parametrize("item", UNEVEN_ITEMS, ids=_ids)
+def test_uneven_heads_decode_takes_the_stored_columns(worlds, item):
+    """Where the 'model' axis does not divide the heads, a rank's mesh
+    decode step projects on its stored columns of ``wq``, ``wk`` and
+    ``wv`` (H x Dh / tp and Hkv x Dh / tp: a cut that ends inside a
+    head) and leaves through its stored rows of ``wo``, and
+    ``CommDebugMode`` sees DTensor gather no attention weight: only what
+    the layout gathers (``_decode_gathers``: nothing at all for
+    starcoder2; recurrentgemma's is recurrent_decode's)."""
+    from repro_torch.configs import build_model, get_smoke_config
+
+    shape, case = item
+    tp = shape[1]
+    cfg = dataclasses.replace(get_smoke_config(case[1]), **case[2])
+    hd = cfg.resolved_head_dim
+    q, kv = cfg.n_heads * hd // tp, cfg.n_kv_heads * hd // tp
+    assert cfg.n_heads % tp and q % hd      # the cut ends inside a head
+    d = cfg.d_model
+    want = {"attn.wq": [[d, q]], "attn.wk": [[d, kv]], "attn.wv": [[d, kv]],
+            "attn.wo": [[q, d]]}
+    attn = {str(i) for i, s in enumerate(build_model(cfg).plan)
+            if s.kind in ("attn", "local")}
+    for r in worlds[shape]:
+        got = r[case[0]]
+        assert {k: v for k, v in got["weights"].items()
+                if k.startswith("attn.")} == want
+        expect = got["expect_gathered"]
+        assert not any(n.split("/")[1] in attn for n in expect
+                       if n.startswith("layers/")), expect
+        if case[1] == "starcoder2-3b":
+            assert expect == []
+        functional = sum(v for k, v in got["comm"].items()
+                         if "functional" in k and "all_gather" in k)
+        assert functional == len(expect), (got["comm"], expect)
 
 
 def test_decode_capacity_counts_the_global_batch(worlds):
