@@ -215,15 +215,29 @@ Phases (any failure exits non-zero):
    the mesh against the one-card launcher (stablelm-1.6b at full width
    cut to LAUNCH_LAYERS layers, LAUNCH_STEPS steps): every loss and
    every state leaf bitwise, then ``--resume`` restoring the mesh run's
-   checkpoint onto the mesh bitwise (phase 12 (d), the int8 cache,
-   runs after the mesh is gone); phase 16 (b) runs inside (a);
+   checkpoint onto the mesh bitwise; (k) after (j): the encoder-decoder
+   on its shards — whisper-tiny whole (WH_ARCH, random fp32 weights from
+   a seed): its layout on the production mesh's 16-way axis (its three
+   attentions on a range of whole heads in train and prefill and on the
+   stored columns in a decode step, its MLPs on their FF slice, its odd
+   vocabulary on ranges of the whole embedding) and on this one, the TP
+   prefill (REQUESTS x WH_PROMPT tokens, 1500 frames) bitwise the single
+   one with the flash launches by head dim (4 unmasked encoder and 4
+   causal decoder layers, head dim 64), MESH_DECODE_STEPS greedy mesh
+   decode steps (the self cache split-KV, the cross K/V read in place on
+   their head dim, no DTensor moved) with the same tokens and the logits
+   within MESH_DECODE_TOL of their largest, the collectives a step,
+   MESH_TRAIN_STEPS
+   sharded train steps of ENCDEC_TRAIN against the single device
+   (phase 12 (d), the int8 cache, runs after the mesh is gone); phase
+   16 (b) runs inside (a);
 16. the dry run: (a) ``python -m repro_torch.launch.dryrun --device
    cuda --mesh single`` on a fake 256-rank world, in processes run
    together: stablelm-1.6b on every shape (long_500k skipped),
    mixtral-8x22b on decode_32k, xlstm-125m's train_4k, prefill_32k and
    decode_32k, deepseek-v2-236b's prefill_32k and decode_32k, one
-   process each, and recurrentgemma-2b and starcoder2-3b on every shape
-   in one process each;
+   process each, and recurrentgemma-2b, starcoder2-3b and whisper-tiny
+   on every shape in one process each;
    each cell's status, trace seconds,
    FLOPs a rank against ``step_flops / n_devices`` (stablelm's
    train_4k and prefill_32k must be within x0.85–1.25 of it, its
@@ -234,7 +248,10 @@ Phases (any failure exits non-zero):
    most DS_PREFILL_RATIO_MAX of its share: MLA on its heads;
    recurrentgemma's and xlstm's cells at most REC_RATIO_MAX of theirs:
    the recurrent mixers on their width; starcoder2's at most
-   HEADS_RATIO_MAX: attention on the rank's 2 of 24 heads),
+   HEADS_RATIO_MAX: attention on the rank's 2 of 24 heads; whisper's at
+   most WHISPER_RATIO_MAX and its decode_32k's collective bytes under
+   WHISPER_DECODE_GB: the encoder-decoder on its shards, its decode
+   reading its caches in place),
    collective bytes by kind, the kernels' ops traced (stablelm's
    prefill must trace the flash op once per layer, mixtral's decode the
    grouped op, xlstm's prefill the sLSTM op once per sLSTM layer, its
@@ -258,7 +275,8 @@ Phases (any failure exits non-zero):
    the counted main paths made at that head dim, tallied from the
    wrapper's ``launches_by_head_dim``), each with its launch plan, the
    main entry with its launches on the TP mesh prefills (stablelm's in
-   phase 15 (e), recurrentgemma's in (h), starcoder2's in (i)); the
+   phase 15 (e), recurrentgemma's in (h), starcoder2's in (i),
+   whisper's in (k)); the
    GEMM at 2048^3 and the
    largest cube; the grouped
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
@@ -511,13 +529,19 @@ HEADS_ARCH = "starcoder2-3b"
 #: one-card launcher: stablelm-1.6b at full width cut to LAUNCH_LAYERS
 #: layers, LAUNCH_BATCH x LAUNCH_SEQ, LAUNCH_STEPS steps
 LAUNCH_LAYERS, LAUNCH_BATCH, LAUNCH_SEQ, LAUNCH_STEPS = 2, 1, 512, 3
+#: phase 15 (k): the encoder-decoder on its shards: WH_ARCH whole on the
+#: one-rank mesh, prefilled and decoded at REQUESTS x WH_PROMPT (its
+#: encoder on 1500 frames a request), trained MESH_TRAIN_STEPS steps of
+#: ENCDEC_TRAIN (batch, text length)
+ENCDEC_TRAIN = (2, 448)
 #: phase 16 (a): (arch, shape or every shape) of each dry-run process
 DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
                 ("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"),
                 ("xlstm-125m", "decode_32k"),
                 ("deepseek-v2-236b", "prefill_32k"),
                 ("deepseek-v2-236b", "decode_32k"),
-                ("recurrentgemma-2b", None), ("starcoder2-3b", None)]
+                ("recurrentgemma-2b", None), ("starcoder2-3b", None),
+                ("whisper-tiny", None)]
 #: phase 16 (a): the recurrent mixers on their width: the most FLOPs a
 #: rank of each cell may do, as a multiple of step_flops / 256 (G25, all
 #: whole on every rank: recurrentgemma x5.33 / x4.74 / x4.55, xlstm
@@ -538,6 +562,16 @@ REC_RATIO_MAX = {("recurrentgemma-2b", "train_4k"): 1.5,
 HEADS_RATIO_MAX = {("starcoder2-3b", "train_4k"): 1.5,
                    ("starcoder2-3b", "prefill_32k"): 1.5,
                    ("starcoder2-3b", "decode_32k"): 1.3}
+#: phase 16 (a): the encoder-decoder on its shards: whisper's FLOPs a
+#: rank at most these multiples of step_flops / 256 (x13.67 / x12.12 /
+#: x0.12 with all of it but its MLPs' weights whole on every rank, G25,
+#: measured on one H100 80GB HBM3, 700 W), and a decode step's
+#: collective GB a rank under WHISPER_DECODE_GB (1.7 GB in G25: its
+#: caches' rows gathered every step)
+WHISPER_RATIO_MAX = {("whisper-tiny", "train_4k"): 3.0,
+                     ("whisper-tiny", "prefill_32k"): 3.5,
+                     ("whisper-tiny", "decode_32k"): 0.5}
+WHISPER_DECODE_GB = 0.05
 DRYRUN_TIMEOUT = 300
 #: phase 16 (a): stablelm's train_4k and prefill_32k FLOPs a rank
 #: against step_flops / 256 (the dense blocks cut over 'model')
@@ -3101,8 +3135,8 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
 
 def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
                   G, torch) -> dict:
-    """Phase 15 (h): MESH_TRAIN_STEPS sharded train steps of ``model``
-    on the mesh (its state laid out by the state specs: a copy of the
+    """Phase 15 (h), (k): MESH_TRAIN_STEPS sharded train steps of
+    ``model`` on the mesh (its state laid out by the state specs: a copy of the
     single device's) against the single-device step from the same
     state, in turns on the same ``batch`` x ``seq`` batches: the losses
     within MESH_TOL; after the steps every state leaf bitwise, or for an
@@ -3129,7 +3163,9 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
         # a one-rank mesh lays a tensor out without a copy: clone first
         on_mesh[k] = tree_map(lambda t: distribute(t.clone(), mesh,
                                                    next(it)), v)
-    data = SyntheticLM(cfg.vocab, seq, batch)
+    audio = {"audio_dim": cfg.d_model, "audio_len": cfg.encoder_len} \
+        if cfg.family == "audio" else {}
+    data = SyntheticLM(cfg.vocab, seq, batch, **audio)
     reset_counts(M, fa, G)
     losses = {"single": [], "mesh": []}
     step_s = {"single": [], "mesh": []}
@@ -3167,7 +3203,7 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
     tol = MESH_REC_STATE_TOL.get(cfg.name)
     del live, on_mesh
     torch.cuda.empty_cache()
-    print(f"[chip_smoke] mesh (h): {MESH_TRAIN_STEPS} sharded steps of "
+    print(f"[chip_smoke] mesh: {MESH_TRAIN_STEPS} sharded steps of "
           f"{cfg.name} ({batch}x{seq}) against the single-device step: "
           f"losses mesh {losses['mesh']} single {losses['single']}, max "
           f"|diff| {err:.3e} (tol {MESH_TOL:g}); state leaves that differ "
@@ -3363,6 +3399,212 @@ def mesh_launcher(mesh, M, fa, G, torch) -> dict:
                          "differs from the one-card launcher or does not "
                          "resume onto the mesh")
     return out
+
+
+def mesh_encdec(mesh, M, fa, G, torch) -> dict:
+    """Phase 15 (k): the encoder-decoder on its shards — WH_ARCH whole at
+    full width (random fp32 weights from a seed) on the one-rank mesh:
+    the layout it computes in on the production mesh's 16-way axis and
+    on this one (``dense_mesh_layout``); the TP prefill through
+    ``build_prefill`` (the encoder's and the decoder's self-attention on
+    the rank's heads through the flash kernel, launches counted by head
+    dim; the cross-attention on its heads, the MLPs on their FF slice,
+    the logits on the rank's vocab rows) bitwise the single-device
+    prefill on REQUESTS x WH_PROMPT tokens and 1500 frames; then
+    MESH_DECODE_STEPS greedy steps of ``build_decode`` from the
+    single-device prefill's caches laid out by ``shard_cache`` (the self
+    cache read split-KV, the cross K/V in place on their head dim, no
+    DTensor moved) against the single-device decode: the same tokens,
+    the logits within MESH_DECODE_TOL of their largest; the collectives
+    a step dispatches and the steps timed in turns; MESH_TRAIN_STEPS sharded train steps against the
+    single device (:func:`mesh_train_tp`)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.collectives import distribute
+    from repro_torch.dist.sharding import MeshShape, partition_params
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.params import is_spec, tree_leaves, tree_map
+    from repro_torch.models.transformer import dense_mesh_layout
+    from repro_torch.serve.step import _map_arrays, build_decode, \
+        build_prefill, shard_cache
+    from repro_torch.train.step import make_ctx
+
+    t0 = time.perf_counter()
+    cfg = get_config(WH_ARCH)
+    model = build_model(cfg)
+    prod = MeshShape({"data": 16, "model": 16})
+    lay = dense_mesh_layout(cfg, prod)
+    dec = dense_mesh_layout(cfg, prod, decode=True)
+    here = sorted(dense_mesh_layout(cfg, mesh))
+    print(f"[chip_smoke] mesh (k): {cfg.name} ({cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers, {cfg.n_heads} heads, vocab {cfg.vocab}) "
+          f"on (16, 16): train and prefill {lay}; a decode step {dec}; on "
+          f"this mesh {here}")
+    if not (lay.get("attn.wq") == ((), True)
+            and lay.get("embed") == ((), True)
+            and lay.get("mlp.wi") == ((None, "model"), False)
+            and dec.get("attn.wq") == ((None, "model"), False)
+            and {"attn.wq", "embed", "mlp.wi"} <= set(here)):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name} is not laid out "
+                         "on its shards")
+
+    def leaves(caches) -> list:
+        out = []
+        _map_arrays(out.append, caches)
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    params = model.init(gen)
+    steps = MESH_DECODE_STEPS
+    cache_len = WH_PROMPT + steps
+    prompts = torch.randint(0, cfg.vocab, (REQUESTS, WH_PROMPT),
+                            generator=gen, device="cuda")
+    audio = torch.randn((REQUESTS, cfg.encoder_len, cfg.d_model),
+                        generator=gen, device="cuda")
+    whole = {"tokens": prompts, "audio_emb": audio}
+    it = iter(tree_leaves(partition_params(model, cfg, mesh),
+                          is_leaf=is_spec))
+    sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+    prefill, _, b_specs = build_prefill(
+        model, cfg, ShapeSpec("prefill", cache_len, REQUESTS, "prefill"),
+        mesh)
+    batch = {k: distribute(v, mesh, b_specs[k]) for k, v in whole.items()}
+    pctx = make_ctx("prefill", cache_len=cache_len)
+    dctx = make_ctx("decode", cache_len=cache_len)
+    want_flash = cfg.n_encoder_layers + cfg.n_layers
+    with torch.inference_mode():
+        # -- the TP prefill against the single-device one ------------------
+        reset_counts(M, fa, G)
+        logits, cache = prefill(sharded, batch)
+        torch.cuda.synchronize()
+        n = kernel_counts(M, fa, G)
+        by_d = dict(fa.flash_attention_cuda.launches_by_head_dim)
+        tally_flash(fa)
+        reset_counts(M, fa, G)
+        want, cache1 = model.prefill(params, whole, pctx)
+        pairs = list(zip(leaves(cache), leaves(cache1)))
+        same_logits = torch.equal(logits, want)
+        same_cache = len(pairs) == len(leaves(cache1)) == 4 * cfg.n_layers \
+            and all(torch.equal(a, b) for a, b in pairs)
+        p_err = (logits - want).abs().max().item()
+        del cache, pairs
+        p_ms = in_turns({
+            "single": lambda: model.prefill(params, whole, pctx)[0],
+            "mesh": lambda: prefill(sharded, batch)[0]}, torch, iters=2)
+        print(f"[chip_smoke] mesh (k): {cfg.name} through build_prefill on "
+              f"the (1, 1) mesh on its shards: flash launches {n['flash']} "
+              f"(expected {want_flash}: {cfg.n_encoder_layers} unmasked "
+              f"encoder, {cfg.n_layers} causal decoder; by head dim {by_d}),"
+              f" matmul {n['matmul']}, grouped {n['grouped']}; logits "
+              f"bitwise the single-device prefill's: {same_logits} (max "
+              f"|diff| {p_err:.3e}), caches bitwise: {same_cache}; warm in "
+              f"turns single {p_ms['single']:.1f} ms, mesh "
+              f"{p_ms['mesh']:.1f} ms")
+        if n["flash"] != want_flash or n["matmul"] or n["grouped"]:
+            raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s TP prefill "
+                             "did not run the flash kernel once an "
+                             "attention layer")
+        if not (same_logits and same_cache):
+            raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s TP prefill "
+                             "differs from the single-device prefill")
+        # -- the mesh decode from the same caches --------------------------
+        decode, d_specs, (_, c_specs, _) = build_decode(
+            model, cfg, ShapeSpec("decode", cache_len, REQUESTS, "decode"),
+            mesh)
+        it = iter(tree_leaves(d_specs, is_leaf=is_spec))
+        on_mesh = tree_map(lambda t: distribute(t, mesh, next(it)), params)
+        # a one-rank mesh lays a tensor out without a copy: clone first
+        cache_m = shard_cache(_map_arrays(lambda t: t.clone(), cache1),
+                              mesh, c_specs)
+        tok1 = tokm = want.argmax(-1, keepdim=True)
+        got1, gotm, want_l = [tok1], [tokm], []
+        for i in range(steps):
+            l1, cache1 = model.decode_step(params, tok1, cache1,
+                                           WH_PROMPT + i, dctx)
+            tok1 = l1.argmax(-1, keepdim=True)
+            got1.append(tok1)
+            want_l.append(l1)
+        torch.cuda.synchronize()
+        reset_counts(M, fa, G)
+        errs = []
+        for i in range(steps):
+            lm, cache_m = decode(on_mesh, tokm, cache_m, WH_PROMPT + i)
+            tokm = lm.argmax(-1, keepdim=True)
+            gotm.append(tokm)
+            errs.append(lm - want_l[i])
+        torch.cuda.synchronize()
+        dn = kernel_counts(M, fa, G)
+        err = max(e.abs().max().item() for e in errs)
+        scale = max(w.abs().max().item() for w in want_l)
+        over = max((e.abs() - MESH_DECODE_TOL * w.abs()).max().item()
+                   for e, w in zip(errs, want_l))
+        same = torch.equal(torch.cat(got1, 1), torch.cat(gotm, 1))
+        del errs, want_l
+        tok = got1[1]
+        fns = {"single": lambda: model.decode_step(params, tok, cache1,
+                                                   WH_PROMPT, dctx)[0],
+               "mesh": lambda: decode(on_mesh, tok, cache_m,
+                                      WH_PROMPT)[0]}
+        d_ms = in_turns(fns, torch, iters=5)
+        traced = {k: trace_steps(f, torch) for k, f in fns.items()}
+        with CommDebugMode() as comm:
+            fns["mesh"]()
+        colls = {str(k).split(".")[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+        moved = sum(v for k, v in comm.get_comm_counts().items()
+                    if "functional" in str(k))
+    # whisper's tied logits reach ~200 (its embedding drawn at scale 1),
+    # where one fp32 ulp (1.5e-5 in [128, 256)) exceeds an absolute 1e-5,
+    # and a logit near 0 carries the rounding of terms of that size: the
+    # one-rank mesh decode differs from the single device only in the
+    # self cache's split-KV combine, which divides after the value
+    # product (read whole, it is bitwise), so its logits are held to
+    # MESH_DECODE_TOL relative to their largest, as a non-bitwise TP
+    # prefill is (elementwise atol = rtol reported beside it)
+    rel = err / scale
+    print(f"[chip_smoke] mesh (k): {cfg.name} {steps} greedy steps of the "
+          f"mesh decode (the self cache split-KV, the cross K/V in place on "
+          f"their head dim, the attentions on their stored columns) against "
+          f"the single device: the same tokens {same}; logits max |diff| "
+          f"{err:.3e} (max |logit| {scale:.3f}, rel {rel:.3e}, tol "
+          f"{MESH_DECODE_TOL:g}; max |diff| - rtol |logit| {over:.3e}); "
+          f"launches "
+          f"flash {dn['flash']}, matmul {dn['matmul']}, grouped "
+          f"{dn['grouped']}; warm step in turns single "
+          f"{d_ms['single']:.2f} ms, mesh {d_ms['mesh']:.2f} ms; device "
+          f"time a step single {traced['single']['device_ms']:.2f} ms, mesh "
+          f"{traced['mesh']['device_ms']:.2f} ms; collectives a mesh step "
+          f"{colls} (DTensor moves {moved})")
+    if not (same and rel <= MESH_DECODE_TOL):
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode "
+                         "disagrees with the single-device decode")
+    if dn["flash"] or dn["matmul"] or dn["grouped"] or moved:
+        raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode "
+                         "launched a kernel or moved a DTensor")
+    del sharded, batch, on_mesh, cache1, cache_m, fns
+    torch.cuda.empty_cache()
+    row = {"arch": cfg.name, "layout": {
+        "train": {k: repr(v) for k, v in lay.items()},
+        "decode": {k: repr(v) for k, v in dec.items()}},
+        "prefill": {"batch": [REQUESTS, WH_PROMPT],
+                    "encoder_len": cfg.encoder_len,
+                    "flash_launches": n["flash"],
+                    "flash_by_head_dim": by_d,
+                    "logits_bitwise": same_logits,
+                    "caches_bitwise": same_cache,
+                    "logits_max_abs_err": p_err, "prefill_ms": p_ms},
+        "decode": {"steps": steps, "same_tokens": same,
+                   "logits_max_abs_err": err, "logits_max_abs": scale,
+                   "logits_rel_err": rel, "logits_over_rtol": over,
+                   "tol": MESH_DECODE_TOL, "step_ms": d_ms, "trace": traced, "collectives": colls,
+                   "dtensor_moves": moved}}
+    row["train"] = mesh_train_tp(model, cfg, params, mesh, *ENCDEC_TRAIN,
+                                 M, fa, G, torch)
+    del params
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.perf_counter() - t0
+    return row
 
 
 def mesh_deepseek(res, cfg, mesh, M, fa, G, torch) -> dict:
@@ -4158,6 +4400,23 @@ def phase_dryrun(torch) -> dict:
                for key, most in HEADS_RATIO_MAX.items()):
         raise SystemExit("[chip_smoke] FAIL: a rank of starcoder2's dry run "
                          "does not compute attention on its heads")
+    # the encoder-decoder on its shards
+    wh = {f"{a} {k}": {"flops_ratio": by_cell[a, k]["flops_ratio"],
+                       "peak_gib": by_cell[a, k]["peak_gib"],
+                       "collective_gb": sum(by_cell[a, k][
+                           "collective_bytes"].values()) / 1e9}
+          for a, k in WHISPER_RATIO_MAX}
+    wh_gb = wh["whisper-tiny decode_32k"]["collective_gb"]
+    print(f"[chip_smoke] dry run (a): the encoder-decoder on its shards: "
+          f"{wh} (FLOPs ratio at most "
+          f"{ {f'{a} {k}': v for (a, k), v in WHISPER_RATIO_MAX.items()} }"
+          f"; decode_32k collective GB under {WHISPER_DECODE_GB:g})")
+    if not (all(by_cell[key]["flops_ratio"] <= most
+                for key, most in WHISPER_RATIO_MAX.items())
+            and wh_gb < WHISPER_DECODE_GB):
+        raise SystemExit("[chip_smoke] FAIL: a rank of whisper's dry run "
+                         "does not compute on its shards or its decode "
+                         "still gathers its caches")
     dest = WORK / "dryrun_profile.json"
     profile.main(["--dryrun-dir", str(out), "--out", str(dest)])
     prof = WorkloadProfile.load(str(dest))
@@ -4355,19 +4614,22 @@ def main() -> int:
         mesh_out["recurrent_s"] = time.perf_counter() - t1
         mesh_out["heads"] = mesh_heads(mesh, mm, fa, gm, torch)
         mesh_out["launcher"] = mesh_launcher(mesh, mm, fa, gm, torch)
+        mesh_out["encdec"] = mesh_encdec(mesh, mm, fa, gm, torch)
         print(f"[chip_smoke] phase 15 (f) took {mesh_out['decode_s']:.1f}s"
               f", (g) " + ", ".join(
                   f"{k} {v['phase_s']:.1f}s"
                   for k, v in mesh_out["paged"].items())
               + f", (h) {mesh_out['recurrent_s']:.1f}s, (i) "
               f"{mesh_out['heads']['phase_s']:.1f}s, (j) "
-              f"{mesh_out['launcher']['phase_s']:.1f}s")
+              f"{mesh_out['launcher']['phase_s']:.1f}s, (k) "
+              f"{mesh_out['encdec']['phase_s']:.1f}s")
     deepseek["int8"] = phase_int8(mm, fa, gm, torch)
     deepseek["phase_s"] = (time.perf_counter() - t0
                            - mesh_out["mixtral_tp_s"] - mesh_out["decode_s"]
                            - mesh_out["recurrent_s"]
                            - mesh_out["heads"]["phase_s"]
-                           - mesh_out["launcher"]["phase_s"])
+                           - mesh_out["launcher"]["phase_s"]
+                           - mesh_out["encdec"]["phase_s"])
     print(f"[chip_smoke] phase 12 took {deepseek['phase_s']:.1f}s; the "
           f"script {time.perf_counter() - START:.1f}s so far")
 
@@ -4404,6 +4666,8 @@ def main() -> int:
                                    "recurrent"]["recurrentgemma-2b"][
                                    "prefill"]["flash_launches"],
                                "starcoder2_tp_prefill": mesh_out["heads"][
+                                   "prefill"]["flash_launches"],
+                               "whisper_tp_prefill": mesh_out["encdec"][
                                    "prefill"]["flash_launches"]}),
                flash_entry("flash_attention@mixtral_prefill",
                            mixtral["flash"], mixtral["flash_launches"]),

@@ -31,8 +31,10 @@ axes.  Under that rule:
 The tensor-parallel dense layers (Megatron's f / g: :func:`copy_to` on
 a block's input, :func:`reduce_from` on its output) run on a rank's
 :class:`TPGroup` of the 'model' axis, and the vocab-parallel pieces of
-the embedding and the loss are here too: :func:`vocab_embed` (the rows
-of the rank's vocab range, summed over the group), :func:`vocab_logz`
+the embedding and the loss are here too: :func:`vocab_range` (a
+rank's ⌈V / size⌉ rows, the last range shorter where the axis does not
+divide V), :func:`vocab_embed` (the rows of the rank's vocab range,
+summed over the group), :func:`vocab_logz`
 (the log-partition over the whole vocab from the local logits: the max
 and the sum of exponentials over the group) and :func:`vocab_gold` (the
 label's logit, held by one rank, summed over the group).
@@ -61,7 +63,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "copy_to", "reduce_from", "pmean", "all_gather",
-           "TPGroup", "vocab_embed", "vocab_logz", "vocab_gold",
+           "TPGroup", "vocab_range", "vocab_embed", "vocab_logz",
+           "vocab_gold",
            "softmax_combine", "softmax_combine_local", "gather_rows",
            "row_index", "local_at", "local_rows", "rows_placements",
            "relay_rows", "distribute", "replicated", "partial_over",
@@ -191,13 +194,25 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, group, dim)
 
 
-def vocab_embed(w: torch.Tensor, ids: torch.Tensor, tp: TPGroup
-                ) -> torch.Tensor:
+def vocab_range(vocab: int, size: int, rank: int) -> tuple[int, int]:
+    """[lo, hi) of the vocabulary rows rank ``rank`` of a ``size``-way
+    cut computes: ⌈V / size⌉ a rank in rank order, the last range
+    shorter where size does not divide V (empty past V: the model takes
+    a range only where no rank's is)."""
+    per = -(-vocab // size)
+    lo = min(rank * per, vocab)
+    return lo, min(lo + per, vocab)
+
+
+def vocab_embed(w: torch.Tensor, ids: torch.Tensor, tp: TPGroup,
+                lo: int | None = None) -> torch.Tensor:
     """Rows of an embedding cut on the vocab over ``tp`` (``w``: this
-    rank's (V / size, D) rows): each rank looks up the ids of its range
-    and zeroes the others, the sum over the group is the lookup."""
+    rank's rows, the ids ``[lo, lo + len(w))``; ``lo`` defaults to
+    ``tp.rank * len(w)``, the even cut's): each rank looks up the ids of
+    its range and zeroes the others, the sum over the group is the
+    lookup."""
     n = w.shape[0]
-    local = ids.long() - tp.rank * n
+    local = ids.long() - (tp.rank * n if lo is None else lo)
     hit = (local >= 0) & (local < n)
     rows = torch.where(hit[..., None], w[local.clamp(0, n - 1)],
                        torch.zeros((), dtype=w.dtype, device=w.device))
@@ -234,13 +249,14 @@ def vocab_logz(logits: torch.Tensor, group) -> torch.Tensor:
     return _VocabLogZ.apply(logits, group)
 
 
-def vocab_gold(logits: torch.Tensor, labels: torch.Tensor, tp: TPGroup
-               ) -> torch.Tensor:
+def vocab_gold(logits: torch.Tensor, labels: torch.Tensor, tp: TPGroup,
+               lo: int | None = None) -> torch.Tensor:
     """The logit of each label from logits cut on their last dim over
-    ``tp`` (this rank's columns): the rank whose range holds the label
-    gives it, the others 0, summed over the group."""
+    ``tp`` (this rank's columns, the labels ``[lo, lo + n)``; ``lo``
+    defaults to ``tp.rank * n``, the even cut's): the rank whose range
+    holds the label gives it, the others 0, summed over the group."""
     n = logits.shape[-1]
-    local = labels.long() - tp.rank * n
+    local = labels.long() - (tp.rank * n if lo is None else lo)
     hit = (local >= 0) & (local < n)
     gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
     gold = torch.where(hit, gold, torch.zeros((), dtype=gold.dtype,

@@ -59,7 +59,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, init_params, param_specs
 
 __all__ = ["LM", "build_lm", "Ctx", "LayerSpec", "chunked_cross_entropy",
-           "dense_mesh_layout", "dense_weight_key", "state_slices"]
+           "dense_mesh_layout", "dense_weight_key", "state_slices",
+           "vocab_rows", "embed_lookup", "vocab_logits"]
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +327,11 @@ def moe_mesh_layout(cfg: ArchConfig, mesh, seq_len: int
 @functools.lru_cache(maxsize=None)
 def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     """Which dense widths a ``size``-way 'model' axis cuts for compute:
-    ``vocab`` (the embedding, logits and loss), ``heads`` (GQA attention
+    ``vocab`` (the embedding, logits and loss: V divisible),
+    ``vocab_range`` (the encoder-decoder's where V is not: each rank
+    computes its range of ⌈V / size⌉ rows of the whole stored
+    embedding, :func:`~repro_torch.dist.collectives.vocab_range`, none
+    empty), ``heads`` (GQA attention
     on the rank's range of whole query heads, ⌈H / size⌉ a rank:
     :func:`~repro_torch.models.layers.head_range`), ``kv_heads`` (and
     whole KV heads, H and Hkv divisible; else each rank picks the KV
@@ -337,12 +342,9 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     heads, H divisible, the latents whole), ``ff`` (the dense MLPs),
     ``rglru`` (the RG-LRU on its W channels: every RG-LRU layer's W
     divisible), ``xlstm`` (the mLSTM's and sLSTM's projections: D, the
-    mLSTM's inner width and its head dim divisible).  Nothing of the
-    encoder-decoder is cut."""
-    if cfg.family == "audio":
-        return {"vocab": False, "heads": False, "kv_heads": False,
-                "qkv_cols": False, "mla": False, "ff": False,
-                "rglru": False, "xlstm": False}
+    mLSTM's inner width and its head dim divisible).  The
+    encoder-decoder's three attentions and its MLPs take the decoder
+    LM's rules (its layer plan is all attention layers with an MLP)."""
     plan = _layer_plan(cfg)
     kinds = {s.kind for s in plan}
     attn = any(_is_attn(s) for s in plan)
@@ -351,7 +353,11 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     hd = cfg.resolved_head_dim
     ffs = [s.d_ff for s in plan if s.mlp == "mlp"]
     xl = _xlstm_spec(cfg)
-    return {"vocab": cfg.vocab % size == 0, "heads": heads,
+    per = -(-cfg.vocab // size)
+    return {"vocab": cfg.vocab % size == 0,
+            "vocab_range": cfg.family == "audio" and cfg.vocab % size != 0
+            and (size - 1) * per < cfg.vocab,
+            "heads": heads,
             "kv_heads": heads and even and cfg.n_kv_heads % size == 0,
             "qkv_cols": heads and not even and all(
                 n * hd % size == 0 for n in (cfg.n_heads, cfg.n_kv_heads)),
@@ -419,7 +425,10 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
 
     * ``embed`` (V, D) and ``unembed`` (D, V): cut on V when V % tp
       == 0 (the vocab-parallel lookup, logits and CE); else the vocab
-      stays whole on every rank;
+      stays whole on every rank, but for the encoder-decoder's ``embed``
+      (whisper's odd 51 865), whole and each rank taking its range of
+      ⌈V / tp⌉ rows for the lookup, the logits and the CE (a partial
+      gradient);
     * ``attn.wq`` / ``attn.wo``: columns / rows cut at whole heads when
       H % tp == 0; else whole, each rank taking the columns and rows of
       its range of ⌈H / tp⌉ heads (none past the last head), and in a
@@ -454,8 +463,9 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
       rank's columns of the pre-activations and gathers them.
 
     ``partial`` marks a gradient that is a partial sum over 'model'
-    (each rank's term from its own heads): the picked KV columns, the
-    qk norms and an uneven head range's ``wq`` and ``wo``; the train
+    (each rank's term from its own heads or vocab range): the picked KV
+    columns, the qk norms, an uneven head range's ``wq`` and ``wo`` and
+    a ranged ``embed``; the train
     step sums it into the stored layout.  Every
     other gradient of a cut or whole weight is the whole one already
     (the collectives' replicated-loss convention).  The stored layout
@@ -472,6 +482,8 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
     if cuts["vocab"]:
         out["embed"] = rows
         out["unembed"] = cols
+    if cuts["vocab_range"]:
+        out["embed"] = ((), True)
     even = cfg.n_heads % axis_size(mesh, m) == 0
     picked = ((), True)
     if cuts["heads"] and decode and not even:
@@ -507,12 +519,18 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
 
 def dense_weight_key(model, path: tuple) -> str | None:
     """The :func:`dense_mesh_layout` key of the parameter at ``path``
-    (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer, ``mla.<name>``
-    of an MLA mixer, ``rglru.<name>`` / ``mlstm.<name>`` /
-    ``slstm.<name>`` of a recurrent mixer, ``mlp.<name>`` of a dense
-    MLP), or None."""
+    (``embed``, ``unembed``, ``attn.<name>`` of a GQA mixer — or of the
+    encoder-decoder's encoder ``attn``, decoder ``self_attn`` and
+    ``cross_attn`` —, ``mla.<name>`` of an MLA mixer, ``rglru.<name>`` /
+    ``mlstm.<name>`` / ``slstm.<name>`` of a recurrent mixer,
+    ``mlp.<name>`` of a dense MLP), or None."""
     if path in (("embed",), ("unembed",)):
         return path[0]
+    if len(path) == 4 and path[0] in ("encoder", "decoder"):
+        _, _, block, name = path
+        if block in ("attn", "self_attn", "cross_attn"):
+            return f"attn.{name}"
+        return f"mlp.{name}" if block == "mlp" else None
     plan = getattr(model, "plan", None)
     if plan is None or len(path) != 4 or path[0] != "layers":
         return None
@@ -693,16 +711,17 @@ def _remat_contexts():
 
 def chunked_cross_entropy(x: torch.Tensor, w_unemb: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512,
-                          tp=None) -> torch.Tensor:
+                          tp=None, lo: int | None = None) -> torch.Tensor:
     """Mean CE over (B, S) without materialising (B, S, V) at once: the
     logits exist one (B, chunk, V) block at a time.  Labels < 0 are
     ignored.
 
     With ``tp`` the CE is vocab-parallel: ``w_unemb`` is this rank's
-    (D, V / tp) columns, a chunk's logits are (B, chunk, V / tp), the
-    log-partition takes its max and sum over the group and the label's
-    logit comes from the rank that holds it; every rank gets the same
-    loss."""
+    columns (V / tp of them, or with ``lo`` its range of the vocabulary
+    from ``lo``: :func:`vocab_rows`), a chunk's logits are the rank's
+    (B, chunk, n), the log-partition takes its max and sum over the
+    group and the label's logit comes from the rank that holds it;
+    every rank gets the same loss."""
     from repro_torch.dist import collectives as C
 
     s = x.shape[1]
@@ -719,11 +738,61 @@ def chunked_cross_entropy(x: torch.Tensor, w_unemb: torch.Tensor,
                                 li.clamp(min=0)[..., None])[..., 0]
         else:
             logz = C.vocab_logz(logits, tp.group)
-            gold = C.vocab_gold(logits, li, tp)
+            gold = C.vocab_gold(logits, li, tp, lo)
         valid = (li >= 0).float()
         tot = tot + ((logz - gold) * valid).sum()
         n_valid = n_valid + valid.sum()
     return tot / torch.clamp(n_valid, min=1.0)
+
+
+def vocab_rows(cfg: ArchConfig, ctx: Ctx, embed: torch.Tensor
+               ) -> tuple[torch.Tensor, Any, int | None]:
+    """(the rows of ``embed`` this rank computes the lookup and the
+    logits with, the group they are cut over or None, the first id of a
+    range or None): the rows as given where the 'model' axis cuts V
+    (the stored cut), this rank's range of the whole embedding where it
+    takes one (:func:`_dense_cuts`' ``vocab_range``), else the whole
+    embedding and no group."""
+    from repro_torch.dist.collectives import vocab_range
+
+    tp = _cut(cfg, ctx, "vocab")
+    if tp is not None:
+        return embed, tp, None
+    tp = _cut(cfg, ctx, "vocab_range")
+    if tp is None:
+        return embed, None, None
+    lo, hi = vocab_range(cfg.vocab, tp.size, tp.rank)
+    return embed[lo:hi], tp, lo
+
+
+def embed_lookup(w: torch.Tensor, ids: torch.Tensor, tp=None,
+                 lo: int | None = None) -> torch.Tensor:
+    """The embedding of ``ids`` from :func:`vocab_rows`' rows: a plain
+    lookup without a group, else the vocab-parallel one (each rank its
+    ids, summed over the group)."""
+    if tp is None:
+        return w[ids.long()]
+    from repro_torch.dist.collectives import vocab_embed
+    return vocab_embed(w, ids, tp, lo)
+
+
+def vocab_logits(x: torch.Tensor, w_unemb: torch.Tensor, vocab: int,
+                 tp=None) -> torch.Tensor:
+    """The logits (..., V) of ``x`` (..., D) over ``w_unemb`` (D, n): with
+    ``tp`` this rank's n columns of a vocab-parallel unembedding
+    (V / tp, or a range of ⌈V / tp⌉, the last maybe shorter), padded to
+    ⌈V / tp⌉, gathered over the group and trimmed to V."""
+    logits = x @ w_unemb
+    if tp is None:
+        return logits
+    from repro_torch.dist.collectives import all_gather
+
+    per = -(-vocab // tp.size)
+    if logits.shape[-1] < per:
+        logits = torch.nn.functional.pad(logits,
+                                         (0, per - logits.shape[-1]))
+    logits = all_gather(logits, tp.group, dim=-1)
+    return logits if logits.shape[-1] == vocab else logits[..., :vocab]
 
 
 # ---------------------------------------------------------------------------
@@ -773,12 +842,8 @@ class LM:
         """(B, S) tokens -> (hidden (B, S, D), total aux loss of the MoE
         layers (fp32 scalar), caches|None)."""
         cfg = self.cfg
-        tp = _cut(cfg, ctx, "vocab")
-        if tp is None:
-            x = params["embed"][tokens.long()]
-        else:
-            from repro_torch.dist.collectives import vocab_embed
-            x = vocab_embed(params["embed"], tokens, tp)
+        w, tp, lo = vocab_rows(cfg, ctx, params["embed"])
+        x = embed_lookup(w, tokens, tp, lo)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         remat = ctx.remat and ctx.mode == "train" and torch.is_grad_enabled()
@@ -813,12 +878,9 @@ class LM:
                     ctx: Ctx | None = None) -> torch.Tensor:
         """The last position's logits (B, V): with a vocab-parallel ctx
         each rank's columns, gathered over the group."""
-        logits = x[:, -1] @ self._unembed_weight(params)
         tp = None if ctx is None else _cut(self.cfg, ctx, "vocab")
-        if tp is None:
-            return logits
-        from repro_torch.dist.collectives import all_gather
-        return all_gather(logits, tp.group, dim=-1)
+        return vocab_logits(x[:, -1], self._unembed_weight(params),
+                            self.cfg.vocab, tp)
 
     def init_cache(self, batch: int, ctx: Ctx,
                    dtype: torch.dtype = torch.float32,
@@ -865,12 +927,8 @@ class LM:
         routes the rows of ``ctx.batch_axes`` as one batch.
         """
         cfg = self.cfg
-        tp = _cut(cfg, ctx, "vocab")
-        if tp is None:
-            x = params["embed"][token]
-        else:
-            from repro_torch.dist.collectives import vocab_embed
-            x = vocab_embed(params["embed"], token, tp)
+        w, tp, lo = vocab_rows(cfg, ctx, params["embed"])
+        x = embed_lookup(w, token, tp, lo)
         plan = None
         if page_table is not None:
             # one page plan serves every layer's pools this step

@@ -18,7 +18,8 @@ vocab are gathered over 'model'.  A decode step takes the caches as
 DTensors in the layout of :func:`cache_specs` (:func:`shard_cache` lays
 a prefill's out so) and returns them in it: an attention cache cut on
 its sequence is read split-KV in place, the RG-LRU's state and the
-mLSTM's matrix memory cut as the layer computes are read in place,
+mLSTM's matrix memory cut as the layer computes are read in place, as
+are the encoder-decoder's cross K/V cut on their frames or head dim,
 every other cache with its rows whole; the MoE routes the whole batch
 onto each rank's experts where they are stored
 (:func:`repro_torch.models.moe.apply_moe_decode`).  A
@@ -291,12 +292,42 @@ def _state_view(state: Any, tp, cuts: dict[str, int]
     return dataclasses.replace(state, **out), how
 
 
+def _cross_view(k: Any, v: Any, tp) -> dict:
+    """The encoder-decoder's cross K/V (B, Sk, H, Dh) as its decode reads
+    them: ``{"cross": CrossKV}`` of their local pieces where 'model' cuts
+    both alike on the frames (dim 1) or the head dim (dim 3) — a
+    one-rank axis, which cuts nothing, counts as cutting the head dim —,
+    read in place; else ``{"cross_k", "cross_v"}`` with their rows
+    whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.collectives import rows_placements
+    from repro_torch.dist.sharding import TP_AXIS
+    from repro_torch.models.encdec import CrossKV
+
+    if tp is not None and isinstance(k, DTensor) and isinstance(v, DTensor):
+        i = list(k.device_mesh.mesh_dim_names).index(TP_AXIS)
+        pk, pv = k.placements[i], v.placements[i]
+        if pk == pv and pk.is_shard() and pk.dim in (1, 3):
+            return {"cross": CrossKV(k.to_local(), v.to_local(), pk.dim, tp)}
+        if tp.size == 1 and all(tuple(rows_placements(t.placements))
+                                == tuple(t.placements) for t in (k, v)):
+            return {"cross": CrossKV(k.to_local(), v.to_local(), 3, tp)}
+    return {"cross_k": _rows(k), "cross_v": _rows(v)}
+
+
 def _layer_view(cache: Any, tp, cuts: dict[str, int]
                 ) -> tuple[Any, dict[str, str] | None]:
     """(a layer's cache as its decode reads it, how a recurrent state's
     fields were taken): a :class:`~repro_torch.models.layers.SplitKV`
-    (:func:`_split_view`), a cut mixer's state (:func:`_state_view`), or
-    the cache with its rows whole."""
+    (:func:`_split_view`), a cut mixer's state (:func:`_state_view`), the
+    encoder-decoder's ``{"self", "cross_k", "cross_v"}`` as its self
+    cache's view beside its cross K/V's (:func:`_cross_view`), or the
+    cache with its rows whole."""
+    if isinstance(cache, dict) and "self" in cache:
+        own, _ = _layer_view(cache["self"], tp, {})
+        return {"self": own, **_cross_view(cache["cross_k"],
+                                           cache["cross_v"], tp)}, None
     split = _split_view(cache, tp)
     if split is not None:
         return split, None
@@ -308,7 +339,8 @@ def _layer_view(cache: Any, tp, cuts: dict[str, int]
 def _laid_back(new: Any, old: Any, how: dict[str, str] | None = None,
                tp=None, cuts: dict[str, int] | None = None) -> Any:
     """A layer's cache after the step in ``old``'s layout: a split-KV
-    cache was updated in place; a recurrent state's field read in place
+    cache was updated in place (the encoder-decoder's self cache too;
+    its cross K/V are as they were); a recurrent state's field read in place
     (``how``: :func:`_state_view`'s) is the rank's new local piece, one
     narrowed to the rank's slice is gathered back over ``tp`` on its dim
     (``cuts``); any other is this rank's rows, each tensor laid out as
@@ -320,6 +352,10 @@ def _laid_back(new: Any, old: Any, how: dict[str, str] | None = None,
 
     if isinstance(new, SplitKV):
         return old
+    if isinstance(old, dict) and "self" in old:
+        # the encoder's K/V are read, never written, by a decode step
+        return {"self": _laid_back(new["self"], old["self"]),
+                "cross_k": old["cross_k"], "cross_v": old["cross_v"]}
     if how is None:
         return _map_arrays(lambda n, o: relay_rows(n, o.device_mesh,
                                                    o.placements)
@@ -392,10 +428,15 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     of ``w_in``, ``w_rec`` and ``b``, and the RG-LRU's ``h`` and
     ``conv`` (cut on W) and the mLSTM's ``c`` and ``n`` (on their key
     dim) are read and replaced in place where the layout cuts them so
-    (:func:`~repro_torch.models.transformer.state_slices`).  Every
-    other cache (another cut dim, the mLSTM's ``m``, the sLSTM's state,
-    the encoder-decoder's) is taken with its rows whole (gathered over
-    'model') and its update laid back out.
+    (:func:`~repro_torch.models.transformer.state_slices`).  The
+    encoder-decoder computes as the decoder LM does (its three
+    attentions on the stored columns, its MLP on its FF slice, its
+    lookup and logits on the rank's vocab rows) and reads its self
+    cache split-KV and its cross K/V in place, cut on the frames or the
+    head dim (:class:`~repro_torch.models.encdec.CrossKV`).  Every
+    other cache (another cut dim, the mLSTM's ``m``, the sLSTM's state)
+    is taken with its rows whole (gathered over 'model') and its update
+    laid back out.
     """
     ctx = make_ctx("decode", mesh=mesh, cache_len=shape.seq_len,
                    tuner=tuner)

@@ -151,8 +151,8 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     without its update.
 
     The state's DTensors keep the reference's layout (its state specs);
-    a rank computes the decoder LM's dense blocks as the reference's
-    GSPMD partitions them:
+    a rank computes the dense blocks (the decoder LM's and the
+    encoder-decoder's) as the reference's GSPMD partitions them:
 
     * each weight is moved to the layout it is computed with and the
       model sees the local piece: the dense blocks' weights to
@@ -167,10 +167,11 @@ def sharded_train_step(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
       a whole weight it uses as the others do is the whole gradient);
       each gradient is averaged over the data axes and moved to its
       parameter's stored layout; a gradient the layout marks partial
-      (each rank's term from its own heads: picked KV columns, the qk
-      norms, the columns and rows of an uneven head range) is summed
-      over 'model' on the way (a reduce-scatter where
-      the stored layout cuts it); MLA's weights need no such sum (its
+      (each rank's term from its own heads or vocab rows: picked KV
+      columns, the qk norms, the columns and rows of an uneven head
+      range, the encoder-decoder's ranged embedding) is summed over
+      'model' on the way (a reduce-scatter where the stored layout cuts
+      it); MLA's weights need no such sum (its
       heads' columns and rows are computed and stored alike, and its
       latents' gradients are summed where they fork into the heads);
     * AdamW runs on the local shards, with the clipping norm and the

@@ -636,8 +636,9 @@ def test_dense_mesh_layout_of_the_production_archs():
     for starcoder2's 24 and recurrentgemma's 10 (their decode on the
     stored columns), the vocab and FF cut, the RG-LRU on its W
     channels, the xLSTM blocks' projections on their widths (the
-    sLSTM's recurrence weights on theirs in a decode step only),
-    nothing of the encoder-decoder."""
+    sLSTM's recurrence weights on theirs in a decode step only), the
+    encoder-decoder's attentions on its uneven heads, its MLPs on their
+    cut and its odd vocabulary on ranges of the whole embedding."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import dense_mesh_layout
 
@@ -674,7 +675,16 @@ def test_dense_mesh_layout_of_the_production_archs():
         assert {k: v for k, v in dec[a].items()
                 if k.startswith("attn.")} == stored
     assert lay["starcoder2-3b"]["mlp.wi"] == ((None, m), False)
-    assert lay["whisper-tiny"] == {}
+    # whisper's three attentions on its 6 heads as starcoder2's, its MLPs
+    # on 96 of 1536, its odd vocabulary on ranges of the whole embedding
+    # (tests/test_torch_tp_encdec.py runs them)
+    assert {k: v for k, v in lay["whisper-tiny"].items()
+            if k.startswith("attn.")} == uneven
+    assert {k: v for k, v in dec["whisper-tiny"].items()
+            if k.startswith("attn.")} == stored
+    assert lay["whisper-tiny"]["embed"] == dec["whisper-tiny"]["embed"] \
+        == ((), True)
+    assert lay["whisper-tiny"]["mlp.wi"] == ((None, m), False)
     # recurrentgemma's MLP, vocab and RG-LRU (W 2560: 160 channels a
     # rank) are cut
     assert "mlp.wg" in lay["recurrentgemma-2b"]
@@ -710,8 +720,8 @@ def test_dense_mesh_layout_of_the_production_archs():
     # a decode step's layout differs only by the sLSTM's weights and
     # uneven heads' attention
     assert all(dec[a] == lay[a] for a in lay if a not in (
-        "xlstm-125m", "starcoder2-3b", "recurrentgemma-2b"))
+        "xlstm-125m", "starcoder2-3b", "recurrentgemma-2b", "whisper-tiny"))
     assert all({k: v for k, v in dec[a].items() if not k.startswith(
         "attn.")} == {k: v for k, v in lay[a].items()
                       if not k.startswith("attn.")}
-        for a in ("starcoder2-3b", "recurrentgemma-2b"))
+        for a in ("starcoder2-3b", "recurrentgemma-2b", "whisper-tiny"))
