@@ -130,9 +130,10 @@ Phases (any failure exits non-zero):
    a leaf under ``NOISE_FRACTION`` of the gradient compared only inside
    the whole gradient vector; (b) full width through
    ``launch.train.train_config``, 6 steps of 4 x 1024 (whisper 4 x 448):
-   recurrentgemma-2b and xlstm-125m whole, whisper-tiny whole,
-   chameleon-34b cut to 2 of 48 layers (at a learning rate scaled to its
-   width, ``FAM_TRAIN``), each after checking the disk
+   recurrentgemma-2b cut to 8 of 26 layers, xlstm-125m to 6 of 12,
+   whisper-tiny whole, chameleon-34b cut to 2 of 48 layers (at a
+   learning rate scaled to its width, ``FAM_TRAIN``), each after
+   checking the disk
    holds 1.2 x its final checkpoint: finite losses, the last two below
    the first on average, step times, tokens/s, peak memory, the
    checkpoint's GB and seconds, and the step's share of the fp32 peak
@@ -181,7 +182,8 @@ Phases (any failure exits non-zero):
    ``softmax_combine_local`` over 4 and 16 chunks of a 32k cache
    against one softmax within COMBINE_TOL; the grouped kernel at a
    rank's buckets of the production decode (RANK_GROUPED_SHAPES:
-   mixtral's on the tiled body, deepseek's on the thin one) against
+   mixtral's decode_32k block of slot rows on the tiled body, its
+   long_500k block and deepseek's on the thin one) against
    its plain version and ``torch.bmm``, beside its bound; (g) the paged
    decode on the mesh (``build_decode_paged``: each pool read split-KV
    over its pages) — stablelm-1.6b whole on (f)'s weights and deepseek
@@ -244,7 +246,10 @@ Phases (any failure exits non-zero):
    decode_32k within x0.8–1.5: the dense blocks tensor-parallel over
    the 16-way 'model' axis, the cache read split-KV), peak bytes a rank
    (stablelm's and mixtral's decode_32k under the card's 80 GiB,
-   deepseek's under DS_DECODE_PEAK_GIB; deepseek's prefill_32k FLOPs at
+   deepseek's under DS_DECODE_PEAK_GIB; mixtral's decode_32k FLOPs at
+   most MIX_DECODE_RATIO_MAX of its share and its collective bytes
+   under MIX_DECODE_GB: a rank's block of the experts' slot rows, its
+   KV projections on their stored columns; deepseek's prefill_32k FLOPs at
    most DS_PREFILL_RATIO_MAX of its share: MLA on its heads;
    recurrentgemma's and xlstm's cells at most REC_RATIO_MAX of theirs:
    the recurrent mixers on their width; starcoder2's at most
@@ -282,7 +287,7 @@ Phases (any failure exits non-zero):
    GEMM at mixtral's decode and prefill buckets and deepseek-v2's
    four buckets, with its launches on the mesh paths (the paged one of
    phase 15 (g) too), and at a rank's
-   four buckets of the production decode, which no path of a one-rank
+   six buckets of the production decode, which no path of a one-rank
    mesh launches (0 launches, with a note); each with its
    body, ring stages and split count), the card's line, and the ``{"ok": true, ...}`` last line.
 
@@ -430,9 +435,13 @@ FAM_CMP = [("recurrentgemma-2b", 3, 1, 512), ("xlstm-125m", 2, 1, 512),
 #: 7.5e-5, 3e-4 x 2048 / d_model.  AdamW's first steps move every weight
 #: by about lr, so a layer's output moves by about lr x its width: at
 #: d_model 8192 and 3e-4 the loss rose from 11.62 to 13.46 in 6 steps
-#: (H100 80GB HBM3, 700 W), where stablelm's (2048, phase 11) falls
-FAM_TRAIN = [("recurrentgemma-2b", None, 4, 1024, None),
-             ("xlstm-125m", None, 4, 1024, None),
+#: (H100 80GB HBM3, 700 W), where stablelm's (2048, phase 11) falls.
+#: recurrentgemma at 8 of 26 layers and xlstm at 6 of 12, to keep the
+#: script inside its 1200 s on slow hosts (the whole models: 85.6 s and
+#: a 42.6 GB checkpoint in 71.7 s, and 79.1 s, of a 1210.6 s run on
+#: H100 80GB HBM3, 700 W)
+FAM_TRAIN = [("recurrentgemma-2b", 8, 4, 1024, None),
+             ("xlstm-125m", 6, 4, 1024, None),
              ("whisper-tiny", None, 4, 448, None),
              ("chameleon-34b", 2, 4, 1024, 7.5e-5)]
 FAM_STEPS = 6
@@ -462,9 +471,11 @@ MESH_TRAIN_STEPS = 2
 #: phase 15 (f): greedy steps of the mesh decode and of the single
 #: device; the split softmax over a 32k cache in 4 and 16 chunks against
 #: one softmax (max |diff| / max |out|, fp32); a rank's grouped buckets
-#: at decode_32k on (16, 16) (name, E, C, d, f): mixtral's 8 experts on
-#: an FF slice of 1024 at the global batch's capacity 40, deepseek's 10
-#: experts a data rank on an FF slice of 96 at capacity 8
+#: on (16, 16) (name, E, C, d, f): mixtral's 8 experts, which 16 'data'
+#: ranks do not divide, split by slot rows (``moe.slot_block``): one
+#: expert on an FF slice of 1024 at 20 of decode_32k's global capacity
+#: 40, or 4 of long_500k's floor of 8; deepseek's 10 experts a data rank
+#: on an FF slice of 96 at decode_32k's capacity 8
 MESH_DECODE_STEPS = 16
 #: phase 15 (f): the mesh decode's logits against the single device's,
 #: fp32, as ``torch.testing.assert_close(atol=, rtol=)`` holds them:
@@ -474,8 +485,10 @@ MESH_DECODE_STEPS = 16
 MESH_DECODE_TOL = 1e-5
 COMBINE_SHAPE, COMBINE_VALID = (4, 32768, 32, 64), 20000
 COMBINE_CHUNKS, COMBINE_TOL = (4, 16), 1e-5
-RANK_GROUPED_SHAPES = [("mixtral_decode_rank", 8, 40, 6144, 1024),
-                       ("mixtral_decode_rank_wo", 8, 40, 1024, 6144),
+RANK_GROUPED_SHAPES = [("mixtral_decode_rank", 1, 20, 6144, 1024),
+                       ("mixtral_decode_rank_wo", 1, 20, 1024, 6144),
+                       ("mixtral_long_rank", 1, 4, 6144, 1024),
+                       ("mixtral_long_rank_wo", 1, 4, 1024, 6144),
                        ("deepseek_decode_rank", 10, 8, 5120, 96),
                        ("deepseek_decode_rank_wo", 10, 8, 96, 5120)]
 #: phase 15 (g): the paged decode on the mesh against the single device:
@@ -582,6 +595,13 @@ TP_RATIO = (0.85, 1.25)
 #: (26.1 with the MLA and shared-expert weights gathered whole, G25)
 DS_PREFILL_RATIO_MAX = 4.0
 DS_DECODE_PEAK_GIB = 10.0
+#: phase 16 (a): mixtral's decode_32k on the rank's share: its FLOPs a
+#: rank at most this multiple of step_flops / 256 (x16.42 with every
+#: 'data' rank running all 8 experts' slot rows, G25) and its collective
+#: GB a rank under this (1.6 with the picked KV heads' wk and wv
+#: gathered whole every step, G25)
+MIX_DECODE_RATIO_MAX = 1.6
+MIX_DECODE_GB = 0.6
 #: the flash kernel's launches on the counted main-path runs, by the
 #: caller's head dim (tally_flash adds each run's to it)
 FLASH_PATH_BY_D: dict[int, int] = {}
@@ -4201,8 +4221,8 @@ def mesh_decode(art: Path, mesh, M, fa, G, torch) -> tuple[dict, dict]:
     tuner = AdsalaTuner.from_artifact(str(art))
     shapes = time_grouped(G, torch, tuner, RANK_GROUPED_SHAPES, seed=18)
     for name, _, c, _, _ in RANK_GROUPED_SHAPES:
-        # C 40 > 16 takes the tiled body, deepseek's F 96 the thin one's
-        # masked edge
+        # mixtral's 20 rows > 16 take the tiled body; its 4 and
+        # deepseek's 8 (F 96: the thin one's masked edge) the thin one
         want = "tiled" if c > 16 else "thin"
         if shapes[name]["variant"] != want:
             raise SystemExit(f"[chip_smoke] FAIL: {name} took the "
@@ -4211,8 +4231,9 @@ def mesh_decode(art: Path, mesh, M, fa, G, torch) -> tuple[dict, dict]:
     # whole batch onto every expert at the single-device buckets
     entry = {"shapes": shapes, "launches": 0,
              "launches_by_variant": {"thin": 0, "tiled": 0},
-             "note": "a rank's bucket of decode_32k on a (16, 16) mesh: "
-                     "no path of a one-rank mesh launches it"}
+             "note": "a rank's bucket of the production decode "
+                     "(decode_32k or long_500k) on a (16, 16) mesh: no "
+                     "path of a one-rank mesh launches it"}
     return out, entry
 
 
@@ -4356,6 +4377,19 @@ def phase_dryrun(torch) -> dict:
             and all(p < CARD_GIB for p in decode_peaks.values())):
         raise SystemExit("[chip_smoke] FAIL: a rank of the dry run's decode "
                          "does not compute its share or fit the card")
+    # mixtral's decode on the rank's share: its block of the experts'
+    # slot rows, its KV projections where they are stored
+    mix = by_cell["mixtral-8x22b", "decode_32k"]
+    mix_gb = sum(mix["collective_bytes"].values()) / 1e9
+    print(f"[chip_smoke] dry run (a): mixtral decode_32k FLOPs a rank "
+          f"x{mix['flops_ratio']:.4f} of step_flops / 256 (at most "
+          f"x{MIX_DECODE_RATIO_MAX:g}), collective GB {mix_gb:.4f} (under "
+          f"{MIX_DECODE_GB:g}), peak {mix['peak_gib']:.2f} GiB")
+    if not (mix["flops_ratio"] <= MIX_DECODE_RATIO_MAX
+            and mix_gb < MIX_DECODE_GB):
+        raise SystemExit("[chip_smoke] FAIL: a rank of mixtral's decode "
+                         "does not compute its share of the experts' slot "
+                         "rows or still gathers its KV projections")
     # deepseek's MLA on its heads and its decode's shared experts on 'ff'
     ds_pre = by_cell["deepseek-v2-236b", "prefill_32k"]
     ds_dec = by_cell["deepseek-v2-236b", "decode_32k"]

@@ -629,14 +629,14 @@ def attention_decode(p: dict, x: torch.Tensor, s: AttnSpec, cache,
     On a mesh: with ``tp`` q, k and v are projected on the rank's heads
     and gathered, and the output leaves through the rank's rows of
     ``wo`` (Megatron's g); with ``cols`` too (where the axis does not
-    divide the heads) ``p`` holds the weights as stored, the rank's
-    columns of ``wq``, ``wk`` and ``wv`` and rows of ``wo``, which a
-    decode step takes with no move: the projections are gathered and
-    the qk norms and RoPE applied to every head after the gather, and
-    the output leaves through the stored rows.  A :class:`SplitKV` cache
-    is read split-KV: the rank that holds the written slot writes it,
-    each rank attends every head over its own slots (the mask on global
-    slot ids), and
+    divide the heads or the KV heads) ``p`` holds the weights as
+    stored, the rank's columns of ``wq``, ``wk`` and ``wv`` and rows of
+    ``wo``, which a decode step takes with no move: the projections are
+    gathered and the qk norms and RoPE applied to every head after the
+    gather, and the output leaves through the stored rows.  A
+    :class:`SplitKV` cache is read split-KV: the rank that holds the
+    written slot writes it, each rank attends every head over its own
+    slots (the mask on global slot ids), and
     :func:`~repro_torch.dist.collectives.softmax_combine` merges them.
     """
     b = x.shape[0]

@@ -19,12 +19,14 @@ expert ahead of one all-reduce in :func:`apply_moe_tp`; the
 collectives' gradients follow :mod:`repro_torch.dist.collectives`.  A
 decode step on a mesh (:func:`apply_moe_decode`) routes the whole
 batch, as the reference's one-hot path does under GSPMD, and runs each
-rank's stored experts and FF slice.
+rank's stored experts and FF slice on its block of their slot rows
+(:func:`slot_block`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -34,8 +36,8 @@ from repro_torch.models.layers import linear
 from repro_torch.models.params import ParamDef
 
 __all__ = ["MoESpec", "moe_defs", "apply_moe", "apply_moe_ep",
-           "apply_moe_tp", "apply_moe_decode", "is_expert_weight",
-           "is_shared_weight"]
+           "apply_moe_tp", "apply_moe_decode", "slot_block",
+           "is_expert_weight", "is_shared_weight"]
 
 #: the expert weights, which a mesh path lays out by expert (EP) or by
 #: FF slice (TP); the router and, in train and prefill, the shared
@@ -307,6 +309,22 @@ def apply_moe_tp(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
     return out.reshape(b, sl, d), aux
 
 
+def slot_block(n_experts: int, cap: int, n: int, r: int
+               ) -> tuple[int, int, int, int]:
+    """(e_lo, e_hi, c_lo, c_hi): the block of the (n_experts, cap) slot
+    rows that rank ``r`` of ``n`` computes.  The experts fall into g =
+    gcd(n_experts, n) groups, n_experts / g each, and each expert's
+    capacity into n / g pieces of ⌈cap / (n / g)⌉ rows; rank r takes
+    group r // (n / g) and piece r % (n / g).  The n blocks are equal
+    and cover every row of the (n_experts, ⌈cap / (n / g)⌉ x n / g)
+    padded rows once; ``c_hi`` may pass ``cap`` (rows of zeros)."""
+    g = math.gcd(n_experts, n)
+    per_e, pieces = n_experts // g, n // g
+    rows = -(-cap // pieces)
+    grp, piece = divmod(r, pieces)
+    return grp * per_e, (grp + 1) * per_e, piece * rows, (piece + 1) * rows
+
+
 def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
                      mesh, row_axes: tuple, backend: str = "auto"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -320,12 +338,17 @@ def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
     The reference runs its one-hot ``apply_moe`` on the global batch
     under GSPMD, so its capacity and each expert's (token, choice) order
     count every row.  Here the rows are gathered over ``row_axes`` and
-    routed and dispatched as one batch (the same buckets); each rank
-    runs the grouped GEMMs on its own experts and FF slice, combines
-    what they give every token, the partial outputs are summed over the
-    mesh axes that cut the experts or FF, and the rank keeps its rows.
-    The shared experts run on the rank's rows and its FF slice, summed
-    over 'model' (:func:`_shared_at`).  No weight moves.
+    routed and dispatched as one batch (the same buckets on every rank).
+    The mesh axes of size > 1 that cut no expert weight (``split``:
+    'data' for mixtral's 8 experts on (16, 16)) would otherwise repeat
+    one another's work: each of their n ranks runs the grouped GEMMs on
+    its :func:`slot_block` of its stored experts' slot rows only, on its
+    FF slice, and the blocks' outputs are all-gathered over ``split``
+    (exact) into the (E, C, D) partial output.  Each rank combines what
+    it gives every token, the partial outputs are summed over the mesh
+    axes that cut the experts or FF, and the rank keeps its rows.  The
+    shared experts run on the rank's rows and its FF slice, summed over
+    'model' (:func:`_shared_at`).  No weight moves.
     """
     from torch.distributed.tensor import DTensor
 
@@ -353,13 +376,28 @@ def apply_moe_decode(p: dict, x: torch.Tensor, s: MoESpec, tuner=None, *,
         by = [names[i] for i, pl in enumerate(p["wi"].placements)
               if pl.is_shard(0) and mesh.size(i) > 1]
         e0 = C.row_index(mesh, by) * e_loc
-    mine = buckets[e0:e0 + e_loc]
+    split = tuple(a for i, a in enumerate(names)
+                  if mesh.size(i) > 1 and a not in cuts)
+    n = math.prod(mesh.size(names.index(a)) for a in split)
+    e_lo, e_hi, c_lo, c_hi = slot_block(e_loc, cap, n,
+                                        C.row_index(mesh, split))
+    mine = buckets[e0 + e_lo:e0 + e_hi, c_lo:c_hi]
+    if mine.shape[1] < c_hi - c_lo:
+        mine = F.pad(mine, (0, 0, 0, c_hi - c_lo - mine.shape[1]))
+    mine = mine.contiguous()
+    w = {k: t[e_lo:e_hi] for k, t in w.items()}
     hi = ops.grouped_matmul(mine, w["wi"], tuner=tuner, site="moe.wi",
                             backend=backend)
     hg = ops.grouped_matmul(mine, w["wg"], tuner=tuner, site="moe.wg",
                             backend=backend)
     y = ops.grouped_matmul(F.silu(hg) * hi, w["wo"], tuner=tuner,
                            site="moe.wo", backend=backend)
+    if split:
+        # (n, experts, rows, D) in rank order -> (e_loc, padded C, D)
+        g = math.gcd(e_loc, n)
+        y = C.gather_rows(y[None], mesh, split)
+        y = y.reshape(g, n // g, *y.shape[1:]).transpose(1, 2) \
+            .reshape(e_loc, -1, d)[:, :cap]
     y = F.pad(y, (0, 0, 0, 0, e0, s.n_experts - e0 - e_loc))
     out = _combine(y, dest, order, valid, gate_vals, n_tok, s)
     for a in names:

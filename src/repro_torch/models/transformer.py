@@ -336,9 +336,10 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
     :func:`~repro_torch.models.layers.head_range`), ``kv_heads`` (and
     whole KV heads, H and Hkv divisible; else each rank picks the KV
     heads its query heads read), ``qkv_cols`` (where size does not divide
-    H, a decode step's attention on the stored columns of ``wq``, ``wk``
-    and ``wv`` and rows of ``wo``: H x Dh and Hkv x Dh divisible; else
-    that decode computes attention whole), ``mla`` (MLA on whole query
+    H or Hkv, a decode step's attention on the stored columns of ``wq``,
+    ``wk`` and ``wv`` and rows of ``wo``: H x Dh and Hkv x Dh divisible;
+    else that decode computes attention whole where H is uneven, on the
+    picked KV heads where it is not), ``mla`` (MLA on whole query
     heads, H divisible, the latents whole), ``ff`` (the dense MLPs),
     ``rglru`` (the RG-LRU on its W channels: every RG-LRU layer's W
     divisible), ``xlstm`` (the mLSTM's and sLSTM's projections: D, the
@@ -359,8 +360,9 @@ def _dense_cuts(cfg: ArchConfig, size: int) -> dict[str, bool]:
             and (size - 1) * per < cfg.vocab,
             "heads": heads,
             "kv_heads": heads and even and cfg.n_kv_heads % size == 0,
-            "qkv_cols": heads and not even and all(
-                n * hd % size == 0 for n in (cfg.n_heads, cfg.n_kv_heads)),
+            "qkv_cols": heads and not (even and cfg.n_kv_heads % size == 0)
+            and all(n * hd % size == 0
+                    for n in (cfg.n_heads, cfg.n_kv_heads)),
             "mla": attn and cfg.attn_kind == "mla" and even,
             "ff": bool(ffs) and all(f % size == 0 for f in ffs),
             "rglru": "rglru" in kinds
@@ -381,14 +383,16 @@ def _cut(cfg: ArchConfig, ctx: Ctx, what: str):
 def _attn_cut(cfg: ArchConfig, ctx: Ctx) -> tuple[Any, bool]:
     """(tp, cols) of a GQA layer: ctx.tp where attention computes on its
     heads; ``cols`` in a decode step where the axis does not divide the
-    heads and the layer takes its weights' stored columns.  A decode
-    step whose stored cut cannot be taken so computes attention
-    whole."""
+    heads or the KV heads and the layer takes its weights' stored
+    columns.  A decode step whose stored cut cannot be taken so computes
+    attention whole where the axis does not divide the heads, else on
+    its heads and the KV heads they read."""
     tp = _cut(cfg, ctx, "heads")
-    if tp is None or ctx.mode != "decode" or cfg.n_heads % tp.size == 0:
+    if tp is None or ctx.mode != "decode":
         return tp, False
-    cols = _dense_cuts(cfg, tp.size)["qkv_cols"]
-    return (tp if cols else None), cols
+    if _dense_cuts(cfg, tp.size)["qkv_cols"]:
+        return tp, True
+    return (tp if cfg.n_heads % tp.size == 0 else None), False
 
 
 def _mixer_cut(cfg: ArchConfig, ctx: Ctx, kind: str):
@@ -420,7 +424,8 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
     the table is computed whole on every rank (gathered where stored
     cut), as are the MoE's router and, in train and prefill, its shared
     experts (:func:`moe_mesh_layout` places the experts; a decode step
-    computes the routed and shared experts where they are stored,
+    computes the routed and shared experts where they are stored, the
+    routed ones on the rank's block of their slot rows,
     :func:`~repro_torch.models.moe.apply_moe_decode`).
 
     * ``embed`` (V, D) and ``unembed`` (D, V): cut on V when V % tp
@@ -431,14 +436,18 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
       gradient);
     * ``attn.wq`` / ``attn.wo``: columns / rows cut at whole heads when
       H % tp == 0; else whole, each rank taking the columns and rows of
-      its range of ⌈H / tp⌉ heads (none past the last head), and in a
-      decode step (``decode``) where they are stored: columns / rows cut
-      in tp equal blocks, which may end inside a head (where H x Dh and
-      Hkv x Dh divide; else that decode computes attention whole);
+      its range of ⌈H / tp⌉ heads (none past the last head); in a
+      decode step (``decode``) where tp does not divide H or Hkv, where
+      they are stored: columns / rows cut in tp equal blocks, which may
+      end inside a head (where H x Dh and Hkv x Dh divide; else that
+      decode computes attention whole where H is uneven, and on its
+      heads and picked KV heads where it is not);
     * ``attn.wk`` / ``attn.wv``: columns cut at whole KV heads when H %
       tp == 0 and Hkv % tp == 0; else whole, each rank taking the columns
-      of the KV heads its query heads read (a decode step of uneven
-      heads: their stored columns, as ``wq``'s);
+      of the KV heads its query heads read; in a decode step where tp
+      does not divide H or Hkv, their stored columns, as ``wq``'s: a
+      rank projects its block of Hkv x Dh and gathers k and v, and no
+      weight moves;
     * ``attn.q_norm`` / ``attn.k_norm``: whole, applied to the rank's
       heads;
     * ``mla.wq_b`` / ``mla.wk_b`` / ``mla.wv_b`` / ``mla.wo``: columns /
@@ -486,11 +495,10 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
         out["embed"] = ((), True)
     even = cfg.n_heads % axis_size(mesh, m) == 0
     picked = ((), True)
-    if cuts["heads"] and decode and not even:
-        if cuts["qkv_cols"]:
-            out.update({"attn.wq": cols, "attn.wk": cols, "attn.wv": cols,
-                        "attn.wo": rows})
-    elif cuts["heads"]:
+    if decode and cuts["qkv_cols"]:
+        out.update({"attn.wq": cols, "attn.wk": cols, "attn.wv": cols,
+                    "attn.wo": rows})
+    elif cuts["heads"] and (even or not decode):
         kv = cols if cuts["kv_heads"] else picked
         out.update({"attn.wq": cols if even else picked,
                     "attn.wo": rows if even else picked,
@@ -552,7 +560,8 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx
     * no mesh                -> the single-device path,
     * a decode step          -> :func:`~repro_torch.models.moe.
                                 apply_moe_decode`: the whole batch
-                                routed, each rank's stored experts,
+                                routed, each rank's stored experts on
+                                its block of their slot rows,
     * E divisible by tp size -> expert parallelism (deepseek),
     * otherwise              -> expert tensor parallelism (mixtral).
 

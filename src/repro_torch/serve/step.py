@@ -20,8 +20,12 @@ a prefill's out so) and returns them in it: an attention cache cut on
 its sequence is read split-KV in place, the RG-LRU's state and the
 mLSTM's matrix memory cut as the layer computes are read in place, as
 are the encoder-decoder's cross K/V cut on their frames or head dim,
-every other cache with its rows whole; the MoE routes the whole batch
-onto each rank's experts where they are stored
+every other cache with its rows whole.  A decode step computes only
+the rank's share: GQA attention on the rank's heads, or on the stored
+columns of ``wq``, ``wk`` and ``wv`` where 'model' does not divide the
+heads or the KV heads (no weight moved), and the MoE routes the whole
+batch onto each rank's experts where they are stored, the mesh axes
+that do not cut the experts splitting their slot rows
 (:func:`repro_torch.models.moe.apply_moe_decode`).  A
 paged decode step takes its page pools in :func:`cache_specs`' layout
 and reads each split-KV over its pages, in place
@@ -417,9 +421,13 @@ def build_decode(model, cfg: ArchConfig, shape: ShapeSpec, mesh,
     it took them in, so that step n + 1 takes step n's output.  The
     decoder LM computes tensor-parallel (``Ctx.tp``): the embedding,
     the MLP and the logits on the rank's vocab range and FF slice, GQA
-    attention on its heads (where 'model' does not divide them, on the
-    stored columns of its weights, no weight moved); the MoE routes the
-    whole batch onto the experts where they are stored.  An attention layer's cache that the
+    attention on its heads (where 'model' does not divide them or the
+    KV heads, on the stored columns of its weights, no weight moved);
+    the MoE routes the whole batch onto the experts where they are
+    stored, and a rank runs the grouped GEMMs on its block of their slot
+    rows only (the mesh axes that do not cut the experts split the rows,
+    :func:`~repro_torch.models.moe.slot_block`).  An attention layer's
+    cache that the
     layout cuts on its sequence over 'model' (every tensor of it on dim
     1; on a one-rank axis the rank holds every slot) is read split-KV
     (:class:`~repro_torch.models.layers.SplitKV`) and written in place

@@ -211,7 +211,7 @@ def _expected_flops(cfg, shape, dp: int = 2, tp: int = 2,
     remainder (module docstring), for a config of GQA attention layers
     only."""
     from repro_torch.models.layers import kv_range
-    from repro_torch.models.transformer import _attn_spec
+    from repro_torch.models.transformer import _attn_spec, _dense_cuts
     from repro_torch.roofline import step_flops
 
     want = step_flops(cfg, shape) / dp
@@ -235,13 +235,14 @@ def _expected_flops(cfg, shape, dp: int = 2, tp: int = 2,
         return out + (2 * s * nq * hd * 2 if shape.kind != "decode" else 0)
 
     per_tok = 0.0
-    if h % tp == 0 or shape.kind != "decode":
+    cols = shape.kind == "decode" and _dense_cuts(cfg, tp)["qkv_cols"]
+    if not cols and (h % tp == 0 or shape.kind != "decode"):
         # rank 0's ⌈H / tp⌉ whole heads and the KV heads they read (the
         # picked KV heads where tp does not divide Hkv)
         lo, hi = kv_range(_attn_spec(cfg, "attn"), tp, 0)
         per_tok = attn(-(-h // tp), hi - lo) - attn(h, hk) / tp
-    # else a decode step of uneven heads projects on the stored columns:
-    # its share
+    # else a decode step of uneven heads or KV heads projects on the
+    # stored columns: its share
     toks = rows if shape.kind == "decode" else rows * s
     return want + mult * toks * cfg.n_layers * per_tok
 
@@ -392,8 +393,8 @@ def test_tp_flops_count_the_replicated_remainder(fake_mesh, name, kind):
     """A rank's FLOPs where the layout leaves part of attention above
     its share (picked KV heads; starcoder2-h1's one head on rank 0 of
     2): its share of the count plus that part, exactly, and in a decode
-    step of the uneven head cut, which projects on its stored columns,
-    its share exactly."""
+    step of the uneven head or KV head cut, which projects on its stored
+    columns, its share exactly."""
     arch, over = REMAINDER_CFGS[name]
     cfg = dataclasses.replace(get_smoke_config(arch), **over)
     shape = _smoke_shape(kind)
@@ -402,7 +403,7 @@ def test_tp_flops_count_the_replicated_remainder(fake_mesh, name, kind):
     assert rec["cost"]["flops_per_device"] == pytest.approx(
         _expected_flops(cfg, shape), rel=EXACT)
     even = _expected_flops(cfg, shape, remainder=False)
-    if name == "starcoder2-h1" and kind == "decode_32k":
+    if kind == "decode_32k":
         assert rec["cost"]["flops_per_device"] == pytest.approx(
             even, rel=EXACT)
     else:

@@ -24,14 +24,20 @@ one device), one is inactive (pos -1).  Smoke stablelm-1.6b (MHA: the pool cut o
 its head dim over 'model'), granite-8b (2 KV heads), deepseek-v2-236b
 (MLA's latent pool, cut on kv_lora_rank and qk_rope_dim; routed and
 shared experts), stablelm with 8 heads of 8 (the pool cut on its KV
-heads) and starcoder2-3b with 3 heads, 1 KV head and D 96 (on 2 ranks of
+heads), starcoder2-3b with 3 heads, 1 KV head and D 96 (on 2 ranks of
 'model' the decode projects on the stored columns of ``wq``, ``wk`` and
 ``wv``, 1.5 query heads and half the KV head a rank, RoPE after the
-gather; the pool cut on its head dim).  Each rank: STEPS greedy steps
-of the built paged decode (for deepseek and starcoder2 the first one
-watched: the local shapes of the MLA and shared-expert weights or of
-the attention weights the rank computes with, and the step's
-collectives by ``CommDebugMode``), held
+gather; the pool cut on its head dim), granite with 1 KV head (4 heads
+the axis divides, a KV head it does not: the stored columns of ``wk``
+and ``wv``, half the KV head a rank) and deepseek with 3 experts (on 2
+'data' ranks, which do not divide them, each rank runs the grouped
+GEMMs on its half of every expert's slot rows).  Each rank: STEPS
+greedy steps of the built paged decode (for deepseek, starcoder2 and
+granite with 1 KV head the first one watched: the local shapes of the
+MLA and shared-expert weights or of the attention weights the rank
+computes with, the all-gathers of a layer's q, k and v, the MoE's
+buckets and the grouped GEMMs' inputs, and the step's collectives by
+``CommDebugMode``), held
 against the JAX reference's single-device paged ``decode_step`` over the
 whole batch on the same pool and table: logits within LOGIT_TOL (1e-5,
 fp32) at every step, the same greedy tokens, the pools returned in
@@ -52,6 +58,8 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_tp_decode import check_moe_blocks, save_moe, spy_moe, \
+    spy_qkv
 
 pytestmark = pytest.mark.timeout(400)
 
@@ -68,7 +76,12 @@ CASES = [
     ("stablelm-heads", "stablelm-1.6b", {"n_heads": 8, "n_kv_heads": 8}),
     ("starcoder2-split", "starcoder2-3b",
      {"n_heads": 3, "n_kv_heads": 1, "d_model": 96}),
+    ("granite-kv1", "granite-8b", {"n_kv_heads": 1}),
+    ("deepseek-e3", "deepseek-v2-236b", {"n_experts": 3}),
 ]
+#: the case whose KV heads 2 ranks of 'model' do not divide, and the one
+#: whose experts 2 'data' ranks do not
+KV_COLS, MOE_SPLIT = "granite-kv1", "deepseek-e3"
 #: the overflow case: 16 slots, ten with one token, position and pages
 OVERFLOW = ("overflow", "deepseek-v2-236b", {})
 OVERFLOW_SLOTS = 16
@@ -184,10 +197,12 @@ def _spy(log: dict):
 
     MLA.mla_decode_paged, MOE._shared_ffn, L.attention_decode_paged = \
         mla_decode_paged, shared_ffn, attention_decode_paged
+    undo_qkv = spy_qkv(log)
 
     def undo():
         MLA.mla_decode_paged, MOE._shared_ffn, L.attention_decode_paged = \
             orig
+        undo_qkv()
     return undo
 
 
@@ -228,7 +243,7 @@ def _case(mesh, tmp: str, case) -> dict:
     rows = slice(i * b_loc, (i + 1) * b_loc)
     tok = tok[rows]
     out_logits, out_tokens, own_rows = [], [], None
-    log, comm = {}, None
+    log, comm, moe_seen, moe_w = {}, None, [], None
     with torch.no_grad():
         for s in range(STEPS):
             if cid == "overflow" and s == 0:
@@ -240,16 +255,20 @@ def _case(mesh, tmp: str, case) -> dict:
                     make_ctx("decode", cache_len=CAP), table[rows])[0]
             args = (distribute(pos, mesh, pos_spec),
                     distribute(table, mesh, table_spec))
-            if (cfg.attn_kind == "mla" or cid == "starcoder2-split") \
-                    and s == 0:
-                undo = _spy(log)
+            if (cfg.attn_kind == "mla"
+                    or cid in ("starcoder2-split", KV_COLS)) and s == 0:
+                undo, undo_moe = _spy(log), spy_moe(moe_seen)
                 try:
                     with CommDebugMode() as mode:
                         step_logits, out = decode(sharded, tok, pools,
                                                   *args)
                 finally:
                     undo()
+                    undo_moe()
                 comm = {str(k): v for k, v in mode.get_comm_counts().items()}
+                if cid == MOE_SPLIT:
+                    moe_w = save_moe(moe_seen, f"{tmp}/moe_{cid}_"
+                                     f"{mesh.get_rank()}.npz")
             else:
                 step_logits, out = decode(sharded, tok, pools, *args)
             assert out is pools
@@ -279,7 +298,7 @@ def _case(mesh, tmp: str, case) -> dict:
             "in_place": [id(t) for t in leaves] == taken,
             "all_dtensors": all(isinstance(t, DTensor) for t in leaves),
             "weights": {k: sorted(v) for k, v in log.items()},
-            "comm": comm}
+            "comm": comm, "moe_weights": moe_w}
 
 
 def _world(rank, world, shape, tmp):
@@ -451,7 +470,7 @@ def worlds(tmp_path_factory):
         for case in WORLDS[shape]:
             with np.load(tmp / f"pools_{case[0]}.npz") as z:
                 pools[case[0]] = [z[k] for k in z.files]
-        out[shape] = {"ranks": res, "pools": pools}
+        out[shape] = {"ranks": res, "pools": pools, "dir": tmp}
     return out
 
 
@@ -535,7 +554,7 @@ def test_paged_mesh_decode_keeps_the_pool_layout(worlds, item):
             elif cid == "starcoder2-split":
                 assert local[2:] == [1, 32 // tp], leaf
             else:
-                kv = 2 if arch == "granite-8b" else 4
+                kv = {"granite-kv1": 1, "granite": 2}.get(cid, 4)
                 assert local[2:] == [kv, 16 // tp], leaf
 
 
@@ -583,16 +602,62 @@ def test_uneven_heads_paged_decode_takes_the_stored_columns(worlds, item):
     """starcoder2's 3 heads on 2 ranks of 'model': a rank's paged mesh
     step projects on its stored columns of ``wq`` (48 of 96: 1.5 heads),
     ``wk`` and ``wv`` (16 of 32: half the KV head) and leaves through its
-    stored rows of ``wo``, and gathers no weight (``CommDebugMode`` sees
-    no DTensor redistribution in the step)."""
+    stored rows of ``wo``, a layer's q, k and v taking three
+    all-gathers, and gathers no weight (``CommDebugMode`` sees no DTensor
+    redistribution in the step)."""
     shape, case = item
     tp = shape[1]
     want = {"attn.wq": [[96, 96 // tp]], "attn.wk": [[96, 32 // tp]],
-            "attn.wv": [[96, 32 // tp]], "attn.wo": [[96 // tp, 96]]}
+            "attn.wv": [[96, 32 // tp]], "attn.wo": [[96 // tp, 96]],
+            "qkv_gathers": [3]}
     for r in worlds[shape]["ranks"]:
         got = r[case[0]]
         assert got["weights"] == want
         assert not any("functional" in k for k in got["comm"]), got["comm"]
+
+
+KV_COLS_ITEMS = [i for i in ITEMS if i[1][0] == KV_COLS and i[0][1] > 1]
+
+
+@pytest.mark.parametrize("item", KV_COLS_ITEMS, ids=_ids)
+def test_uneven_kv_heads_paged_decode_takes_the_stored_columns(worlds,
+                                                               item):
+    """granite with 4 heads and 1 KV head on 2 ranks of 'model': a rank's
+    paged mesh step projects on its stored columns of ``wq`` (32 of 64:
+    2 heads), ``wk`` and ``wv`` (8 of 16: half the KV head) and leaves
+    through its stored rows of ``wo``; a layer's q, k and v take three
+    all-gathers; and it gathers no weight (``CommDebugMode`` sees no
+    DTensor redistribution in the step)."""
+    shape, case = item
+    tp = shape[1]
+    want = {"attn.wq": [[64, 64 // tp]], "attn.wk": [[64, 16 // tp]],
+            "attn.wv": [[64, 16 // tp]], "attn.wo": [[64 // tp, 64]],
+            "qkv_gathers": [3]}
+    for r in worlds[shape]["ranks"]:
+        got = r[case[0]]
+        assert got["weights"] == want
+        assert not any("functional" in k for k in got["comm"]), got["comm"]
+
+
+MOE_SPLIT_ITEMS = [i for i in ITEMS if i[1][0] == MOE_SPLIT]
+
+
+@pytest.mark.parametrize("item", MOE_SPLIT_ITEMS, ids=_ids)
+def test_moe_paged_decode_splits_the_slot_rows(worlds, item):
+    """deepseek's 3 experts, which 2 'data' ranks do not divide: a rank's
+    grouped GEMMs in a paged decode step see its ``slot_block`` of the
+    buckets only (with 1 'data' rank, every slot row), its weights the
+    block's experts on its FF slice, and over the 'data' ranks the
+    blocks cover every slot row once."""
+    shape, case = item
+    n_dp, tp = shape
+    ranks = [r["coord"] for r in worlds[shape]["ranks"]]
+    root = worlds[shape]["dir"]
+    check_moe_blocks(ranks, 3, tp,
+                     lambda r: np.load(root / f"moe_{case[0]}_{r}.npz"))
+    for r in worlds[shape]["ranks"]:
+        w = r[case[0]]["moe_weights"]
+        assert w and all(s == [3, 64, 32 // tp] for s in w), w
 
 
 @pytest.mark.parametrize("n_dp", [2])

@@ -632,9 +632,9 @@ def test_tp_ranks_hold_the_same_loss(worlds, case):
 def test_dense_mesh_layout_of_the_production_archs():
     """The layout on the (16, 16) production mesh's 'model' axis, read
     from the full configs: whole heads where H divides, picked KV heads
-    where Hkv does not, a range of heads taken from the whole weights
-    for starcoder2's 24 and recurrentgemma's 10 (their decode on the
-    stored columns), the vocab and FF cut, the RG-LRU on its W
+    where Hkv does not (a decode step: the stored columns), a range of
+    heads taken from the whole weights for starcoder2's 24 and
+    recurrentgemma's 10 (their decode on the stored columns), the vocab and FF cut, the RG-LRU on its W
     channels, the xLSTM blocks' projections on their widths (the
     sLSTM's recurrence weights on theirs in a decode step only), the
     encoder-decoder's attentions on its uneven heads, its MLPs on their
@@ -718,10 +718,16 @@ def test_dense_mesh_layout_of_the_production_archs():
                    if a not in ("recurrentgemma-2b", "xlstm-125m")
                    for k in t)
     # a decode step's layout differs only by the sLSTM's weights and
-    # uneven heads' attention
+    # the attention of uneven heads or KV heads (granite's 8 KV heads on
+    # 16: the stored columns of wk and wv, 128 of 1024, and wq's, wo's)
+    assert dec["granite-8b"]["attn.wk"] == cols
+    assert {k: v for k, v in dec["granite-8b"].items()
+            if k.startswith("attn.")} == stored
     assert all(dec[a] == lay[a] for a in lay if a not in (
-        "xlstm-125m", "starcoder2-3b", "recurrentgemma-2b", "whisper-tiny"))
+        "xlstm-125m", "starcoder2-3b", "recurrentgemma-2b", "whisper-tiny",
+        "granite-8b"))
     assert all({k: v for k, v in dec[a].items() if not k.startswith(
         "attn.")} == {k: v for k, v in lay[a].items()
                       if not k.startswith("attn.")}
-        for a in ("starcoder2-3b", "recurrentgemma-2b", "whisper-tiny"))
+        for a in ("starcoder2-3b", "recurrentgemma-2b", "whisper-tiny",
+                  "granite-8b"))

@@ -32,23 +32,35 @@ versions run (CPU tensors).
   D 96 (heads the axis does not divide: the decode projects on the
   stored columns of ``wq``, ``wk`` and ``wv``, 1.5 query heads and half
   the KV head a rank on 2 ranks, gathers the projections and applies
-  RoPE after the gather, and leaves through ``wo``'s stored rows);
+  RoPE after the gather, and leaves through ``wo``'s stored rows), and
+  granite with 1 KV head (4 heads the axis divides, a KV head it does
+  not: the decode projects on the stored columns of ``wk`` and ``wv``,
+  half or a quarter of the KV head a rank, as granite's 2 and mixtral's
+  2 KV heads on 4 ranks and recurrentgemma's 1 do);
   (1, 4) also recurrentgemma-2b with 2 heads (fewer than the ranks: its
-  local attention on the stored columns beside the RG-LRU);
+  local attention on the stored columns beside the RG-LRU); (2, 2) also
+  mixtral with 3 experts, which 2 'data' ranks do not divide: each
+  data rank runs the grouped GEMMs on its half of every expert's slot
+  rows (``moe.slot_block``) and the halves are gathered;
 * (2, 1): the MoE's decode capacity over the global batch: smoke
   deepseek at batch 16, ten rows with one prompt (five a rank), so that
   an expert takes ten (token, choice) pairs at the global capacity 8
   (the reference drops two) while a rank's eight rows cannot overflow
-  its own.
+  its own;
+* (4, 1): mixtral with 2 experts on 4 'data' ranks (gcd 2: a rank runs
+  one expert on half its slot rows), at batch 4 (a row a rank) and at
+  batch 1 (the batch whole on every rank).
 
 Each rank: the port's single-device prefill of the whole batch on the
 reference's weights (carried across by ``convert.params_from_jax``),
 its rows of the caches through ``shard_cache``, then ``STEPS`` greedy
-steps of the built mesh decode (for deepseek, recurrentgemma, xlstm and
-starcoder2 the first one watched: the local shapes of the MLA and
-shared-expert weights, of the recurrent mixers' weights and states, or
-of the attention weights, the rank computes with, and the step's
-collectives by ``CommDebugMode``).  Held against
+steps of the built mesh decode (for deepseek, recurrentgemma, xlstm,
+the uneven heads and KV heads and the split MoE the first one watched:
+the local shapes of the MLA and shared-expert weights, of the recurrent
+mixers' weights and states, or of the attention weights, the rank
+computes with, the all-gathers of a layer's q, k and v, the MoE's
+buckets and the grouped GEMMs' inputs, and the step's collectives by
+``CommDebugMode``).  Held against
 the JAX reference's ``prefill`` and ``decode_step`` on the whole batch:
 logits within ``LOGIT_TOL`` (1e-5, fp32) at every step, the greedy
 tokens equal, and each rank holding ``cap / tp`` slots of every split
@@ -56,15 +68,20 @@ cache.
 
 Without a world: ``softmax_combine_local`` over 1 to 8 chunks of a
 cache, some with no valid slot, against one softmax (``COMBINE_TOL``);
-and the production cache specs on the (16, 16) mesh: every decoder LM's
+the production cache specs on the (16, 16) mesh: every decoder LM's
 decode_32k and long_500k GQA, ring and MLA latent caches cut their
 sequence over 'model', K, V and the int8 scales alike, and the RG-LRU's
-state its W and the mLSTM's matrix memory its key dim.
+state its W and the mLSTM's matrix memory its key dim; the slot-row
+blocks of ``moe.slot_block`` and mixtral's production buckets a rank;
+the decode layout of the four archs whose KV heads 16 does not divide,
+and no weight a production decode step gathers whole.
 """
 
 import dataclasses
 import json
+import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -90,6 +107,8 @@ CASES = [
     ("starcoder2-split", "starcoder2-3b",
      {"n_heads": 3, "n_kv_heads": 1, "d_model": 96}, PROMPT, CACHE_LEN,
      False),
+    ("granite-kv1", "granite-8b", {"n_kv_heads": 1}, PROMPT, CACHE_LEN,
+     False),
 ]
 #: recurrentgemma with fewer heads than the (1, 4) world's ranks
 FEW_HEADS = ("recurrentgemma-h2", "recurrentgemma-2b", {"n_heads": 2},
@@ -100,9 +119,18 @@ UNEVEN = ("starcoder2-split", "recurrentgemma-h2")
 OVERFLOW = ("overflow", "deepseek-v2-236b", {}, PROMPT, CACHE_LEN, False)
 OVERFLOW_BATCH = 16
 OVERFLOW_SAME = (0, 1, 2, 3, 4, 8, 9, 10, 11, 12)
-WORLDS = {(1, 2): CASES, (2, 2): CASES, (1, 4): CASES + [FEW_HEADS],
-          (2, 1): [OVERFLOW]}
-ALL_CASES = CASES + [FEW_HEADS, OVERFLOW]
+#: the MoE's slot rows split over 'data' ranks that do not cut the
+#: experts: 3 experts on 2 (2, 2), 2 experts on 4 (4, 1) with the batch
+#: cut and whole
+SPLIT_E3 = ("mixtral-e3", "mixtral-8x22b", {"n_experts": 3}, 47, 56, False)
+SPLIT_E2 = ("mixtral-e2", "mixtral-8x22b", {"n_experts": 2}, 47, 56, False)
+SPLIT_B1 = ("mixtral-e2-b1", "mixtral-8x22b", {"n_experts": 2}, 47, 56,
+            False)
+MOE_SPLIT = ("mixtral-e3", "mixtral-e2", "mixtral-e2-b1")
+WORLDS = {(1, 2): CASES, (2, 2): CASES + [SPLIT_E3],
+          (1, 4): CASES + [FEW_HEADS], (2, 1): [OVERFLOW],
+          (4, 1): [SPLIT_E2, SPLIT_B1]}
+ALL_CASES = CASES + [FEW_HEADS, OVERFLOW, SPLIT_E3, SPLIT_E2, SPLIT_B1]
 
 
 #: the weights a deepseek rank's decode step logs: MLA's four on 'heads',
@@ -116,7 +144,25 @@ RECURRENT = ("recurrentgemma-2b", "xlstm-125m")
 
 
 def _batch(case) -> int:
-    return OVERFLOW_BATCH if case[0] == "overflow" else BATCH
+    return {"overflow": OVERFLOW_BATCH, "mixtral-e2-b1": 1}.get(case[0],
+                                                               BATCH)
+
+
+def _rows_of(case, n_dp: int, i: int) -> slice:
+    """The rows a rank at data index ``i`` holds: its block where the
+    'data' axis divides the batch, else every row."""
+    b = _batch(case)
+    if b % n_dp:
+        return slice(0, b)
+    return slice(i * (b // n_dp), (i + 1) * (b // n_dp))
+
+
+def _kv_cols(cfg, tp: int) -> bool:
+    """Does a GQA decode step on a ``tp``-way 'model' axis take the stored
+    columns of ``wk`` and ``wv`` where the axis divides the heads but not
+    the KV heads?"""
+    return cfg.attn_kind != "mla" and tp > 1 and cfg.n_heads % tp == 0 \
+        and cfg.n_kv_heads % tp != 0
 
 
 def _tokens(case) -> np.ndarray:
@@ -249,12 +295,115 @@ def _spy(log: dict):
 
     MLA.mla_decode, MOE._shared_ffn, L.attention_decode = \
         mla_decode, shared_ffn, attention_decode
+    undo_qkv = spy_qkv(log)
 
     def undo():
         MLA.mla_decode, MOE._shared_ffn, L.attention_decode = orig
         for kind, (module, name, _) in mixers.items():
             setattr(module, name, orig_mixers[kind])
+        undo_qkv()
     return undo
+
+
+def spy_qkv(log: dict):
+    """Patch a decode layer's q, k, v projection to log how many
+    all-gathers it makes (``qkv_gathers``); returns the undo."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.models import layers as L
+
+    orig_qkv, orig_gather = L._decode_qkv, C.all_gather
+
+    def decode_qkv(*a, **k):
+        n = [0]
+
+        def gather(*ga, **gk):
+            n[0] += 1
+            return orig_gather(*ga, **gk)
+        C.all_gather = gather
+        try:
+            return orig_qkv(*a, **k)
+        finally:
+            C.all_gather = orig_gather
+            log.setdefault("qkv_gathers", set()).add(n[0])
+
+    L._decode_qkv = decode_qkv
+
+    def undo():
+        L._decode_qkv = orig_qkv
+    return undo
+
+
+def spy_moe(seen: list):
+    """Patch the MoE's dispatch and the grouped GEMM to append, per MoE
+    layer, [the dispatched buckets (E, C, D), the ``moe.wi`` product's
+    input and its weight's local shape]; returns the undo."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+
+    orig_dispatch, orig_gm = MOE._dispatch, ops.grouped_matmul
+
+    def dispatch(*a, **k):
+        out = orig_dispatch(*a, **k)
+        seen.append([out[0].clone()])
+        return out
+
+    def grouped_matmul(x, w, *a, **k):
+        if k.get("site") == "moe.wi":
+            seen[-1] += [x.clone(), list(w.shape)]
+        return orig_gm(x, w, *a, **k)
+
+    MOE._dispatch, ops.grouped_matmul = dispatch, grouped_matmul
+
+    def undo():
+        MOE._dispatch, ops.grouped_matmul = orig_dispatch, orig_gm
+    return undo
+
+
+def save_moe(seen: list, path: str) -> list:
+    """The buckets and blocks of :func:`spy_moe` saved to ``path``
+    (npz); returns the weights' local shapes, a layer each."""
+    arrays = {}
+    for i, (buckets, block, _) in enumerate(seen):
+        arrays[f"buckets_{i}"] = buckets.numpy()
+        arrays[f"block_{i}"] = block.numpy()
+    np.savez(path, **arrays)
+    return [w for _, _, w in seen]
+
+
+def check_moe_blocks(ranks: list, n_experts: int, tp: int, load) -> None:
+    """Each rank's ``moe.wi`` input (``load(rank)``: its npz of
+    :func:`save_moe`) is its :func:`~repro_torch.models.moe.slot_block`
+    of the buckets every rank dispatched alike, the 'data' axis (the
+    ranks of one 'model' index) splitting the slot rows over its n
+    ranks where it does not cut the experts; over those ranks the
+    blocks cover every slot row of every layer once."""
+    from repro_torch.models.moe import slot_block
+
+    n = len(ranks) // tp
+    n = n if n_experts % n else 1
+    seen = [load(r) for r in range(len(ranks))]
+    n_layers = len([k for k in seen[0].files if k.startswith("block_")])
+    assert n_layers > 0
+    for i in range(n_layers):
+        buckets = seen[0][f"buckets_{i}"]
+        e, cap, d = buckets.shape
+        for z in seen:
+            np.testing.assert_array_equal(z[f"buckets_{i}"], buckets)
+        rows = slot_block(e, cap, n, 0)[3]
+        padded = np.zeros((e, rows * (n // math.gcd(e, n)), d),
+                          buckets.dtype)
+        padded[:, :cap] = buckets
+        count = np.zeros(padded.shape[:2], int)
+        for r, z in enumerate(seen):
+            e_lo, e_hi, c_lo, c_hi = slot_block(e, cap, n,
+                                                ranks[r][0] if n > 1 else 0)
+            block = z[f"block_{i}"]
+            assert block.shape == (e_hi - e_lo, c_hi - c_lo, d)
+            np.testing.assert_array_equal(block,
+                                          padded[e_lo:e_hi, c_lo:c_hi])
+            if ranks[r][1] == 0:
+                count[e_lo:e_hi, c_lo:c_hi] += 1
+        assert (count == 1).all(), count
 
 
 def _case(mesh, tmp: str, case) -> dict:
@@ -281,10 +430,10 @@ def _case(mesh, tmp: str, case) -> dict:
         dctx = make_ctx("decode", cache_len=cache_len)
     it = iter(tree_leaves(p_specs, is_leaf=is_spec))
     sharded = tree_map(lambda t: distribute(t, mesh, next(it)), params)
-    n_dp = mesh.size(0)
-    b_loc = batch // n_dp
-    i = row_index(mesh, ("data",))
-    rows = slice(i * b_loc, (i + 1) * b_loc)
+    rows = _rows_of(case, mesh.size(0), row_index(mesh, ("data",)))
+    spied = cfg.attn_kind == "mla" or arch in RECURRENT or cid in UNEVEN \
+        or _kv_cols(cfg, mesh.size(1)) or cid in MOE_SPLIT
+    moe_seen, moe_w = [], None
     with torch.no_grad():
         logits, whole = model.prefill(
             params, torch.from_numpy(_tokens(case)), pctx)
@@ -309,16 +458,19 @@ def _case(mesh, tmp: str, case) -> dict:
                 own = _map_arrays(lambda t: t.clone(), mine)
                 own_rows = model.decode_step(params, tok, own, prompt,
                                            dctx)[0].numpy()
-            if (cfg.attn_kind == "mla" or arch in RECURRENT
-                    or cid in UNEVEN) and s == 0:
-                undo = _spy(log)
+            if spied and s == 0:
+                undo, undo_moe = _spy(log), spy_moe(moe_seen)
                 try:
                     with CommDebugMode() as mode:
                         step_logits, cache = decode(sharded, tok, cache,
                                                     prompt)
                 finally:
                     undo()
+                    undo_moe()
                 comm = {str(k): v for k, v in mode.get_comm_counts().items()}
+                if cid in MOE_SPLIT:
+                    moe_w = save_moe(moe_seen, f"{tmp}/moe_{cid}_"
+                                     f"{mesh.get_rank()}.npz")
             else:
                 step_logits, cache = decode(sharded, tok, cache,
                                             prompt + s)
@@ -340,7 +492,7 @@ def _case(mesh, tmp: str, case) -> dict:
                                                c_specs),
             "all_dtensors": all(isinstance(t, DTensor) for t in leaves),
             "weights": {k: sorted(v) for k, v in log.items()},
-            "comm": comm,
+            "comm": comm, "moe_weights": moe_w,
             "plain_err": None if plain is None else
             float((plain.numpy() - out_logits[0]).__abs__().max())}
 
@@ -459,8 +611,8 @@ def worlds(tmp_path_factory):
                               daemon=True)
     runner.start()
     out = {"ref": {case[0]: _reference(case, *models[case[0]])
-                   for case in ALL_CASES}}
-    runner.join(timeout=4 * 300)
+                   for case in ALL_CASES}, "root": root}
+    runner.join(timeout=len(WORLDS) * 300)
     assert not runner.is_alive(), "the worlds did not finish"
     if errors:
         raise errors[0]
@@ -533,20 +685,22 @@ def test_mesh_decode_keeps_the_cache_layout(worlds, item):
     cache cut on its sequence (K, V and the int8 scales alike) and its
     rows of the batch; the head-dim cut keeps the sequence whole; the
     recurrent states keep their local shapes, the RG-LRU's h and conv
-    cut on W and the mLSTM's c and n on their key dim."""
+    cut on W and the mLSTM's c and n on their key dim.  A batch the
+    'data' axis does not divide (batch 1) is whole on every rank."""
     from repro_torch.configs import get_smoke_config
 
     shape, case = item
     n_dp, tp = shape
     cid, arch, over, prompt, cache_len, int8 = case
     cfg = get_smoke_config(arch)
-    b_loc = _batch(case) // n_dp
+    whole = _batch(case) % n_dp != 0
+    b_loc = _batch(case) if whole else _batch(case) // n_dp
     for r in worlds[shape]:
         got = r[cid]
         assert got["all_dtensors"]
         assert got["slots_before"] == got["slots_after"]
         assert got["states_before"] == got["states_after"]
-        assert got["t_spec"] == ["data", None]         # the rows divide
+        assert got["t_spec"] == [None if whole else "data", None]
         assert got["slots_after"] or got["states_after"]
         for layer in got["slots_after"]:
             if int8:
@@ -690,6 +844,86 @@ def test_uneven_heads_decode_takes_the_stored_columns(worlds, item):
         assert functional == len(expect), (got["comm"], expect)
 
 
+def _case_cfg(case):
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config(case[1]), **case[2])
+
+
+KV_COLS_ITEMS = [i for i in ITEMS if _kv_cols(_case_cfg(i[1]), i[0][1])]
+
+
+@pytest.mark.parametrize("item", KV_COLS_ITEMS, ids=_ids)
+def test_uneven_kv_heads_decode_takes_the_stored_columns(worlds, item):
+    """Where the 'model' axis divides the heads but not the KV heads
+    (granite with 1 KV head on 2 and 4 ranks, granite's and mixtral's 2
+    and recurrentgemma's 1 on 4), a rank's mesh decode step projects on
+    its stored columns of ``wq``, ``wk`` and ``wv`` (Hkv x Dh / tp of
+    ``wk`` and ``wv``: a cut inside a KV head) and leaves through its
+    stored rows of ``wo``; each layer's q, k and v take three
+    all-gathers, as the picked KV heads did; and ``CommDebugMode`` sees
+    DTensor gather no attention weight (``_decode_gathers`` lists no
+    ``wk`` or ``wv``)."""
+    from repro_torch.configs import build_model, get_smoke_config
+
+    shape, case = item
+    tp = shape[1]
+    cfg = dataclasses.replace(get_smoke_config(case[1]), **case[2])
+    hd = cfg.resolved_head_dim
+    q, kv = cfg.n_heads * hd // tp, cfg.n_kv_heads * hd // tp
+    assert kv % hd                          # the cut ends inside a KV head
+    d = cfg.d_model
+    want = {"attn.wq": [[d, q]], "attn.wk": [[d, kv]], "attn.wv": [[d, kv]],
+            "attn.wo": [[q, d]]}
+    attn = {str(i) for i, s in enumerate(build_model(cfg).plan)
+            if s.kind in ("attn", "local")}
+    for r in worlds[shape]:
+        got = r[case[0]]
+        assert {k: v for k, v in got["weights"].items()
+                if k.startswith("attn.")} == want
+        assert got["weights"]["qkv_gathers"] == [3]
+        expect = got["expect_gathered"]
+        assert not any(n.split("/")[1] in attn for n in expect
+                       if n.startswith("layers/")), expect
+        functional = sum(v for k, v in got["comm"].items()
+                         if "functional" in k and "all_gather" in k)
+        assert functional == len(expect), (got["comm"], expect)
+
+
+@pytest.mark.parametrize("item", ITEMS, ids=_ids)
+def test_decode_gathers_no_kv_projection(worlds, item):
+    """No case's decode step gathers ``wk`` or ``wv`` whole: each layer
+    takes them where they are stored or on its whole KV heads."""
+    shape, case = item
+    for r in worlds[shape]:
+        assert not [n for n in r[case[0]]["expect_gathered"]
+                    if n.split("/")[-1] in ("wk", "wv")]
+
+
+MOE_SPLIT_ITEMS = [i for i in ITEMS if i[1][0] in MOE_SPLIT]
+
+
+@pytest.mark.parametrize("item", MOE_SPLIT_ITEMS, ids=_ids)
+def test_moe_decode_splits_the_slot_rows(worlds, item):
+    """Where the 'data' axis does not cut the experts (3 experts on 2
+    ranks, 2 on 4, the batch cut and whole), a rank's grouped GEMMs in
+    a decode step see its block of the slot rows only: its ``wi``
+    input is its ``slot_block`` of the buckets (the same on every rank:
+    the whole batch routed at the global capacity), its weights those
+    block's experts on its FF slice, and over the 'data' ranks the
+    blocks cover every slot row once."""
+    shape, case = item
+    n_dp, tp = shape
+    cfg_e = case[2]["n_experts"]
+    ranks = [r["coord"] for r in worlds[shape]]
+    root = worlds["root"] / f"w{n_dp}x{tp}"
+    check_moe_blocks(ranks, cfg_e, tp,
+                     lambda r: np.load(root / f"moe_{case[0]}_{r}.npz"))
+    g = math.gcd(cfg_e, n_dp)
+    for r in worlds[shape]:
+        w = r[case[0]]["moe_weights"]
+        assert w and all(s == [cfg_e // g, 64, 128 // tp] for s in w), w
+
+
 def test_decode_capacity_counts_the_global_batch(worlds):
     """The MoE of a mesh decode keeps the reference's (token, choice)
     pairs at the capacity of the global batch: the rows with one prompt
@@ -827,3 +1061,126 @@ def test_production_caches_cut_their_sequence(shape, monkeypatch):
                     assert "model" not in got[2:], (arch, name, got)
                 seen += 1
     assert seen > 0
+
+
+@pytest.mark.parametrize("e, cap, n, want", [
+    (8, 40, 16, (1, 20)), (8, 8, 16, (1, 4)), (8, 40, 32, (1, 10)),
+    (3, 8, 2, (3, 4)), (6, 16, 4, (3, 8))])
+def test_slot_block_splits_the_slot_rows(e, cap, n, want):
+    """``slot_block`` gives each of n ranks an equal block of the (E, C)
+    slot rows, E / g experts by C / (n / g) rows (g = gcd(E, n), C
+    padded to a multiple of n / g), and the n blocks cover every padded
+    row once: mixtral's 8 experts at decode_32k's capacity 40 and
+    long_500k's floor of 8 on 16 and 32 ranks, 3 experts on 2, 6 on 4."""
+    from repro_torch.models.moe import slot_block
+
+    count = np.zeros((e, want[1] * n * want[0] // e), int)
+    for r in range(n):
+        e_lo, e_hi, c_lo, c_hi = slot_block(e, cap, n, r)
+        assert (e_hi - e_lo, c_hi - c_lo) == want
+        count[e_lo:e_hi, c_lo:c_hi] += 1
+    assert count.shape[1] >= cap and (count == 1).all()
+
+
+@pytest.mark.parametrize("e, cap, n", [(8, 40, 16), (8, 8, 16),
+                                       (8, 40, 32), (3, 8, 2), (6, 16, 4)])
+def test_slot_block_products_are_rows_of_the_whole(e, cap, n):
+    """The grouped product of each rank's ``slot_block`` (padded with
+    rows of zeros past the capacity) is, row for row and bit for bit,
+    the whole (E, C) product's rows (the plain version, fp32): the split
+    decode's partial output, gathered, is the unsplit one's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import slot_block
+
+    rng = np.random.default_rng(e * cap + n)
+    x = torch.from_numpy(rng.standard_normal((e, cap, 32))).float()
+    w = torch.from_numpy(rng.standard_normal((e, 32, 24))).float()
+    whole = ops.grouped_matmul(x, w)
+    for r in range(n):
+        e_lo, e_hi, c_lo, c_hi = slot_block(e, cap, n, r)
+        block = x[e_lo:e_hi, c_lo:c_hi]
+        block = F.pad(block, (0, 0, 0, c_hi - c_lo - block.shape[1]))
+        y = ops.grouped_matmul(block.contiguous(), w[e_lo:e_hi])
+        kept = max(0, min(c_hi, cap) - c_lo)
+        assert torch.equal(y[:, :kept], whole[e_lo:e_hi, c_lo:c_lo + kept])
+        assert not y[:, kept:].any()
+
+
+@pytest.mark.parametrize("shape, rows", [("decode_32k", 20),
+                                         ("long_500k", 4)])
+def test_mixtral_rank_buckets_on_the_production_mesh(shape, rows):
+    """On (16, 16) mixtral's 8 experts stay whole over 'data' (8 does not
+    divide 16) and cut their FF width over 'model': a decode rank runs
+    one expert's slot rows, 20 of decode_32k's global capacity 40 (two
+    ranks an expert) or 4 of long_500k's floor of 8, on 1024 FF
+    columns: the grouped GEMMs' (1, rows, 6144, 1024) and ``wo``'s
+    (1, rows, 1024, 6144)."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.sharding import MeshShape, partition_params
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.moe import slot_block
+    from repro_torch.models.transformer import _moe_spec
+
+    cfg = get_config("mixtral-8x22b")
+    model = build_model(cfg)
+    mesh = MeshShape({"data": 16, "model": 16})
+    specs = partition_params(model, cfg, mesh)
+    moe = next(lay["moe"] for lay in specs["layers"] if "moe" in lay)
+    assert moe["wi"] == (None, None, "model")
+    assert moe["wo"] == (None, "model", None)
+    spec = _moe_spec(cfg)
+    cap = spec.capacity(SHAPES[shape].global_batch)
+    ff = spec.d_ff // 16
+    blocks = {slot_block(spec.n_experts, cap, 16, r) for r in range(16)}
+    assert len(blocks) == 16
+    for e_lo, e_hi, c_lo, c_hi in blocks:
+        assert (e_hi - e_lo, c_hi - c_lo, spec.d_model, ff) \
+            == (1, rows, 6144, 1024)
+
+
+def test_production_decode_takes_the_kv_columns():
+    """On (16, 16) the four archs whose KV heads 16 does not divide
+    (chameleon 64 / 8, mixtral 48 / 8, granite 32 / 8, chatglm3 32 / 2,
+    all at head dim 128) compute a decode step's ``wq``, ``wk``, ``wv``
+    on their stored columns and ``wo`` on its stored rows; train and
+    prefill keep the whole heads and the picked KV heads."""
+    from repro_torch.configs import build_model, get_config
+    from repro_torch.dist.sharding import MeshShape, partition_params
+    from repro_torch.models.transformer import dense_mesh_layout
+
+    mesh = MeshShape({"data": 16, "model": 16})
+    m = "model"
+    cols, rows = ((None, m), False), ((m, None), False)
+    for arch in ("chameleon-34b", "mixtral-8x22b", "granite-8b",
+                 "chatglm3-6b"):
+        cfg = get_config(arch)
+        assert cfg.n_heads % 16 == 0 and cfg.n_kv_heads % 16
+        dec = dense_mesh_layout(cfg, mesh, decode=True)
+        lay = dense_mesh_layout(cfg, mesh)
+        assert {k: v for k, v in dec.items() if k.startswith("attn.")} \
+            == {"attn.wq": cols, "attn.wk": cols, "attn.wv": cols,
+                "attn.wo": rows}, arch
+        assert lay["attn.wq"] == cols and lay["attn.wk"] == ((), True)
+        model = build_model(cfg)
+        attn = next(lay["mixer"] for lay in partition_params(
+            model, cfg, mesh)["layers"] if "wk" in lay["mixer"])
+        assert attn["wk"] == attn["wv"] == (None, m), arch
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_decode_weight_moves_nothing(mesh):
+    """``scripts/decode_weight_moves.py``: no arch's decode step gathers
+    a weight whole on either production mesh."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.dist.sharding import MeshShape
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "scripts"))
+    from decode_weight_moves import moves
+
+    shape = {"data": 16, "model": 16} if mesh == "single" \
+        else {"pod": 2, "data": 16, "model": 16}
+    assert {a: moves(a, MeshShape(shape)) for a in ARCH_IDS} \
+        == {a: {} for a in ARCH_IDS}
