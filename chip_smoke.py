@@ -140,8 +140,10 @@ Phases (any failure exits non-zero):
    (``roofline.step_flops`` over the median of steps 3–6, as phase 11's
    stablelm run); (c) whisper-tiny's ``--resume`` at the smoke scale;
    (d) the sLSTM (``repro_torch::slstm_scan``, no kernel: xlstm's
-   training goes through it) against its plain loop at xlstm-125m's
-   width, 4 x 1024 x 768: forward bitwise, the gradients of x, w_in,
+   training goes through it; it takes the input product x @ w_in
+   hoisted out of the recurrence) against its plain loop over the same
+   hoisted product at xlstm-125m's width, 4 x 1024 x 768: forward
+   bitwise, the gradients of x, w_in,
    w_rec and b normwise within TRAIN_GRAD_TOL, forward and forward +
    backward ms of each in turns, and (b)'s xlstm step beside runs
    21a/21b's 18–19.6 s;
@@ -205,7 +207,12 @@ Phases (any failure exits non-zero):
    MESH_REC_STATE_TOL), MESH_DECODE_STEPS greedy mesh decode steps
    with the same tokens and the logits within MESH_DECODE_TOL, warm
    steps in turns, device time a step and the collectives a mesh step
-   dispatches; (i) after (h): attention on the rank's heads where the
+   dispatches; the collectives of the TP prefill, of the first sharded
+   train step and of a mesh decode step by kind, all-reduces,
+   all-gathers and reduce-scatters: an RG-LRU layer reduce-scatters its
+   gates' partial products once a forward (twice a train step: the
+   remat's recompute), and nothing else reduce-scatters on one rank;
+   (i) after (h): attention on the rank's heads where the
    'model' axis does not divide them — starcoder2-3b whole (HEADS_ARCH,
    random fp32 weights from a seed): its layout on the production
    mesh's 16-way axis (a range of whole heads in train and prefill, the
@@ -252,8 +259,10 @@ Phases (any failure exits non-zero):
    KV projections on their stored columns; deepseek's prefill_32k FLOPs at
    most DS_PREFILL_RATIO_MAX of its share: MLA on its heads;
    recurrentgemma's and xlstm's cells at most REC_RATIO_MAX of theirs:
-   the recurrent mixers on their width; starcoder2's at most
-   HEADS_RATIO_MAX: attention on the rank's 2 of 24 heads; whisper's at
+   the recurrent mixers on their width, the sLSTM's input product and
+   the mLSTM core on the rank's share; recurrentgemma's train_4k
+   collective bytes under RG_TRAIN_GB_MAX: its gates' sum a
+   reduce-scatter; starcoder2's at most HEADS_RATIO_MAX: attention on the rank's 2 of 24 heads; whisper's at
    most WHISPER_RATIO_MAX and its decode_32k's collective bytes under
    WHISPER_DECODE_GB: the encoder-decoder on its shards, its decode
    reading its caches in place),
@@ -560,13 +569,19 @@ DRYRUN_CELLS = [("stablelm-1.6b", None), ("mixtral-8x22b", "decode_32k"),
 #: whole on every rank: recurrentgemma x5.33 / x4.74 / x4.55, xlstm
 #: x11.87 / x11.97 / x11.36; recurrentgemma's, with its local
 #: attention on its heads too, read at x1.04 / x0.87 / x1.00 on the
-#: card's host, H100 80GB HBM3, 700 W)
+#: card's host, H100 80GB HBM3, 700 W; xlstm's, with its projections on
+#: their widths but the sLSTM's input product and the mLSTM core whole,
+#: at x4.84 / x4.68 / x0.95, G28, and with those on the rank's share at
+#: x2.54 / x2.37 / x0.95); recurrentgemma's train_4k at most
+#: RG_TRAIN_GB_MAX collective GB a rank (117.7 GB with its gates' sum an
+#: all-reduce, G29; 72.4 GB with it a reduce-scatter)
 REC_RATIO_MAX = {("recurrentgemma-2b", "train_4k"): 1.5,
                  ("recurrentgemma-2b", "prefill_32k"): 1.5,
                  ("recurrentgemma-2b", "decode_32k"): 1.3,
-                 ("xlstm-125m", "train_4k"): 7.0,
-                 ("xlstm-125m", "prefill_32k"): 7.0,
+                 ("xlstm-125m", "train_4k"): 3.0,
+                 ("xlstm-125m", "prefill_32k"): 2.8,
                  ("xlstm-125m", "decode_32k"): 2.5}
+RG_TRAIN_GB_MAX = 85.0
 #: phase 16 (a): attention on the rank's heads where 16 does not divide
 #: them: starcoder2's FLOPs a rank at most these multiples of
 #: step_flops / 256 (x7.04 / x9.98 / x2.01 with its attention whole on
@@ -2867,12 +2882,14 @@ def phase_train_families(M, fa, G, torch) -> dict:
 
 
 def slstm_op_vs_loop(torch) -> dict:
-    """Phase 14 (d): one xlstm-125m sLSTM block (``slstm_train``, through
-    ``repro_torch::slstm_scan`` and its backward) against the plain loop
-    (``slstm_train_loop``, autograd) on the card, seeded weights at the
-    model's init: the forward must be bitwise the loop's, the gradients
-    of x, w_in, w_rec and b within TRAIN_GRAD_TOL normwise; forward and
-    forward + backward ms of each, in turns."""
+    """Phase 14 (d): one xlstm-125m sLSTM block (``slstm_train``: the
+    hoisted input product x @ w_in, then ``repro_torch::slstm_scan`` over
+    it and its backward) against the plain loop (``slstm_train_loop``:
+    the same hoisted product, then the steps under autograd) on the
+    card, seeded weights at the model's init: the forward must be
+    bitwise the loop's, the gradients of x, w_in, w_rec and b within
+    TRAIN_GRAD_TOL normwise; forward and forward + backward ms of each,
+    in turns."""
     import statistics
 
     from repro_torch.configs import get_config
@@ -2962,6 +2979,21 @@ def in_turns(fns: dict, torch, iters: int) -> dict:
     for k, f in ((ka, fa_), (kb, fb), (kb, fb), (ka, fa_)):
         t[k].append(cuda_ms(f, iters=iters, warmup=1))
     return {k: sum(v) / len(v) for k, v in t.items()}
+
+
+def coll_kinds(counts: dict) -> dict:
+    """``CommDebugMode``'s counts by op, summed by kind."""
+    kinds = {"all-reduce": ("allreduce", "all_reduce"),
+             "all-gather": ("allgather", "all_gather"),
+             "reduce-scatter": ("reduce_scatter",),
+             "all-to-all": ("alltoall", "all_to_all")}
+    out = {k: 0 for k in kinds}
+    for op, n in counts.items():
+        name = str(op).lower()
+        for k, marks in kinds.items():
+            if any(m in name for m in marks):
+                out[k] += n
+    return out
 
 
 def mesh_train(res, ckpt_dir, mesh, M, fa, G, torch) -> dict:
@@ -3100,11 +3132,15 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
     batch = {"tokens": distribute(prompts, mesh, b_specs["tokens"])}
     ctx = make_ctx("prefill", cache_len=cache_len)
     want_flash = sum(s.kind in ("attn", "local") for s in model.plan)
+    from torch.distributed.tensor.debug import CommDebugMode
+
     with torch.inference_mode():
         reset_counts(M, fa, G)
-        logits, cache = prefill(sharded, batch)
+        with CommDebugMode() as comm:
+            logits, cache = prefill(sharded, batch)
         torch.cuda.synchronize()
         n = kernel_counts(M, fa, G)
+        colls = coll_kinds(comm.get_comm_counts())
         by_d = dict(fa.flash_attention_cuda.launches_by_head_dim)
         tally_flash(fa)
         reset_counts(M, fa, G)
@@ -3132,7 +3168,7 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
           f" caches bitwise: {same_cache} (max rel {cache_rel:.3e}; "
           f"{'bitwise' if bitwise else f'tol {MESH_TOL:g}'} required); "
           f"warm in turns single {ms['single']:.1f} ms, mesh "
-          f"{ms['mesh']:.1f} ms")
+          f"{ms['mesh']:.1f} ms; collectives {colls}")
     if n["flash"] != want_flash or n["matmul"] or n["grouped"]:
         raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s tensor-parallel "
                          "prefill did not run the flash kernel once an "
@@ -3150,7 +3186,7 @@ def mesh_prefill_tp(model, cfg, params, mesh, M, fa, G, torch,
             "logits_bitwise": same_logits,
             "caches_bitwise": same_cache, "logits_max_abs_err": err,
             "logits_rel_err": rel, "caches_rel_err": cache_rel,
-            "prefill_ms": ms}
+            "prefill_ms": ms, "collectives": colls}
 
 
 def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
@@ -3162,7 +3198,10 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
     within MESH_TOL; after the steps every state leaf bitwise, or for an
     arch of MESH_REC_STATE_TOL its params, m and v normwise within their
     bounds (beside how far the steps moved the params); each step's
-    seconds reported; no kernel may launch."""
+    seconds reported (the first mesh step's under ``CommDebugMode``,
+    which counts its collectives by kind); no kernel may launch."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
     from repro_torch.data.pipeline import SyntheticLM, make_global_batch
     from repro_torch.dist.collectives import distribute
     from repro_torch.models.config import ShapeSpec
@@ -3198,6 +3237,11 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
             if kind == "single":
                 live, m = step_1(live, make_global_batch(b, None,
                                                          device="cuda"))
+            elif i == 0:
+                with CommDebugMode() as comm:
+                    on_mesh, m = step_m(on_mesh, make_global_batch(
+                        b, mesh, b_specs))
+                colls = coll_kinds(comm.get_comm_counts())
             else:
                 on_mesh, m = step_m(on_mesh, make_global_batch(b, mesh,
                                                                b_specs))
@@ -3232,7 +3276,8 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
           + (" (bitwise required" if tol is None else f" (tol {tol}")
           + f"; the steps moved the params {moved:.3e} normwise); step s "
           "mesh " + " ".join(f"{t:.3f}" for t in step_s["mesh"])
-          + ", single " + " ".join(f"{t:.3f}" for t in step_s["single"]))
+          + ", single " + " ".join(f"{t:.3f}" for t in step_s["single"])
+          + f"; collectives of the first mesh step {colls}")
     agree = not state_diff if tol is None else all(
         e <= tol[k] for k, e in state_err.items())
     if not (err <= MESH_TOL and agree):
@@ -3242,7 +3287,7 @@ def mesh_train_tp(model, cfg, params, mesh, batch: int, seq: int, M, fa,
             "loss_max_abs_err": err, "state_leaves_differ": state_diff,
             "state_leaves": n_leaves, "state_normwise": state_err,
             "state_tol": tol, "params_moved_normwise": moved,
-            "step_s": step_s}
+            "step_s": step_s, "collectives": colls}
 
 
 def mesh_recurrent(mesh, M, fa, G, torch) -> dict:
@@ -3290,6 +3335,20 @@ def mesh_recurrent(mesh, M, fa, G, torch) -> dict:
         torch.cuda.empty_cache()
         row["decode"] = mesh_decode_model(arch, layers, mesh, M, fa, G,
                                           torch, prompt_len=prompt_len)
+        # the RG-LRU gates' sum is a reduce-scatter, once a forward
+        n_rglru = sum(s.kind == "rglru" for s in model.plan)
+        want = {"prefill": n_rglru, "train": 2 * n_rglru,
+                "decode": n_rglru}
+        got = {k: row[k]["collective_kinds" if k == "decode"
+                         else "collectives"]["reduce-scatter"]
+               for k in want}
+        print(f"[chip_smoke] mesh (h): {cfg.name} reduce-scatters: "
+              f"{got} (expected {want}: the RG-LRU gates' sum, once a "
+              f"forward)")
+        if got != want:
+            raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s RG-LRU "
+                             "gates are not reduce-scattered once a "
+                             "forward")
         row["phase_s"] = time.perf_counter() - t0
         out[arch] = row
     return out
@@ -3976,6 +4035,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
             fns["mesh"]()
         colls = {str(k).split(".")[-1]: v
                  for k, v in comm.get_comm_counts().items()}
+        kinds = coll_kinds(comm.get_comm_counts())
     want = {"thin": 3 * moe_layers * steps, "tiled": 0}
     print(f"[chip_smoke] mesh: {cfg.name} ({cfg.n_layers} layers) "
           f"{steps} greedy steps of the mesh decode (split-KV caches, "
@@ -3988,7 +4048,7 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
           f"single {ms['single']:.2f} ms, mesh {ms['mesh']:.2f} ms; device "
           f"time a step single {traced['single']['device_ms']:.2f} ms, mesh "
           f"{traced['mesh']['device_ms']:.2f} ms; collectives a mesh step "
-          f"{colls}")
+          f"{colls} ({kinds})")
     if not (same and over <= MESH_DECODE_TOL):
         raise SystemExit(f"[chip_smoke] FAIL: {cfg.name}'s mesh decode "
                          "disagrees with the single-device decode")
@@ -4002,7 +4062,8 @@ def mesh_decode_model(arch: str, n_layers, mesh, M, fa, G, torch,
            "same_tokens": same, "logits_max_abs_err": err,
            "logits_max_abs": scale, "logits_over_rtol": over,
            "tol": MESH_DECODE_TOL, "launches": n["grouped_by_variant"],
-           "step_ms": ms, "trace": traced, "collectives": colls}
+           "step_ms": ms, "trace": traced, "collectives": colls,
+           "collective_kinds": kinds}
     if paged:
         out["paged"] = mesh_paged(model, params, mesh, M, fa, G, torch)
     del params
@@ -4416,11 +4477,19 @@ def phase_dryrun(torch) -> dict:
           f"against step_flops / 256: {rec} (at most "
           f"{ {f'{a} {k}': v for (a, k), v in REC_RATIO_MAX.items()} }); "
           f"peaks a rank GiB {rec_peak}; collective GB {rec_gb}")
+    rg_gb = rec_gb["recurrentgemma-2b train_4k"]
+    print(f"[chip_smoke] dry run (a): recurrentgemma train_4k collective "
+          f"GB a rank {rg_gb:.4f} (at most {RG_TRAIN_GB_MAX:g}: the RG-LRU "
+          f"gates' sum a reduce-scatter)")
     if not all(by_cell[key]["flops_ratio"] <= most
                for key, most in REC_RATIO_MAX.items()):
         raise SystemExit("[chip_smoke] FAIL: a rank of recurrentgemma's or "
                          "xlstm's dry run does not compute its mixers on "
                          "their width")
+    if rg_gb > RG_TRAIN_GB_MAX:
+        raise SystemExit("[chip_smoke] FAIL: a rank of recurrentgemma's "
+                         "train_4k moves more collective bytes than its "
+                         "gates' reduce-scatter would")
     # attention on the rank's heads where 16 does not divide them
     heads = {f"{a} {k}": {"flops_ratio": by_cell[a, k]["flops_ratio"],
                           "peak_gib": by_cell[a, k]["peak_gib"],

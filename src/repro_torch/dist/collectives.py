@@ -26,7 +26,10 @@ axes.  Under that rule:
   on its own shard and the shared weights' gradients are summed by
   :func:`copy_to`, 1 where every rank holds the same term;
 * :func:`all_gather` — the group's pieces joined along a dim; the
-  gradient is this rank's piece of the (replicated) output's.
+  gradient is this rank's piece of the (replicated) output's;
+* :func:`reduce_scatter` — the group's sum cut along a dim, each rank
+  keeping its block; the gradient is the group's blocks of it joined
+  (an all-gather), :func:`all_gather`'s dual.
 
 The tensor-parallel dense layers (Megatron's f / g: :func:`copy_to` on
 a block's input, :func:`reduce_from` on its output) run on a rank's
@@ -63,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_to_all", "copy_to", "reduce_from", "pmean", "all_gather",
-           "TPGroup", "vocab_range", "vocab_embed", "vocab_logz",
+           "reduce_scatter", "TPGroup", "vocab_range", "vocab_embed", "vocab_logz",
            "vocab_gold",
            "softmax_combine", "softmax_combine_local", "gather_rows",
            "row_index", "local_at", "local_rows", "rows_placements",
@@ -172,16 +175,20 @@ def pmean(x: torch.Tensor, group, grad_scale: float = 1.0) -> torch.Tensor:
     return _PMean.apply(x, group, grad_scale)
 
 
+def _gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    xt = x.movedim(dim, 0).contiguous()
+    out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],
+                        *xt.shape[1:]))
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
         ctx.rank = dist.get_rank(group)
-        xt = x.movedim(dim, 0).contiguous()
-        out = xt.new_empty((dist.get_world_size(group) * xt.shape[0],
-                            *xt.shape[1:]))
-        dist.all_gather_into_tensor(out, xt, group=group)
-        return out.movedim(0, dim)
+        return _gather_along(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -192,6 +199,30 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's ``x`` joined along ``dim`` in rank order (every rank's
     piece the same shape); the gradient is this rank's piece."""
     return _AllGather.apply(x, group, dim)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((xt.shape[0] // dist.get_world_size(group),
+                            *xt.shape[1:]))
+        dist.reduce_scatter_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.group, ctx.dim), None, None
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of the sum of ``x`` over ``group``: dim ``dim``
+    of the sum cut into group-size equal blocks in rank order, rank r
+    keeping block r; the gradient is every rank's block of it joined
+    along ``dim`` (an all-gather: the output's gradient differs between
+    ranks, and each rank's ``x`` fed every block)."""
+    return _ReduceScatter.apply(x, group, dim)
 
 
 def vocab_range(vocab: int, size: int, rank: int) -> tuple[int, int]:

@@ -19,12 +19,12 @@ Griffin.  No Pallas kernel: every op is a torch op.
 On a mesh (``tp``, the rank's :class:`~repro_torch.dist.collectives.
 TPGroup` of 'model') the block computes on the rank's W / tp channels,
 as GSPMD partitions the reference's: its columns of ``wx``, ``wy`` and
-the conv, its ``lam``, its rows of both gates' (W, W) products and of
-``wo``.  The gates' partial products are packed and summed over the
-group (one collective), each rank keeps its channels' gates, and the
-scan and the conv are local; the output's partial product is summed
-too.  A decode step carries the rank's slice of the state and gathers
-nothing.
+the conv, its ``lam`` and gates' biases, its rows of both gates' (W, W)
+products and of ``wo``.  The gates' partial products are packed and
+reduce-scattered over the group (one collective), each rank receiving
+the sums of its channels' gates, and the scan and the conv are local;
+the output's partial product is summed.  A decode step carries the
+rank's slice of the state and gathers nothing.
 """
 
 from __future__ import annotations
@@ -73,11 +73,15 @@ def _gates(p: dict, x: torch.Tensor, tp=None
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """log(a_t) and input gate i_t, both (..., W) in fp32.
 
-    With ``tp``, ``x`` is the rank's (..., W / tp) channels and the
-    gates' weights its rows: both partial (..., W) products, packed, are
-    summed over the group with the whole biases, and the rank keeps its
-    channels of each (the sum's gradient is summed back by ``copy_to``,
-    so the biases' gradients are whole)."""
+    With ``tp``, ``x`` is the rank's (..., W / tp) channels, the gates'
+    weights its rows and their biases its W / tp channels: both partial
+    (..., W) products are packed so that block r holds rank r's
+    channels of each, (tp, 2, ..., W / tp), and reduce-scattered over the
+    group (the sum GSPMD makes of a product cut on its contracted dim
+    whose consumer is cut on channels); the rank adds its slices of the
+    biases.  The scatter's backward all-gathers the blocks' gradients,
+    so each rank's rows get the whole gradient; each bias slice's is the
+    rank's, assembled into the stored whole by the train step."""
     xf = x.float()
     if tp is None:
         r = torch.sigmoid(xf @ p["w_rec_gate"].float()
@@ -85,14 +89,13 @@ def _gates(p: dict, x: torch.Tensor, tp=None
         i = torch.sigmoid(xf @ p["w_input_gate"].float()
                           + p["b_input_gate"].float())
     else:
-        w, n = p["b_rec_gate"].shape[0], x.shape[-1]
-        both = torch.cat([xf @ p["w_rec_gate"].float(),
-                          xf @ p["w_input_gate"].float()], dim=-1)
-        both = C.copy_to(C.reduce_from(both, tp.group) + torch.cat(
-            [p["b_rec_gate"].float(), p["b_input_gate"].float()]), tp.group)
-        lo = tp.rank * n
-        r = torch.sigmoid(both[..., lo:lo + n])
-        i = torch.sigmoid(both[..., w + lo:w + lo + n])
+        n = x.shape[-1]
+        packed = torch.stack(
+            [(xf @ p[k].float()).unflatten(-1, (tp.size, n)).movedim(-2, 0)
+             for k in ("w_rec_gate", "w_input_gate")], dim=1)
+        rec, inp = C.reduce_scatter(packed, tp.group, dim=0)[0]
+        r = torch.sigmoid(rec + p["b_rec_gate"].float())
+        i = torch.sigmoid(inp + p["b_input_gate"].float())
     log_a = -_C * F.softplus(p["lam"].float()) * r
     return log_a, i
 

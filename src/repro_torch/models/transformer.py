@@ -30,9 +30,9 @@ stream whole on every rank of the axis, as GSPMD partitions the
 reference's; a decode step reads the attention caches cut on their
 sequence split-KV, and where tp does not divide H it projects on the
 attention weights' stored columns.  The RG-LRU computes on its W /
-tp channels and the xLSTM blocks' projections on their widths (the
-mLSTM core and the sLSTM recurrence whole in train and prefill); a
-decode step reads the RG-LRU's state and the mLSTM's matrix memory cut
+tp channels and the xLSTM blocks' projections on their widths, the
+mLSTM's chunked core on its key dims (only the sLSTM recurrence, h @
+w_rec, whole in train and prefill); a decode step reads the RG-LRU's state and the mLSTM's matrix memory cut
 as the layer computes (:func:`state_slices`).  A recurrent layer's
 prefill by-product is its final state, which is already the decode
 cache; its decode step returns a new state, where attention layers
@@ -458,16 +458,20 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
     * ``mlp.wi`` / ``mlp.wg`` / ``mlp.wo``: columns / rows cut when
       every dense MLP's F % tp == 0;
     * ``rglru.*`` when every RG-LRU's W % tp == 0: ``wx``, ``wy``,
-      ``conv_w`` columns and ``conv_b``, ``lam`` on the rank's W / tp
-      channels; ``w_input_gate``, ``w_rec_gate`` and ``wo`` rows (the
-      gates' partial products summed over 'model'); the gates' biases
-      whole, added after the sum;
+      ``conv_w`` columns and ``conv_b``, ``lam``, ``b_input_gate``,
+      ``b_rec_gate`` on the rank's W / tp channels; ``w_input_gate``,
+      ``w_rec_gate`` and ``wo`` rows (the gates' partial products
+      reduce-scattered over 'model' onto the rank's channels, its bias
+      slices added after);
     * ``mlstm.*`` / ``slstm.*`` when D, the mLSTM's inner width Di and
-      its head dim divide: ``mlstm.w_up`` and ``slstm.w_up`` columns
-      (the product gathered over 'model'), ``mlstm.wq`` / ``wk`` / ``wv`` /
-      ``w_igate`` / ``w_fgate`` / ``w_down`` and ``slstm.w_down`` rows;
-      the biases and norms whole; the sLSTM's ``w_in``, ``w_rec`` and
-      ``b`` whole in train and prefill (its recurrence runs whole), and
+      its head dim divide: ``mlstm.w_up``, ``slstm.w_up`` and
+      ``slstm.w_in`` columns (the product gathered over 'model'),
+      ``mlstm.wq`` / ``wk`` / ``wv`` / ``w_igate`` / ``w_fgate`` /
+      ``w_down`` and ``slstm.w_down`` rows; the mLSTM's chunked core on
+      the rank's Dh / tp key dims of every head (its partial (num, den)
+      summed over 'model'); the biases and norms whole; the sLSTM's
+      ``w_rec`` and ``b`` whole in train and prefill (its recurrence,
+      ``h @ w_rec``, runs whole on the gathered input product), and
       with ``decode`` on their 4D columns: a decode step computes the
       rank's columns of the pre-activations and gathers them.
 
@@ -513,15 +517,15 @@ def dense_mesh_layout(cfg: ArchConfig, mesh, *, decode: bool = False
         out.update({"rglru.wx": cols, "rglru.wy": cols,
                     "rglru.conv_w": cols, "rglru.conv_b": chans,
                     "rglru.lam": chans, "rglru.w_input_gate": rows,
-                    "rglru.w_rec_gate": rows, "rglru.wo": rows})
+                    "rglru.w_rec_gate": rows, "rglru.b_input_gate": chans,
+                    "rglru.b_rec_gate": chans, "rglru.wo": rows})
     if cuts["xlstm"]:
         out.update({f"mlstm.{n}": rows for n in (
             "wq", "wk", "wv", "w_igate", "w_fgate", "w_down")})
         out.update({"mlstm.w_up": cols, "slstm.w_up": cols,
-                    "slstm.w_down": rows})
+                    "slstm.w_down": rows, "slstm.w_in": cols})
         if decode:
-            out.update({"slstm.w_in": cols, "slstm.w_rec": cols,
-                        "slstm.b": chans})
+            out.update({"slstm.w_rec": cols, "slstm.b": chans})
     return out
 
 
@@ -644,8 +648,10 @@ def _apply_layer_train(p: dict, x: torch.Tensor, cfg: ArchConfig,
         if tp is not None and ctx.mode == "prefill":
             raw = REC.state_whole(raw, tp)
     elif spec.kind == "mlstm":
-        mix, raw = XL.mlstm_train(p["mixer"], h, _xlstm_spec(cfg),
-                                  tp=_mixer_cut(cfg, ctx, spec.kind))
+        tp = _mixer_cut(cfg, ctx, spec.kind)
+        mix, raw = XL.mlstm_train(p["mixer"], h, _xlstm_spec(cfg), tp=tp)
+        if tp is not None and ctx.mode == "prefill":
+            raw = XL.mlstm_state_whole(raw, tp)
     elif spec.kind == "slstm":
         mix, raw = XL.slstm_train(p["mixer"], h, _xlstm_spec(cfg),
                                   tp=_mixer_cut(cfg, ctx, spec.kind))

@@ -8,9 +8,10 @@
     ``m_pos = max(m_0, cummax(ig - cum)) + cum``.  Prefill follows the
     reference's arithmetic chunk for chunk; decode is the step
     recurrence.
-  * sLSTM — a loop over time (the recurrence is non-associative
-    because of the max-stabiliser state), vector ops and two small
-    products a step.  The sequence runs inside one torch op,
+  * sLSTM — the input product x @ w_in over the whole sequence at
+    once, then a loop over time (the recurrence is non-associative
+    because of the max-stabiliser state), vector ops and one small
+    product (h @ w_rec) a step.  The loop runs inside one torch op,
     ``repro_torch::slstm_scan`` (the reference's one ``lax.scan``
     body), with a hand-written backward op, so that a trace meets it
     once a layer; the plain loop ``slstm_train_loop`` is its yardstick.
@@ -25,11 +26,15 @@ weights cut as the reference stores them: an up-projection on the
 rank's columns, gathered over the group (one all-gather), each rank
 taking its slices of both halves; the row-cut products summed over the
 group (the mLSTM's q, k, v and gates packed in one all-reduce; each
-down-projection's output).  The mLSTM's chunked core and the sLSTM's
-recurrence run whole on every rank in train and prefill.  A decode
-step's mLSTM reads its matrix memory cut on the key dim and sums its
-(num, den) partials over the group; its sLSTM takes the rank's columns
-of the pre-activations and gathers them, so that no weight is gathered.
+down-projection's output).  The mLSTM's chunked core runs on the
+rank's key dims of q, k and its matrix memory, its partial (num, den)
+summed over the group before the division, in train, prefill and
+decode alike.  The sLSTM's input product x @ w_in is hoisted out of its
+recurrence and computed on the rank's columns of ``w_in``, then
+gathered; in train and prefill the recurrence itself (h @ w_rec) runs
+whole on every rank, while a decode step takes the rank's columns of
+``w_rec`` and ``b`` too and gathers the pre-activations, so that no
+weight is gathered.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ __all__ = [
     "slstm_defs", "slstm_train", "slstm_train_loop", "slstm_decode",
     "slstm_scan", "slstm_scan_flops", "slstm_scan_backward_flops",
     "MLSTMState", "SLSTMState", "init_mlstm_state", "init_slstm_state",
+    "mlstm_state_whole",
 ]
 
 
@@ -97,10 +103,15 @@ class MLSTMState:
 
 def init_mlstm_state(batch: int, s: XLSTMSpec,
                      device: torch.device | str = "cpu") -> MLSTMState:
-    h, dh = s.n_heads, s.head_dim
+    return _zero_mlstm(batch, s.n_heads, s.head_dim, s.head_dim, device)
+
+
+def _zero_mlstm(batch: int, h: int, dk: int, dh: int,
+                device: torch.device | str) -> MLSTMState:
+    """The initial state on ``dk`` key dims of each head's memory."""
     f32 = dict(dtype=torch.float32, device=device)
-    return MLSTMState(torch.zeros((batch, h, dh, dh), **f32),
-                      torch.zeros((batch, h, dh), **f32),
+    return MLSTMState(torch.zeros((batch, h, dk, dh), **f32),
+                      torch.zeros((batch, h, dk), **f32),
                       torch.full((batch, h), -1e30, **f32))
 
 
@@ -125,7 +136,10 @@ def _mlstm_qkv(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None):
     ``wv``, ``w_igate`` and ``w_fgate``): the rank's Di / tp slices of u
     and z (:func:`_halves`), and q, k, v and the gates whole, their
     partial products packed and summed over the group; z is the rank's
-    (B, S, Di / tp)."""
+    (B, S, Di / tp).  The core reads the rank's key dims of q and k
+    beside the whole v and gates, so their gradients are the rank's
+    partials: summed over the group (``copy_to`` on the packed sum, and
+    on the gates' biases, added after it)."""
     b, sl, _ = x.shape
     hd = (b, sl, s.n_heads, s.head_dim)
     if tp is None:
@@ -139,18 +153,23 @@ def _mlstm_qkv(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None):
     else:
         u, z = _halves(linear(C.copy_to(x, tp.group), p["w_up"]), tp)
         di, h = s.d_inner, s.n_heads
-        # contiguous, as one device's: the chunked core's products
-        # would otherwise copy strided views chunk by chunk
-        q, k, v, ig, fg = (t.contiguous() for t in C.reduce_from(torch.cat(
+        both = C.reduce_from(torch.cat(
             [linear(u, p["wq"]), linear(u, p["wk"]), linear(u, p["wv"]),
              torch.einsum("bsd,dh->bsh", u, p["w_igate"]),
              torch.einsum("bsd,dh->bsh", u, p["w_fgate"])], dim=-1),
-            tp.group).split([di, di, di, h, h], dim=-1))
+            tp.group)
+        # contiguous, as one device's: the chunked core's products
+        # would otherwise copy strided views chunk by chunk
+        q, k, v, ig, fg = (t.contiguous() for t in C.copy_to(
+            both, tp.group).split([di, di, di, h, h], dim=-1))
+    b_i, b_f = p["b_igate"], p["b_fgate"]
+    if tp is not None:
+        b_i, b_f = C.copy_to(torch.stack([b_i, b_f]), tp.group)
     q = q.reshape(hd)
     k = k.reshape(hd) * (s.head_dim ** -0.5)
     v = v.reshape(hd)
-    ig = (ig + p["b_igate"]).float()
-    fg = (fg + p["b_fgate"]).float()
+    ig = (ig + b_i).float()
+    fg = (fg + b_f).float()
     return q, k, v, ig, fg, z
 
 
@@ -169,9 +188,14 @@ def _mlstm_out(p: dict, out: torch.Tensor, z: torch.Tensor, tp
 
 
 def _mlstm_chunk(state: MLSTMState, qi, ki, vi, igi, fgi
-                 ) -> tuple[MLSTMState, torch.Tensor]:
+                 ) -> tuple[MLSTMState, torch.Tensor, torch.Tensor]:
     """One chunk of the parallel form: inputs (B, ch, H, ...) in fp32;
-    returns the state at the chunk's end and its (B, ch, H, Dh) output."""
+    returns the state at the chunk's end and the output's numerator
+    (B, ch, H, Dh) and signed denominator (B, ch, H) before the
+    division.  ``qi``, ``ki`` and ``state.c`` / ``state.n`` may hold a
+    slice of the key dims (dim 3, dim 2): then the numerator, the
+    denominator and the state are that slice's terms, linear in it
+    (the sum of every slice's is the whole's), and ``m`` is whole."""
     ch = qi.shape[1]
     logf = F.logsigmoid(fgi)                 # (B, ch, H)
     cum = torch.cumsum(logf, dim=1)          # inclusive prefix of log-forgets
@@ -199,8 +223,7 @@ def _mlstm_chunk(state: MLSTMState, qi, ki, vi, igi, fgi
     inter = torch.einsum("bthd,bhde,bth->bthe", qi, state.c, qdec)
     norm_inter = torch.einsum("bthd,bhd,bth->bth", qi, state.n, qdec)
     num = intra + inter
-    den = torch.abs(norm_intra + norm_inter)
-    out = num / torch.clamp(den, min=1.0)[..., None]
+    den = norm_intra + norm_inter
     # state update to the chunk end (stabilised by m_last)
     decay = torch.exp(state.m + total - m_last)          # (B, H)
     kdec = torch.exp(igi + total[:, None] - cum - m_last[:, None])
@@ -208,7 +231,21 @@ def _mlstm_chunk(state: MLSTMState, qi, ki, vi, igi, fgi
         "bthd,bthe,bth->bhde", ki, vi, kdec)
     n_new = state.n * decay[..., None] + torch.einsum(
         "bthd,bth->bhd", ki, kdec)
-    return MLSTMState(c_new, n_new, m_last), out
+    return MLSTMState(c_new, n_new, m_last), num, den
+
+
+def _mlstm_divide(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """The output from the summed numerator and signed denominator."""
+    return num / torch.clamp(torch.abs(den), min=1.0)[..., None]
+
+
+def mlstm_state_whole(state: MLSTMState, tp) -> MLSTMState:
+    """The whole state from each rank's key dims of ``c`` and ``n``
+    (dim 2), gathered over ``tp``'s group (a prefill returns its caches
+    whole); ``m`` is whole already."""
+    return MLSTMState(C.all_gather(state.c, tp.group, dim=2).contiguous(),
+                      C.all_gather(state.n, tp.group, dim=2).contiguous(),
+                      state.m)
 
 
 def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
@@ -218,10 +255,21 @@ def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
     Returns (out, final state) — the state seeds decode.  The sequence
     is zero-padded to whole chunks, as in the reference (a padded
     position still moves the final state).  With ``tp`` the
-    projections compute on the rank's widths and the core whole: the
-    state is whole."""
+    projections compute on the rank's widths and the chunked core on
+    the rank's Dh / tp key dims of q and k in every head (v and the
+    gates whole; the 'model' axis cuts an xLSTM only where it divides
+    Dh, ``transformer._dense_cuts``, else the mixer runs whole): its
+    scores, inter-chunk products and state are the slice's, the
+    intra-chunk product of its partial scores with v runs on each rank,
+    and the packed partial (num, den) of every chunk is summed over the
+    group once, before the division.  The state is the rank's key dims
+    of ``c`` and ``n`` (:func:`mlstm_state_whole` gathers them)."""
     b, sl, _ = x.shape
     q, k, v, ig, fg, z = _mlstm_qkv(p, x, s, tp)
+    dk = s.head_dim
+    if tp is not None:
+        dk //= tp.size
+        q, k = (t[..., tp.rank * dk:(tp.rank + 1) * dk] for t in (q, k))
     ch = min(s.chunk, sl)
     nc = -(-sl // ch)
     pad = nc * ch - sl
@@ -233,14 +281,20 @@ def mlstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
         return t
 
     q, k, v, ig, fg = (pad_t(t) for t in (q, k, v, ig, fg))
-    state = init_mlstm_state(b, s, x.device)
-    outs = []
+    state = _zero_mlstm(b, s.n_heads, dk, s.head_dim, x.device)
+    nums, dens = [], []
     for c in range(nc):
         sl_c = slice(c * ch, (c + 1) * ch)
-        state, out = _mlstm_chunk(state, q[:, sl_c], k[:, sl_c],
-                                  v[:, sl_c], ig[:, sl_c], fg[:, sl_c])
-        outs.append(out)
-    out = torch.cat(outs, dim=1).reshape(b, nc * ch, s.d_inner)
+        state, num, den = _mlstm_chunk(state, q[:, sl_c], k[:, sl_c],
+                                       v[:, sl_c], ig[:, sl_c], fg[:, sl_c])
+        nums.append(num)
+        dens.append(den)
+    num, den = torch.cat(nums, dim=1), torch.cat(dens, dim=1)
+    if tp is not None:
+        both = C.reduce_from(torch.cat([num, den[..., None]], dim=-1),
+                             tp.group)
+        num, den = both[..., :-1], both[..., -1]
+    out = _mlstm_divide(num, den).reshape(b, nc * ch, s.d_inner)
     out = out[:, :sl].to(x.dtype)
     return _mlstm_out(p, out, z, tp), state
 
@@ -276,9 +330,7 @@ def mlstm_decode(p: dict, x: torch.Tensor, s: XLSTMSpec, state: MLSTMState,
         both = C.reduce_from(torch.cat([num, den[..., None]], dim=-1),
                              tp.group)
         num, den = both[..., :-1], both[..., -1]
-    den = torch.abs(den)
-    out = (num / torch.clamp(den, min=1.0)[..., None]).reshape(
-        b, 1, s.d_inner)
+    out = _mlstm_divide(num, den).reshape(b, 1, s.d_inner)
     return _mlstm_out(p, out.to(x.dtype), z, tp), \
         MLSTMState(c_new, n_new, m_new)
 
@@ -320,12 +372,13 @@ def _zero_state(batch: int, d: int, device: torch.device | str
                                           dtype=torch.float32, device=device))
 
 
-def _slstm_step(xt: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
-                b: torch.Tensor, st: SLSTMState
-                ) -> tuple[SLSTMState, torch.Tensor]:
-    """One sLSTM step on fp32 operands; xt (B, D).  Returns the new
-    state and the pre-activations (B, 4D)."""
-    pre = xt @ w_in + st.h @ w_rec + b
+def _slstm_step(xw_t: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
+                st: SLSTMState) -> tuple[SLSTMState, torch.Tensor]:
+    """One sLSTM step on fp32 operands from the input part of its
+    pre-activations, xw_t = x_t @ w_in (B, 4D), in the reference's order
+    (x_t @ w_in + h @ w_rec, then b).  Returns the new state and the
+    pre-activations (B, 4D)."""
+    pre = xw_t + st.h @ w_rec + b
     return _slstm_gates(pre, st), pre
 
 
@@ -345,9 +398,22 @@ def _slstm_gates(pre: torch.Tensor, st: SLSTMState) -> SLSTMState:
 def _slstm_cell(p: dict, xt: torch.Tensor, st: SLSTMState
                 ) -> tuple[SLSTMState, torch.Tensor]:
     """One sLSTM step; xt (B, D) fp32."""
-    st, _ = _slstm_step(xt, p["w_in"].float(), p["w_rec"].float(),
+    st, _ = _slstm_step(xt @ p["w_in"].float(), p["w_rec"].float(),
                         p["b"].float(), st)
     return st, st.h
+
+
+def _slstm_xw(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The input part of every step's pre-activations, x @ w_in
+    (B, S, 4D) in fp32, hoisted out of the recurrence as one product;
+    with ``tp`` the rank's 4D / tp columns of it (``w_in``'s stored
+    columns; ``x``'s gradient summed over the group) gathered over the
+    group, one all-gather a layer."""
+    if tp is None:
+        return x.float() @ p["w_in"].float()
+    xw = C.copy_to(x, tp.group).float() @ p["w_in"].float()
+    # contiguous, as one device's: the step reads it a column at a time
+    return C.all_gather(xw, tp.group, dim=-1).contiguous()
 
 
 def _slstm_out(p: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
@@ -364,27 +430,32 @@ def _slstm_out(p: dict, h: torch.Tensor, tp=None) -> torch.Tensor:
 
 def slstm_train(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
                 ) -> tuple[torch.Tensor, SLSTMState]:
-    """The sLSTM over the whole sequence through one
-    ``repro_torch::slstm_scan`` op (:func:`slstm_scan`); with ``tp`` the
-    recurrence runs whole (``w_in``, ``w_rec`` and ``b`` whole) and the
-    output projections on the rank's widths."""
-    hs, st = slstm_scan(x.float(), p["w_in"].float(), p["w_rec"].float(),
+    """The sLSTM over the whole sequence: the input product x @ w_in
+    hoisted out of the recurrence (:func:`_slstm_xw`), then one
+    ``repro_torch::slstm_scan`` op (:func:`slstm_scan`) over it.  With
+    ``tp`` the input product computes on the rank's columns of ``w_in``
+    and is gathered; the recurrence (``h @ w_rec``, ``w_rec`` and ``b``
+    whole) runs whole on every rank, and the output projections on the
+    rank's widths."""
+    hs, st = slstm_scan(_slstm_xw(p, x, tp), p["w_rec"].float(),
                         p["b"].float())
     return _slstm_out(p, hs.to(x.dtype), tp), st
 
 
 def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
                      ) -> tuple[torch.Tensor, SLSTMState]:
-    """The plain version of :func:`slstm_train`: a Python loop over time
-    (the recurrence is non-associative), differentiated by autograd.
-    The tests' yardstick; no model path calls it."""
+    """The plain version of :func:`slstm_train`: the same hoisted input
+    product, then a Python loop over time (the recurrence is
+    non-associative), differentiated by autograd.  The tests'
+    yardstick; no model path calls it."""
     b, sl, _ = x.shape
-    xf = x.float()
+    xw = _slstm_xw(p, x, tp)
+    w_rec, bias = p["w_rec"].float(), p["b"].float()
     st = init_slstm_state(b, s, x.device)
     hs = []
     for t in range(sl):
-        st, h = _slstm_cell(p, xf[:, t], st)
-        hs.append(h)
+        st, _ = _slstm_step(xw[:, t], w_rec, bias, st)
+        hs.append(st.h)
     return _slstm_out(p, torch.stack(hs, dim=1).to(x.dtype), tp), st
 
 
@@ -392,27 +463,30 @@ def slstm_train_loop(p: dict, x: torch.Tensor, s: XLSTMSpec, tp=None
 # The sLSTM recurrence as one torch op, with a hand-written backward
 # ---------------------------------------------------------------------------
 
-def slstm_scan(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
-               b: torch.Tensor) -> tuple[torch.Tensor, SLSTMState]:
-    """``(hs (B, S, D), final state)`` of the sLSTM over ``x (B, S, D)``
-    from :func:`init_slstm_state`, with ``w_in``, ``w_rec`` (D, 4D) and
-    ``b`` (4D,): the step loop of :func:`slstm_train_loop`, in the same
-    order, inside the op ``repro_torch::slstm_scan`` (bitwise equal to
-    the loop on the same device).
+def slstm_scan(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor
+               ) -> tuple[torch.Tensor, SLSTMState]:
+    """``(hs (B, S, D), final state)`` of the sLSTM from
+    :func:`init_slstm_state` over the input part of its pre-activations
+    ``xw (B, S, 4D)`` (x @ w_in, :func:`_slstm_xw`), with ``w_rec``
+    (D, 4D) and ``b`` (4D,): the step loop of :func:`slstm_train_loop`,
+    in the same order, inside the op ``repro_torch::slstm_scan``
+    (bitwise equal to the loop on the same device for the same ``xw``).
 
     A trace meets the op once, whatever the sequence length; its FLOP
-    formula counts the loop's two products a step, and its backward is
-    the op ``repro_torch::slstm_scan_backward``.  Under grad the op also
-    returns what the backward needs: the pre-activations (B, S, 4D) and
-    the states c, n, m of every step (B, S, D); the backward recomputes
-    the gates from them elementwise and no product of the forward.
+    formula counts the loop's one product a step (h @ w_rec), and its
+    backward is the op ``repro_torch::slstm_scan_backward``, which
+    returns the gradient of ``xw`` (the pre-activations') for the
+    hoisted product's own backward.  Under grad the op also returns
+    what the backward needs: the pre-activations (B, S, 4D) and the
+    states c, n, m of every step (B, S, D); the backward recomputes the
+    gates from them elementwise and no product of the forward.
 
     Raises on a DTensor, a dtype other than float32, operands on
     different devices or shapes that do not fit; nothing falls back to
     another path."""
     from torch.distributed.tensor import DTensor
 
-    args = {"x": x, "w_in": w_in, "w_rec": w_rec, "b": b}
+    args = {"xw": xw, "w_rec": w_rec, "b": b}
     for name, t in args.items():
         if isinstance(t, DTensor):
             raise TypeError(f"slstm_scan: {name} is a DTensor; pass the "
@@ -420,15 +494,14 @@ def slstm_scan(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
         if t.dtype != torch.float32:
             raise TypeError(f"slstm_scan: {name} is {t.dtype}, not "
                             "float32")
-        if t.device != x.device:
-            raise ValueError(f"slstm_scan: {name} on {t.device}, x on "
-                             f"{x.device}")
-    if x.ndim != 3 or x.shape[1] == 0:
-        raise ValueError(f"slstm_scan: x must be (B, S >= 1, D), got "
-                         f"{tuple(x.shape)}")
-    d = x.shape[2]
-    for name, t, shape in (("w_in", w_in, (d, 4 * d)),
-                           ("w_rec", w_rec, (d, 4 * d)),
+        if t.device != xw.device:
+            raise ValueError(f"slstm_scan: {name} on {t.device}, xw on "
+                             f"{xw.device}")
+    if xw.ndim != 3 or xw.shape[1] == 0 or xw.shape[2] % 4:
+        raise ValueError(f"slstm_scan: xw must be (B, S >= 1, 4D), got "
+                         f"{tuple(xw.shape)}")
+    d = xw.shape[2] // 4
+    for name, t, shape in (("w_rec", w_rec, (d, 4 * d)),
                            ("b", b, (4 * d,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"slstm_scan: {name} is {tuple(t.shape)}, "
@@ -436,19 +509,19 @@ def slstm_scan(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in args.values())
     hs, c, n, h, m, *_ = torch.ops.repro_torch.slstm_scan(
-        x, w_in, w_rec, b, keep)
+        xw, w_rec, b, keep)
     return hs, SLSTMState(c, n, h, m)
 
 
 def slstm_scan_flops(b: int, s: int, d: int) -> int:
-    """The forward's operations: two (B, D) @ (D, 4D) products a step."""
-    return 16 * b * s * d * d
+    """The forward's operations: one (B, D) @ (D, 4D) product a step."""
+    return 8 * b * s * d * d
 
 
 def slstm_scan_backward_flops(b: int, s: int, d: int) -> int:
-    """The backward's: the gradients of w_in, w_rec and x (8BD² a step
-    each), and of the previous h at every step but the first."""
-    return 32 * b * s * d * d - 8 * b * d * d
+    """The backward's: the gradient of w_rec (8BD² a step), and of the
+    previous h at every step but the first."""
+    return 16 * b * s * d * d - 8 * b * d * d
 
 
 _Tensors9 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
@@ -457,18 +530,19 @@ _Tensors9 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
-def _slstm_scan_op(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
-                   b: torch.Tensor, keep: bool) -> _Tensors9:
+def _slstm_scan_op(xw: torch.Tensor, w_rec: torch.Tensor, b: torch.Tensor,
+                   keep: bool) -> _Tensors9:
     """``(hs, c, n, h, m, pre, cs, ns, ms)``: the outputs, the final
     state and, with ``keep``, the backward's saved tensors (else empty)."""
-    bsz, sl, d = x.shape
-    st = _zero_state(bsz, d, x.device)
-    hs = x.new_empty((bsz, sl, d))
+    bsz, sl, d4 = xw.shape
+    d = d4 // 4
+    st = _zero_state(bsz, d, xw.device)
+    hs = xw.new_empty((bsz, sl, d))
     if keep:
-        pre_s = x.new_empty((bsz, sl, 4 * d))
-        cs, ns, ms = (x.new_empty((bsz, sl, d)) for _ in range(3))
+        pre_s = xw.new_empty((bsz, sl, d4))
+        cs, ns, ms = (xw.new_empty((bsz, sl, d)) for _ in range(3))
     for t in range(sl):
-        st, pre = _slstm_step(x[:, t], w_in, w_rec, b, st)
+        st, pre = _slstm_step(xw[:, t], w_rec, b, st)
         hs[:, t] = st.h
         if keep:
             pre_s[:, t] = pre
@@ -476,44 +550,47 @@ def _slstm_scan_op(x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
             ns[:, t] = st.n
             ms[:, t] = st.m
     if not keep:
-        pre_s, cs, ns, ms = (x.new_empty((0,)) for _ in range(4))
+        pre_s, cs, ns, ms = (xw.new_empty((0,)) for _ in range(4))
     return (hs, st.c.clone(), st.n.clone(), st.h.clone(), st.m.clone(),
             pre_s, cs, ns, ms)
 
 
 @_slstm_scan_op.register_fake
-def _(x, w_in, w_rec, b, keep):
-    bsz, sl, d = x.shape
-    state = [x.new_empty((bsz, d)) for _ in range(4)]
+def _(xw, w_rec, b, keep):
+    bsz, sl, d4 = xw.shape
+    d = d4 // 4
+    state = [xw.new_empty((bsz, d)) for _ in range(4)]
     if keep:
-        saved = [x.new_empty((bsz, sl, 4 * d))] + [
-            x.new_empty((bsz, sl, d)) for _ in range(3)]
+        saved = [xw.new_empty((bsz, sl, d4))] + [
+            xw.new_empty((bsz, sl, d)) for _ in range(3)]
     else:
-        saved = [x.new_empty((0,)) for _ in range(4)]
-    return (x.new_empty((bsz, sl, d)), *state, *saved)
+        saved = [xw.new_empty((0,)) for _ in range(4)]
+    return (xw.new_empty((bsz, sl, d)), *state, *saved)
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan)
-def _slstm_scan_op_flops(x_shape, *args, out_shape=None, **kwargs) -> int:
-    return slstm_scan_flops(*x_shape)
+def _slstm_scan_op_flops(xw_shape, *args, out_shape=None, **kwargs) -> int:
+    b, s, d4 = xw_shape
+    return slstm_scan_flops(b, s, d4 // 4)
 
 
 @torch.library.custom_op("repro_torch::slstm_scan_backward", mutates_args=())
 def _slstm_scan_backward_op(
-        x: torch.Tensor, w_in: torch.Tensor, w_rec: torch.Tensor,
-        hs: torch.Tensor, pre_s: torch.Tensor, cs: torch.Tensor,
-        ns: torch.Tensor, ms: torch.Tensor, dhs: torch.Tensor | None,
-        dc: torch.Tensor | None, dn: torch.Tensor | None,
-        dh: torch.Tensor | None, dm: torch.Tensor | None
-        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dx, dw_in, dw_rec, db)`` from the gradients of ``hs`` and of the
+        hs: torch.Tensor, w_rec: torch.Tensor, pre_s: torch.Tensor,
+        cs: torch.Tensor, ns: torch.Tensor, ms: torch.Tensor,
+        dhs: torch.Tensor | None, dc: torch.Tensor | None,
+        dn: torch.Tensor | None, dh: torch.Tensor | None,
+        dm: torch.Tensor | None
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dxw, dw_rec, db)`` from the gradients of ``hs`` and of the
     final state (``None`` is zero), walking t = S-1 ... 0 with the
-    gradients of the state carried from step t+1.  The rules at the
-    edges are autograd's through the loop: ``torch.clamp(n, min=1)``
-    passes the gradient where n >= 1, ``torch.maximum(a, i)`` splits it
-    evenly at a tie."""
-    bsz, sl, d = x.shape
-    zero = x.new_zeros((bsz, d))
+    gradients of the state carried from step t+1; ``dxw`` is the
+    pre-activations' gradient (B, S, 4D).  The rules at the edges are
+    autograd's through the loop: ``torch.clamp(n, min=1)`` passes the
+    gradient where n >= 1, ``torch.maximum(a, i)`` splits it evenly at
+    a tie."""
+    bsz, sl, d = hs.shape
+    zero = hs.new_zeros((bsz, d))
     dh, dc, dn, dm = (zero if g is None else g for g in (dh, dc, dn, dm))
     dpre = torch.empty_like(pre_s)
     w_rec_t = w_rec.t()
@@ -558,32 +635,30 @@ def _slstm_scan_backward_op(
         dpre[:, t] = dpre_t
         if t:
             dh = dpre_t @ w_rec_t
-    # the products of the whole sequence at once: h' is 0 at t = 0
+    # the product of the whole sequence at once: h' is 0 at t = 0
     h_prev = torch.cat([zero[:, None], hs[:, :-1]], dim=1)
-    dpre = dpre.reshape(bsz * sl, 4 * d)
-    dx = (dpre @ w_in.t()).reshape(bsz, sl, d)
-    dw_in = x.reshape(bsz * sl, d).t() @ dpre
-    dw_rec = h_prev.reshape(bsz * sl, d).t() @ dpre
-    return dx, dw_in, dw_rec, dpre.sum(0)
+    flat = dpre.reshape(bsz * sl, 4 * d)
+    dw_rec = h_prev.reshape(bsz * sl, d).t() @ flat
+    return dpre, dw_rec, flat.sum(0)
 
 
 @_slstm_scan_backward_op.register_fake
-def _(x, w_in, w_rec, hs, pre_s, cs, ns, ms, dhs, dc, dn, dh, dm):
-    return (torch.empty_like(x), torch.empty_like(w_in),
-            torch.empty_like(w_rec), x.new_empty((w_in.shape[1],)))
+def _(hs, w_rec, pre_s, cs, ns, ms, dhs, dc, dn, dh, dm):
+    return (torch.empty_like(pre_s), torch.empty_like(w_rec),
+            hs.new_empty((w_rec.shape[1],)))
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan_backward)
-def _slstm_scan_backward_op_flops(x_shape, *args, out_shape=None,
+def _slstm_scan_backward_op_flops(hs_shape, *args, out_shape=None,
                                   **kwargs) -> int:
-    return slstm_scan_backward_flops(*x_shape)
+    return slstm_scan_backward_flops(*hs_shape)
 
 
 def _slstm_scan_setup(ctx, inputs, output) -> None:
-    x, w_in, w_rec, _, keep = inputs
+    _, w_rec, _, keep = inputs
     hs, *_, pre_s, cs, ns, ms = output
     ctx.keep = keep
-    ctx.save_for_backward(x, w_in, w_rec, hs, pre_s, cs, ns, ms)
+    ctx.save_for_backward(hs, w_rec, pre_s, cs, ns, ms)
     ctx.mark_non_differentiable(pre_s, cs, ns, ms)
     ctx.set_materialize_grads(False)
 
@@ -593,9 +668,9 @@ def _slstm_scan_grad(ctx, dhs, dc, dn, dh, dm, *_):
         raise RuntimeError("slstm_scan: the op ran without keeping its "
                            "backward's tensors (keep=False); call it "
                            "through slstm_scan under grad")
-    dx, dw_in, dw_rec, db = torch.ops.repro_torch.slstm_scan_backward(
+    dxw, dw_rec, db = torch.ops.repro_torch.slstm_scan_backward(
         *ctx.saved_tensors, dhs, dc, dn, dh, dm)
-    return dx, dw_in, dw_rec, db, None
+    return dxw, dw_rec, db, None
 
 
 _slstm_scan_op.register_autograd(_slstm_scan_grad,

@@ -18,7 +18,10 @@ ops, and the three examples, on the CPU.
   sLSTM is one op a layer (``repro_torch::slstm_scan``, its backward
   op once), so its layers dispatch the same ops at both lengths, and
   the traced FLOPs at 256 equal ``FlopCounterMode``'s count of the
-  plain loop;
+  plain loop, less the other ranks' share of every cut product (the
+  projections, the sLSTM's hoisted input product and the mLSTM core's
+  key-dim terms), on the 2-way 'model' axis here and, in a subprocess,
+  a 4-way one;
 * the kernels' torch ops on fake CUDA tensors: their fake outputs
   against the plain versions' shapes and types, and a fake-CUDA trace
   of stablelm's smoke prefill that dispatches ``repro_torch::
@@ -320,10 +323,14 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     the functions take their rows whole (``collectives.local_rows``).
     A train step gathers the weights computed whole and stored cut, and
     nothing else but for the MoE's expert-parallel exchange (DTensor's
-    all-to-all gathers on a CPU mesh), whisper's frame embeddings and
-    the xLSTM blocks' up-projections (one gather a layer, in the forward
-    and in the remat's recompute); a prefill gathers at least its
-    logits, a decode step its logits."""
+    all-to-all gathers on a CPU mesh), whisper's frame embeddings, the
+    xLSTM blocks' up-projections and the sLSTM's input product (one
+    gather each a layer, in the forward and in the remat's recompute)
+    and, for each RG-LRU layer, the backward of its gates'
+    reduce-scatter and the gradients of the gates' biases assembled
+    from the ranks' channels; a prefill gathers at least its logits, a
+    decode step its logits.  An RG-LRU layer reduce-scatters its gates
+    once a forward (twice a train step: the remat's recompute)."""
     cfg = get_smoke_config(arch)
     rec = D.run_cell(arch, kind, False, device="cpu", cfg=cfg,
                      shape=_smoke_shape(kind), mesh=fake_mesh)
@@ -333,14 +340,19 @@ def test_every_arch_traces_its_smoke_cells(fake_mesh, arch, kind):
     if kind == "train_4k":
         model = build_model(cfg)
         whole = _whole_but_stored_cut(model, cfg, fake_mesh)
-        up = 2 * sum(s.kind in ("mlstm", "slstm")
-                     for s in getattr(model, "plan", []))
+        kinds = [s.kind for s in getattr(model, "plan", [])]
+        up = 2 * sum(k in ("mlstm", "slstm") for k in kinds) \
+            + 2 * kinds.count("slstm") + 3 * kinds.count("rglru")
         if cfg.n_experts or cfg.family == "audio":
             assert gathers >= whole
         else:
             assert gathers == whole + up
     else:
         assert gathers > 0
+    n_rglru = sum(s.kind == "rglru" for s in getattr(build_model(cfg),
+                                                       "plan", []))
+    scatters = rec["collectives"]["reduce-scatter"]["count"]
+    assert scatters >= n_rglru * (2 if kind == "train_4k" else 1)
     assert rec["memory"]["peak_bytes"] > rec["memory"]["argument_bytes"]
 
 
@@ -627,37 +639,52 @@ def test_xlstm_trace_does_not_grow_with_the_sequence(xlstm_traces, kind):
     assert grown < chunks * 256 * 15 * n_slstm
 
 
-def _xlstm_other_half(cfg, n: int, kind: str) -> int:
-    """The FLOPs of the xLSTM blocks' products that a 2-way 'model' axis
-    leaves to the other rank, on rank 0's ``n`` tokens: half of every
+def _xlstm_other_half(cfg, n: int, kind: str, tp: int = 2,
+                      rows: int = 2, cores: bool = True) -> int:
+    """The FLOPs of the xLSTM blocks' products that a ``tp``-way 'model'
+    axis leaves to the other ranks, (tp - 1) / tp of each, on rank 0's
+    ``n`` tokens in ``rows`` rows of one mLSTM chunk each: every
     projection (the mLSTM's w_up, wq, wk, wv, its gates' and w_down, the
-    sLSTM's w_up and w_down: each on its columns or rows); in training
-    the forward's, the remat's recompute but for w_down (the recompute
-    stops at its last saved tensor) and the backward's two products."""
+    sLSTM's w_up, w_down and its hoisted input product x @ w_in: each
+    on its columns or rows) and the mLSTM core's key-dim terms (the
+    scores q·k, the inter-chunk q·C and q·n, the state's C and n; the
+    intra-chunk product of the scores with v runs on every rank).  In
+    training the forward's, the remat's recompute but for w_down (the
+    recompute stops at its last saved tensor) and the backward's: two
+    products each projection, and in the core the gradients of q and k
+    through the scores and of q through q·C and q·n (one chunk: the
+    initial state is a constant and the final one unused).  Without
+    ``cores``, a layout that computes the sLSTM's input product and the
+    mLSTM core whole on every rank."""
     d, h = cfg.d_model, cfg.n_heads
     di = 2 * d
-    half = {"mlstm": (n * d * 2 * di + 3 * n * di * di + 2 * n * di * h,
-                      n * di * d),
-            "slstm": (n * d * 2 * d, n * d * d)}
+    dh = di // h
+    ch = n // rows
+    scores, inter, vec = 2 * n * h * ch * dh, 2 * n * h * dh * dh, \
+        2 * n * h * dh
+    core_fwd = scores + 2 * inter + 2 * vec
+    core_bwd = 2 * scores + inter + vec
+    whole = {"mlstm": (2 * n * d * 2 * di + 6 * n * di * di
+                       + 4 * n * di * h, 2 * n * di * d),
+             "slstm": (2 * n * d * 2 * d + cores * 2 * n * d * 4 * d,
+                       2 * n * d * d)}
     total = 0
     for s in build_model(cfg).plan:
-        body, down = half[s.kind]
+        body, down = whole[s.kind]
         total += 4 * (body + down) - down if kind == "train_4k" \
             else body + down
-    return total
+        if s.kind == "mlstm" and cores:
+            total += 2 * core_fwd + core_bwd if kind == "train_4k" \
+                else core_fwd
+    return total * (tp - 1) // tp
 
 
-@pytest.mark.parametrize("kind", XLSTM_KINDS)
-def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
-    """At 256 tokens the trace's FLOPs on rank 0 (the op's formulas)
-    equal ``FlopCounterMode``'s count of the same rows through the
-    single-device function with the sLSTM's plain loop, less the half
-    of the logits that the vocab cut over the 2-way 'model' axis leaves
-    to the other rank (the forward's and, in training, the backward's
-    two products: three times the forward's) and the half of the
-    blocks' projections that the axis leaves there
-    (:func:`_xlstm_other_half`)."""
+def _xlstm_loop_flops(model, cfg, kind: str, s: int, rows: int) -> int:
+    """``FlopCounterMode``'s count of ``rows`` rows of ``s`` tokens
+    through the single-device train step or prefill with the sLSTM's
+    plain loop (fake tensors)."""
     from torch.utils._pytree import tree_map as tmap
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.models import xlstm as X
     from repro_torch.models.params import abstract_params
@@ -666,10 +693,7 @@ def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
     from repro_torch.train.step import (abstract_state, build_train_step,
                                         train_batch_sds)
 
-    cfg, model, traces = xlstm_traces
-    s = XLSTM_LENGTHS[0]
-    shape = dataclasses.replace(SHAPES[kind], seq_len=s,
-                                global_batch=2)   # rank 0's rows
+    shape = dataclasses.replace(SHAPES[kind], seq_len=s, global_batch=rows)
     if kind == "train_4k":
         fn, _, _ = build_train_step(model, cfg, AdamWConfig())
         tree = (abstract_state(model, cfg, AdamWConfig(), D.DTYPE),
@@ -684,11 +708,86 @@ def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
         args = tmap(lambda t: torch.empty(t.shape, dtype=t.dtype), tree)
         with FlopCounterMode(display=False) as fc:
             fn(*args)
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("kind", XLSTM_KINDS)
+def test_xlstm_trace_flops_equal_the_loop(xlstm_traces, kind):
+    """At 256 tokens the trace's FLOPs on rank 0 (the op's formulas)
+    equal ``FlopCounterMode``'s count of the same rows through the
+    single-device function with the sLSTM's plain loop, less the half
+    of the logits that the vocab cut over the 2-way 'model' axis leaves
+    to the other rank (the forward's and, in training, the backward's
+    two products: three times the forward's) and the half of the
+    blocks' cut products that the axis leaves there
+    (:func:`_xlstm_other_half`)."""
+    cfg, model, traces = xlstm_traces
+    s = XLSTM_LENGTHS[0]
     rows = 2 * (s if kind == "train_4k" else 1)    # the logits' rows
     passes = 3 if kind == "train_4k" else 1
     other_half = passes * 2 * rows * cfg.d_model * cfg.vocab // 2 \
         + _xlstm_other_half(cfg, 2 * s, kind)
-    assert traces[kind, s]["flops"] == fc.get_total_flops() - other_half
+    assert traces[kind, s]["flops"] == _xlstm_loop_flops(
+        model, cfg, kind, s, 2) - other_half
+
+
+_XLSTM_4WAY = """
+import dataclasses, json, sys
+sys.path.insert(0, %r)
+import test_torch_dryrun as T
+from repro_torch.configs import build_model, get_smoke_config
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.config import SHAPES
+D.fake_world(4)
+mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+cfg = get_smoke_config("xlstm-125m")
+out = {}
+for kind in T.XLSTM_KINDS:
+    shape = dataclasses.replace(SHAPES[kind], seq_len=256, global_batch=2)
+    rec = D.run_cell("xlstm-125m", kind, False, device="cpu", cfg=cfg,
+                     shape=shape, mesh=mesh)
+    out[kind] = {"status": rec["status"],
+                 "flops": rec["cost"]["flops_per_device"],
+                 "loop": T._xlstm_loop_flops(build_model(cfg), cfg, kind,
+                                             256, 2)}
+print(json.dumps(out))
+"""
+
+
+def test_xlstm_flops_a_rank_fall_on_a_4_way_axis():
+    """xlstm's smoke cells at 256 tokens on rank 0 of a fake (1, 4) world
+    (its own process: this module's fixture made a 4-rank (2, 2) world
+    here): the trace's FLOPs are the loop's less the other three ranks'
+    3/4 of the logits and of every cut product (:func:`_xlstm_other_half`
+    at tp 4), so they fall below a layout that computes the sLSTM's
+    input product and the mLSTM core whole on every rank by 3/4 of
+    those terms, the rank computing 1/4 of them."""
+    import subprocess
+
+    from repro_torch.configs import build_model
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    out = subprocess.run([sys.executable, "-c", _XLSTM_4WAY % os.path.join(
+        ROOT, "tests")], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    cfg = get_smoke_config("xlstm-125m")
+    d, n, s = cfg.d_model, 512, 256
+    for kind in XLSTM_KINDS:
+        rec = got[kind]
+        rows = 2 * (s if kind == "train_4k" else 1)
+        passes = 3 if kind == "train_4k" else 1
+        logits = passes * 2 * rows * d * cfg.vocab * 3 // 4
+        other = _xlstm_other_half(cfg, n, kind, tp=4)
+        whole_cores = rec["loop"] - logits - _xlstm_other_half(
+            cfg, n, kind, tp=4, cores=False)
+        assert rec["status"] == "ok"
+        assert rec["flops"] == rec["loop"] - logits - other, (kind, rec)
+        # at 256 tokens the cut terms are a third of the loop's count or
+        # more; a rank keeps a quarter of them
+        assert rec["flops"] < 0.75 * whole_cores, (kind, rec, whole_cores)
 
 
 def test_skipped_cell_writes_its_reason():

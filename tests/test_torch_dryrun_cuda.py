@@ -212,23 +212,26 @@ def test_slstm_op_on_the_card_matches_the_cpu(card):
               torch.randn((d, 4 * d), generator=gen) * 0.5 * d ** -0.5,
               torch.randn((4 * d,), generator=gen) * 0.5]
     dhs = torch.randn((b, s, d), generator=gen)
+    x, w_in, w_rec, bias = (t.cuda() for t in inputs)
     torch.library.opcheck(
         torch.ops.repro_torch.slstm_scan.default,
-        ([t.cuda() for t in inputs] + [True]),
+        (x @ w_in, w_rec, bias, True),
         test_utils=("test_schema", "test_autograd_registration",
                     "test_faketensor"))
 
+    # the op and the loop over the same hoisted input product x @ w_in
     def op(x, w_in, w_rec, bias):
-        return X.slstm_scan(x, w_in, w_rec, bias)[0]
+        xw = X._slstm_xw({"w_in": w_in}, x)
+        return X.slstm_scan(xw, w_rec, bias)[0]
 
     def loop(x, w_in, w_rec, bias):
         st = X.init_slstm_state(b, X.XLSTMSpec(d_model=d, n_heads=2),
                                 x.device)
-        p = {"w_in": w_in, "w_rec": w_rec, "b": bias}
+        xw = X._slstm_xw({"w_in": w_in}, x)
         hs = []
         for t in range(s):
-            st, h = X._slstm_cell(p, x[:, t], st)
-            hs.append(h)
+            st, _ = X._slstm_step(xw[:, t], w_rec, bias, st)
+            hs.append(st.h)
         return torch.stack(hs, dim=1)
 
     cpu_hs, cpu_g = _slstm_run(op, inputs, dhs)

@@ -1,17 +1,24 @@
 """Port vs reference: the sLSTM recurrence as one torch op
 (``repro_torch::slstm_scan``) with its hand-written backward
-(``repro_torch::slstm_scan_backward``), on the CPU.
+(``repro_torch::slstm_scan_backward``), on the CPU.  The op takes the
+input part of the pre-activations, ``xw = x @ w_in``, hoisted out of
+the recurrence as one product (``xlstm._slstm_xw``); it returns the
+gradient of ``xw``, and the hoisted product's own backward gives those
+of ``x`` and ``w_in``.
 
 Inputs are made with numpy from a seed.  Yardsticks:
 
-* the plain version ``slstm_train_loop`` (the Python loop over time,
-  differentiated by autograd): the op's forward bitwise, its gradients
-  within ``LOOP_GRAD_TOL`` normwise (the backward sums in another order);
+* the plain version ``slstm_train_loop`` (the same hoisted product, then
+  the Python loop over time, differentiated by autograd): the op's
+  forward bitwise, its gradients (of ``xw``, ``w_rec`` and ``b``, and
+  through the hoisted product of ``x`` and ``w_in``) within
+  ``LOOP_GRAD_TOL`` normwise (the backward sums in another order);
 * the reference's ``slstm_train`` (``lax.scan``, ``jax.grad``) at the
   tolerances ``tests/test_torch_xlstm.py`` (``LAYER_TOL``) and
   ``tests/test_torch_train_families.py`` (``GRAD_TOL``) hold xlstm to;
 * the op's fake implementations against its real outputs, its FLOP
-  formulas against ``FlopCounterMode`` over the loop.
+  formulas against ``FlopCounterMode`` over the loop (one product a
+  step; the hoisted product is the matmul's, counted once).
 
 The gradient cases force the edges of the recurrence: a tie in the
 stabiliser ``m = max(logsigmoid(f) + m', i)`` at every step after the
@@ -79,6 +86,11 @@ def _t(a):
 def _specs(d):
     return X.XLSTMSpec(d_model=d, n_heads=2), JX.XLSTMSpec(d_model=d,
                                                           n_heads=2)
+
+
+def _xw(p: dict, x) -> torch.Tensor:
+    """The op's input from numpy weights and inputs: x @ w_in, fp32."""
+    return _t(x) @ _t(p["w_in"])
 
 
 def _normwise(got, want):
@@ -175,7 +187,7 @@ def _edges(p, x):
     d = x.shape[-1]
     with torch.no_grad():
         outs = torch.ops.repro_torch.slstm_scan(
-            _t(x), _t(p["w_in"]), _t(p["w_rec"]), _t(p["b"]), True)
+            _xw(p, x), _t(p["w_rec"]), _t(p["b"]), True)
     pre, ns, ms = outs[5], outs[7], outs[8]
     i, f = pre[..., d:2 * d], pre[..., 2 * d:3 * d]
     a = F.logsigmoid(f[:, 1:]) + ms[:, :-1]
@@ -203,16 +215,50 @@ def test_op_gradients_match_loop_and_reference(case):
         assert np.isfinite(g).all(), name
         assert _normwise(g, gl) < LOOP_GRAD_TOL, name
         assert _normwise(g, np.asarray(gj)) < GRAD_TOL, name
+    # the op's own gradients, of xw, w_rec and b, against the loop's
+    # steps over the same xw
+    for name, g, gl in zip(("xw", "w_rec", "b"),
+                           _scan_grads(X.slstm_scan, p, x, w),
+                           _scan_grads(_step_loop, p, x, w)):
+        assert np.isfinite(g).all(), name
+        assert _normwise(g, gl) < LOOP_GRAD_TOL, name
+
+
+def _step_loop(xw, w_rec, b):
+    """The loop of ``slstm_train_loop`` over a given ``xw``: its hidden
+    states and final state."""
+    bsz, s, d4 = xw.shape
+    st = X.init_slstm_state(bsz, X.XLSTMSpec(d_model=d4 // 4, n_heads=2))
+    hs = []
+    for t in range(s):
+        st, _ = X._slstm_step(xw[:, t], w_rec, b, st)
+        hs.append(st.h)
+    return torch.stack(hs, dim=1), st
+
+
+def _scan_grads(fn, p, x, w):
+    """The gradients of the loss of ``_loss_weights`` over the hidden
+    states and final state with respect to ``xw``, ``w_rec`` and ``b``
+    of ``fn(xw, w_rec, b)``."""
+    leaves = [_xw(p, x), _t(p["w_rec"]), _t(p["b"])]
+    for t in leaves:
+        t.requires_grad_(True)
+    hs, st = fn(*leaves)
+    loss = (hs * _t(w["out"])).sum()
+    for f in ("c", "n", "h", "m"):
+        if f in w:
+            loss = loss + (getattr(st, f) * _t(w[f])).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
 
 
 def test_backward_without_saved_tensors_raises():
     """Called with ``keep=False`` the op saves nothing for its backward,
     and the backward says so instead of computing something else."""
     d = 8
-    p = {k: _t(v) for k, v in _params(d, 5).items()}
-    x = _t(_x(1, 3, d, 5)).requires_grad_(True)
-    hs = torch.ops.repro_torch.slstm_scan(x, p["w_in"], p["w_rec"],
-                                          p["b"], False)[0]
+    p = _params(d, 5)
+    xw = _xw(p, _x(1, 3, d, 5)).requires_grad_(True)
+    hs = torch.ops.repro_torch.slstm_scan(xw, _t(p["w_rec"]), _t(p["b"]),
+                                          False)[0]
     with pytest.raises(RuntimeError, match="keep"):
         hs.sum().backward()
 
@@ -222,9 +268,9 @@ def test_backward_without_saved_tensors_raises():
 # ---------------------------------------------------------------------------
 
 def _op_inputs(b, s, d, seed=6):
+    """The op's (xw, w_rec, b)."""
     p = _params(d, seed)
-    return (_t(_x(b, s, d, seed)), _t(p["w_in"]), _t(p["w_rec"]),
-            _t(p["b"]))
+    return _xw(p, _x(b, s, d, seed)), _t(p["w_rec"]), _t(p["b"])
 
 
 def _meta(outs):
@@ -243,8 +289,7 @@ def test_fake_outputs_match_real(keep):
     if not keep:
         return
     grads = [torch.randn(tuple(t.shape)) for t in real[:5]]
-    args = (real_in[0], real_in[1], real_in[2], *real[:1], *real[5:],
-            *grads)
+    args = (real[0], real_in[1], *real[5:], *grads)
     real_b = torch.ops.repro_torch.slstm_scan_backward(*args)
     with FakeTensorMode() as mode:
         fake_b = torch.ops.repro_torch.slstm_scan_backward(
@@ -258,62 +303,67 @@ def test_opcheck():
     ops (``None`` gradients of the final state included)."""
     utils = ("test_schema", "test_autograd_registration",
              "test_faketensor")
-    x, w_in, w_rec, b = _op_inputs(2, 4, 8)
+    xw, w_rec, b = _op_inputs(2, 4, 8)
     torch.library.opcheck(torch.ops.repro_torch.slstm_scan.default,
-                          (x.requires_grad_(True), w_in, w_rec, b, True),
+                          (xw.requires_grad_(True), w_rec, b, True),
                           test_utils=utils)
-    outs = torch.ops.repro_torch.slstm_scan(x.detach(), w_in, w_rec, b,
-                                            True)
+    outs = torch.ops.repro_torch.slstm_scan(xw.detach(), w_rec, b, True)
     torch.library.opcheck(
         torch.ops.repro_torch.slstm_scan_backward.default,
-        (x.detach(), w_in, w_rec, outs[0], *outs[5:],
-         torch.randn_like(outs[0]), None, None, torch.randn_like(outs[3]),
-         None), test_utils=utils)
+        (outs[0], w_rec, *outs[5:], torch.randn_like(outs[0]), None, None,
+         torch.randn_like(outs[3]), None), test_utils=utils)
 
 
 @pytest.mark.parametrize("size", SIZES, ids=str)
 def test_flop_formulas_count_the_loop(size):
-    """The loop under ``FlopCounterMode``: two (B, D) @ (D, 4D) products
-    a step forward; with ``x`` and the weights requiring grad the
-    backward's products less the previous h's gradient at t = 0."""
+    """The loop over a given ``xw`` under ``FlopCounterMode``: one
+    (B, D) @ (D, 4D) product a step forward; with ``xw`` and the weights
+    requiring grad the backward's products (w_rec's gradient a step, the
+    previous h's at every step but the first).  Through the block's
+    ``slstm_scan`` on the hoisted ``x @ w_in`` the product is the
+    matmul's, counted once: the op's formulas plus its forward and its
+    backward's two products."""
     b, s, d = size
-    spec, _ = _specs(d)
-    p = {k: _t(v) for k, v in _params(d, 7).items()}
-    mixer = {k: p[k].requires_grad_(True) for k in ("w_in", "w_rec", "b")}
-    x = _t(_x(b, s, d, 7))
+    p = _params(d, 7)
+    w_rec, bias = (_t(p[k]).requires_grad_(True) for k in ("w_rec", "b"))
+    xw0 = _xw(p, _x(b, s, d, 7))
 
     def count(fn, grad):
-        xx = x.clone().requires_grad_(grad)
         with FlopCounterMode(display=False) as fc:
             if grad:
-                fn(xx)[0].sum().backward()
+                fn(grad)[0].sum().backward()
             else:
                 with torch.no_grad():
-                    fn(xx)
+                    fn(grad)
         return fc.get_flop_counts()["Global"]
 
-    def loop(xx):
-        st = X.init_slstm_state(b, spec)
-        hs = []
-        for t in range(s):
-            st, h = X._slstm_cell(mixer, xx[:, t], st)
-            hs.append(h)
-        return torch.stack(hs, dim=1), st
+    def loop(grad):
+        return _step_loop(xw0.clone().requires_grad_(grad), w_rec, bias)
 
-    def op(xx):
-        return X.slstm_scan(xx, *mixer.values())
+    def op(grad):
+        return X.slstm_scan(xw0.clone().requires_grad_(grad), w_rec, bias)
+
+    def hoisted(grad):
+        x = _t(_x(b, s, d, 7)).requires_grad_(grad)
+        w_in = _t(p["w_in"]).requires_grad_(grad)
+        return X.slstm_scan(X._slstm_xw({"w_in": w_in}, x), w_rec, bias)
 
     fwd = X.slstm_scan_flops(b, s, d)
     bwd = X.slstm_scan_backward_flops(b, s, d)
-    assert fwd == 16 * b * s * d * d
-    assert bwd == 32 * b * s * d * d - 8 * b * d * d
-    loop_fwd = count(loop, False)
-    assert sum(loop_fwd.values()) == fwd
+    assert fwd == 8 * b * s * d * d
+    assert bwd == 16 * b * s * d * d - 8 * b * d * d
+    assert sum(count(loop, False).values()) == fwd
     assert sum(count(loop, True).values()) == fwd + bwd
     assert count(op, False) == {torch.ops.repro_torch.slstm_scan: fwd}
     assert count(op, True) == {torch.ops.repro_torch.slstm_scan: fwd,
                                torch.ops.repro_torch.slstm_scan_backward:
                                bwd}
+    product = 2 * b * s * d * 4 * d
+    assert sum(count(hoisted, False).values()) == fwd + product
+    got = count(hoisted, True)
+    assert got.pop(torch.ops.repro_torch.slstm_scan) == fwd
+    assert got.pop(torch.ops.repro_torch.slstm_scan_backward) == bwd
+    assert sum(got.values()) == 3 * product
 
 
 def test_op_refuses_what_it_cannot_take():
@@ -323,21 +373,23 @@ def test_op_refuses_what_it_cannot_take():
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate
 
-    x, w_in, w_rec, b = _op_inputs(2, 4, 8)
+    xw, w_rec, b = _op_inputs(2, 4, 8)
     with pytest.raises(TypeError, match="bfloat16"):
-        X.slstm_scan(x.bfloat16(), w_in, w_rec, b)
+        X.slstm_scan(xw.bfloat16(), w_rec, b)
     with pytest.raises(ValueError, match="meta"):
-        X.slstm_scan(x, w_in.to("meta"), w_rec, b)
+        X.slstm_scan(xw, w_rec.to("meta"), b)
     with pytest.raises(ValueError, match="w_rec"):
-        X.slstm_scan(x, w_in, w_rec[:, :8], b)
+        X.slstm_scan(xw, w_rec[:, :8], b)
     with pytest.raises(ValueError, match="S >= 1"):
-        X.slstm_scan(x[:, :0], w_in, w_rec, b)
+        X.slstm_scan(xw[:, :0], w_rec, b)
+    with pytest.raises(ValueError, match="4D"):
+        X.slstm_scan(xw[..., :-1], w_rec, b)
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         mesh = init_device_mesh("cpu", (1,))
-        dx = DTensor.from_local(x, mesh, [Replicate()], run_check=False)
+        dxw = DTensor.from_local(xw, mesh, [Replicate()], run_check=False)
         with pytest.raises(TypeError, match="DTensor"):
-            X.slstm_scan(dx, w_in, w_rec, b)
+            X.slstm_scan(dxw, w_rec, b)
     finally:
         dist.destroy_process_group()

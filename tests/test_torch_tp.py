@@ -8,10 +8,12 @@ plain versions run (CPU tensors).
 * (1, 2): stablelm-1.6b's smoke config (4 heads, 4 KV heads: both
   cut), granite-8b's (2 KV heads: one a rank), chameleon-34b's (qk
   norms applied to each rank's heads: their gradient is a partial sum),
-  recurrentgemma-2b's (the RG-LRU on its W / 2 channels beside local
-  attention on 2 heads a rank) and xlstm-125m's (the mLSTM's and
-  sLSTM's projections on their widths, the mLSTM core and the sLSTM
-  recurrence whole);
+  recurrentgemma-2b's (the RG-LRU on its W / 2 channels, its gates'
+  partial products reduce-scattered, beside local attention on 2 heads
+  a rank) and xlstm-125m's (the mLSTM's and sLSTM's projections on
+  their widths, the sLSTM's input product on its columns of ``w_in``
+  and gathered, the mLSTM's chunked core on its key dims with its
+  (num, den) summed; only the sLSTM recurrence, h @ w_rec, whole);
 * (1, 4): granite-8b's (2 KV heads on 4 ranks: each rank picks the KV
   head its query head reads, and that gradient is a partial sum),
   starcoder2-3b's cut to 6 heads (6 % 4: ranks 0-2 compute 2 whole
@@ -44,11 +46,15 @@ cut product flips, 3.7e-6 to 4.6e-5 normwise after 3 steps, as
 tests/test_torch_train_families.py found for their single-device
 steps), the weights a rank computes with
 (their local shapes; the heads a rank's attention core is given), the
-all-gathers of a step counted by
-``CommDebugMode`` (DTensor's: only the weights computed whole and
-stored cut; the model's own: the xLSTM blocks' up-projections), and
-the built prefill's logits and caches against the single-device
-prefill (1e-5).
+all-gathers of a step counted by ``CommDebugMode`` (DTensor's: only the
+weights computed whole and stored cut, and the gradients of those
+computed cut and stored whole, the RG-LRU gates' biases; the model's
+own: the xLSTM blocks' up-projections and the sLSTM's input product,
+and the backward of the RG-LRU gates' reduce-scatter), and the built
+prefill's logits and caches against the single-device prefill (1e-5).
+Each world also holds ``collectives.reduce_scatter`` on its 'model'
+group: the forward each rank's block of the sum, the backward every
+rank's gradient joined.
 """
 
 import dataclasses
@@ -198,6 +204,60 @@ def _gathered(model, cfg, mesh, s_specs) -> list[str]:
     return out
 
 
+def _assembled(model, cfg, mesh, s_specs) -> list[str]:
+    """The weights stored whole and computed cut over 'model' (not
+    partial): each rank's gradient is its piece, assembled into the
+    stored whole by an all-gather."""
+    from repro_torch.models.params import is_spec, tree_leaves, tree_paths
+    from repro_torch.models.transformer import dense_mesh_layout, \
+        dense_weight_key
+
+    dense = dense_mesh_layout(cfg, mesh)
+    out = []
+    for path, spec in zip(tree_paths(model.defs),
+                          tree_leaves(s_specs["params"], is_leaf=is_spec)):
+        stored_cut = any(e == "model" or (isinstance(e, tuple)
+                                          and "model" in e) for e in spec)
+        compute, partial = dense.get(dense_weight_key(model, path),
+                                     ((), False))
+        if not stored_cut and "model" in compute and not partial:
+            out.append("/".join(map(str, path)))
+    return out
+
+
+#: reduce_scatter's output shape a rank, and the dims it scatters
+RS_SHAPE, RS_DIMS = (3, 4, 5), (0, 1, -1)
+
+
+def _reduce_scatter_case(mesh) -> dict:
+    """``collectives.reduce_scatter`` on the rank's 'model' group along
+    each of RS_DIMS: the largest |error| of the forward against the
+    rank's block of the sum of every rank's input (each made here from
+    its rank's seed) and of the backward against every rank's output
+    gradient joined along the dim."""
+    from repro_torch.dist.collectives import TPGroup, reduce_scatter
+
+    tp = TPGroup.of(mesh, "model")
+    errs = {}
+    for dim in RS_DIMS:
+        shape = list(RS_SHAPE)
+        shape[dim] *= tp.size
+        xs = [torch.from_numpy(np.random.default_rng(r).standard_normal(
+            shape).astype(np.float32)) for r in range(tp.size)]
+        gs = [torch.from_numpy(np.random.default_rng(100 + r)
+                               .standard_normal(RS_SHAPE).astype(np.float32))
+              for r in range(tp.size)]
+        x = xs[tp.rank].clone().requires_grad_(True)
+        y = reduce_scatter(x, tp.group, dim)
+        y.backward(gs[tp.rank])
+        want = sum(xs).chunk(tp.size, dim=dim)[tp.rank]
+        errs[str(dim)] = {
+            "shape": list(y.shape),
+            "forward": float((y - want).abs().max()),
+            "backward": float((x.grad - torch.cat(gs, dim=dim)).abs().max())}
+    return errs
+
+
 def _case(mesh, tmp_ref: str, arch: str, over: dict) -> dict:
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
@@ -311,6 +371,7 @@ def _case(mesh, tmp_ref: str, arch: str, over: dict) -> dict:
         "model_gathers": sum(v for k, v in counts.items()
                              if "functional" not in k and "allgather" in k),
         "gathered": _gathered(model, cfg, mesh, s_specs),
+        "assembled": _assembled(model, cfg, mesh, s_specs),
         "logits_shape": list(logits.shape),
         "logits_err": float((logits - want).abs().max()),
         "cache_err": cache_err,
@@ -339,7 +400,8 @@ def _world(rank, world, shape, tmp):
 
         mesh = init_device_mesh("cpu", shape,
                                 mesh_dim_names=("data", "model"))
-        res = {"coord": list(mesh.get_coordinate())}
+        res = {"coord": list(mesh.get_coordinate()),
+               "reduce_scatter": _reduce_scatter_case(mesh)}
         for arch, over in WORLDS[shape]:
             cid = _case_id(arch, over)
             res[cid] = _case(mesh, f"{tmp}/../ref_{cid}.pt", arch, over)
@@ -503,9 +565,10 @@ def recurrent_shapes(cfg, tp: int, rows: int | None = None) -> dict:
     """The local shapes of the recurrent mixers' logged weights
     (RECURRENT_LOGGED) on a ``tp``-way axis, for the kinds ``cfg`` has:
     the RG-LRU on its W / tp channels, the xLSTM blocks' projections on
-    their widths, the sLSTM's recurrence weights whole.  With ``rows``,
-    a decode step's on a rank's ``rows`` rows: the sLSTM's ``w_in``,
-    ``w_rec`` and ``b`` on their stored columns, and the state a mixer
+    their widths (the sLSTM's ``w_in`` on its stored columns), the
+    sLSTM's recurrence weights whole.  With ``rows``, a decode step's on
+    a rank's ``rows`` rows: the sLSTM's ``w_rec`` and ``b`` on their
+    stored columns too, and the state a mixer
     is given (``state.<field>``): the RG-LRU's on its channels, the
     mLSTM's ``c`` and ``n`` on their key dim, the rest whole."""
     from repro_torch.configs import build_model
@@ -521,7 +584,7 @@ def recurrent_shapes(cfg, tp: int, rows: int | None = None) -> dict:
         "mlstm": {"w_up": (d, 2 * di // tp), "wq": (di // tp, di),
                   "w_igate": (di // tp, h), "w_down": (di // tp, d),
                   "norm": (di,)},
-        "slstm": {"w_in": (d, g), "w_rec": (d, g), "b": (g,),
+        "slstm": {"w_in": (d, 4 * d // tp), "w_rec": (d, g), "b": (g,),
                   "w_up": (d, 2 * d // tp), "w_down": (d // tp, d)}}
     if rows is not None:
         table["rglru"].update({
@@ -546,10 +609,14 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
     ``wi`` or ``embed`` where the 'model' axis cuts their heads, FF
     width or vocab, nor MLA's ``wq_b``, ``wk_b``, ``wv_b`` or ``wo``
     (MLA's latent projections stay whole), nor an RG-LRU weight, nor an
-    xLSTM weight but the sLSTM's ``w_in``, ``w_rec`` and ``b`` (its
-    recurrence runs whole).  The model's own all-gathers are the xLSTM
-    blocks' up-projections, one a layer in the forward and one in the
-    remat's recompute."""
+    xLSTM weight but the sLSTM's ``w_rec`` and ``b`` (its recurrence,
+    h @ w_rec, runs whole; its input product on ``w_in``'s columns) —
+    and the gradients of the weights computed cut and stored whole (the
+    RG-LRU gates' biases), assembled.  The model's own all-gathers are
+    the xLSTM blocks' up-projections and the sLSTM's input product, one
+    each a layer in the forward and one in the remat's recompute, and
+    the backward of each RG-LRU layer's gates' reduce-scatter; the
+    mLSTM core, on its key dims, gathers nothing in a train step."""
     from repro_torch.configs import build_model
 
     shape, arch, over = case
@@ -580,8 +647,12 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
     recurrent = {i for i, s in enumerate(plan)
                  if s.kind in ("rglru", "mlstm", "slstm")}
     slstm = {f"layers/{i}/mixer/{n}" for i, s in enumerate(plan)
-             if s.kind == "slstm" for n in ("w_in", "w_rec", "b")}
-    up = 2 * sum(s.kind in ("mlstm", "slstm") for s in plan)
+             if s.kind == "slstm" for n in ("w_rec", "b")}
+    kinds = [s.kind for s in plan]
+    up = 2 * sum(k in ("mlstm", "slstm") for k in kinds) \
+        + 2 * kinds.count("slstm") + kinds.count("rglru")
+    biases = {f"layers/{i}/mixer/{n}" for i, s in enumerate(plan)
+              if s.kind == "rglru" for n in ("b_input_gate", "b_rec_gate")}
     attn = cfg.attn_kind != "mla" and any(s.kind in ("attn", "local")
                                           for s in plan)
     per = -(-h // tp)
@@ -594,7 +665,9 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
         assert set(c["shapes"]) == set(mine)
         for name, s in mine.items():
             assert c["shapes"][name] == [list(s)], name
-        assert c["all_gathers"] == len(c["gathered"]), c["gathered"]
+        assert set(c["assembled"]) == biases, c["assembled"]
+        assert c["all_gathers"] == len(c["gathered"]) + len(biases), \
+            c["gathered"]
         assert c["model_gathers"] == up
         for name in c["gathered"]:
             leaf = name.split("/")[-1]
@@ -621,6 +694,21 @@ def test_tp_rank_computes_on_its_shards(worlds, case):
             for n in ("wk", "wv")]
 
 
+@pytest.mark.parametrize("shape", list(WORLDS), ids=str)
+def test_reduce_scatter_sums_and_gathers(worlds, shape):
+    """``collectives.reduce_scatter`` over the 'model' group of 2 and of 4
+    ranks, along dims 0, 1 and -1: each rank's output is its block of
+    the sum of every rank's input (fp32, summed in another order:
+    1e-6), and its input's gradient is every rank's output gradient
+    joined along the dim, exactly (the all-gather copies)."""
+    tp = shape[1]
+    for r in worlds[shape]:
+        for dim, got in r["reduce_scatter"].items():
+            assert got["shape"] == list(RS_SHAPE), dim
+            assert got["forward"] <= 1e-6 * tp, (dim, got)
+            assert got["backward"] == 0.0, (dim, got)
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_tp_ranks_hold_the_same_loss(worlds, case):
     shape, arch, over = case
@@ -635,8 +723,9 @@ def test_dense_mesh_layout_of_the_production_archs():
     where Hkv does not (a decode step: the stored columns), a range of
     heads taken from the whole weights for starcoder2's 24 and
     recurrentgemma's 10 (their decode on the stored columns), the vocab and FF cut, the RG-LRU on its W
-    channels, the xLSTM blocks' projections on their widths (the
-    sLSTM's recurrence weights on theirs in a decode step only), the
+    channels (the gates' biases too), the xLSTM blocks' projections on
+    their widths (the sLSTM's input weight ``w_in`` on its columns, its
+    recurrence weights on theirs in a decode step only), the
     encoder-decoder's attentions on its uneven heads, its MLPs on their
     cut and its odd vocabulary on ranges of the whole embedding."""
     from repro_torch.configs import get_config
@@ -693,6 +782,7 @@ def test_dense_mesh_layout_of_the_production_archs():
         "rglru.wx": cols, "rglru.wy": cols, "rglru.conv_w": cols,
         "rglru.conv_b": chans, "rglru.lam": chans,
         "rglru.w_input_gate": rows, "rglru.w_rec_gate": rows,
+        "rglru.b_input_gate": chans, "rglru.b_rec_gate": chans,
         "rglru.wo": rows}
     # deepseek's mixer is MLA, not GQA; its dense MLP is cut
     assert "attn.wq" not in lay["deepseek-v2-236b"]
@@ -709,15 +799,16 @@ def test_dense_mesh_layout_of_the_production_archs():
         "embed": rows, "unembed": cols, "mlstm.w_up": cols,
         "mlstm.wq": rows, "mlstm.wk": rows, "mlstm.wv": rows,
         "mlstm.w_igate": rows, "mlstm.w_fgate": rows,
-        "mlstm.w_down": rows, "slstm.w_up": cols, "slstm.w_down": rows}
+        "mlstm.w_down": rows, "slstm.w_up": cols, "slstm.w_down": rows,
+        "slstm.w_in": cols}
     assert dec["xlstm-125m"] == {
-        **lay["xlstm-125m"], "slstm.w_in": cols, "slstm.w_rec": cols,
-        "slstm.b": chans}
+        **lay["xlstm-125m"], "slstm.w_rec": cols, "slstm.b": chans}
     assert not any(k.startswith(("rglru.", "mlstm.", "slstm."))
                    for a, t in dec.items()
                    if a not in ("recurrentgemma-2b", "xlstm-125m")
                    for k in t)
-    # a decode step's layout differs only by the sLSTM's weights and
+    # a decode step's layout differs only by the sLSTM's recurrence
+    # weights and
     # the attention of uneven heads or KV heads (granite's 8 KV heads on
     # 16: the stored columns of wk and wv, 128 of 1024, and wq's, wo's)
     assert dec["granite-8b"]["attn.wk"] == cols
